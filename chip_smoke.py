@@ -4,20 +4,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from gasr_tpu_torch/csrc, holds each against its
-plain PyTorch version at the shapes of the main path, reproduces the
-prefix-decode golden fixtures through the kernels, and drives the main
-path, `Pipeline.transcribe` on the `reference_large` preset (B=256,
-T=200, F=78, hidden 2048, V=47, beam 100, max_len 256) with
-rnn_impl="pallas", counting the kernel launches of that one run. Any
-failed check raises and the script exits non-zero. It imports nothing of
-JAX or of the JAX package.
+plain PyTorch version at the shapes of the main paths, reproduces the
+golden decode fixtures through the port, and drives two paths on the
+`reference_large` preset (B=256, T=200, F=78, hidden 2048, V=47, beam
+100, max_len 256), counting the kernel launches of one run of each:
+  - `Pipeline.transcribe` with rnn_impl="pallas" (phase 6);
+  - the streaming decode, `streaming_step` over the same log-probs in 10
+    chunks of 20 frames, held array-equal to the batch decode, then
+    `Pipeline.transcribe_streaming` (phase 7).
+Any failed check raises and the script exits non-zero. It imports
+nothing of JAX or of the JAX package.
 
 Output: progress lines; then one JSON line {"kernels": [...]} with each
-kernel's launches on the main path, error against its plain version,
-times (CUDA events after warm-up), least time on the card (bound) and,
-where one PyTorch call computes the same function, that call's time;
-then the card's name and power limit; then, last, the JSON line
-{"ok": true, "device": {...}}.
+kernel's launches on the path that runs it (and per path), error against
+its plain version, times (CUDA events after warm-up), least time on the
+card (bound) and, where one PyTorch call computes the same function,
+that call's time; then the card's name and power limit; then, last, the
+JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,6 +47,12 @@ DECODE_SCORE_TOL = 1e-6    # same float32 expressions in the same order and
                            # in expf/log1pf could show, scaled by |score|
 GOLDEN_SCORE_TOL = 1e-5    # fixtures were written by XLA on a CPU, whose
                            # exp/log1p differ from CUDA's in the last bits
+STREAM_LP_TOL = 1e-5       # chunked float32 forward against the one-shot
+                           # one: the same ops, but each linear's GEMM has
+                           # 20*256 rows instead of 200*256, so cuBLAS may
+                           # block the sums differently; H100 reading
+                           # 4.8e-7 (PERF.md)
+STREAM_TC = 20             # frames per streaming chunk (bench.py's row)
 RNN_STEP_TOL = 1e-5        # one step from the same h: only the float32
                            # summation order (tensor cores vs cuBLAS) and
                            # tanhf differ
@@ -88,9 +97,12 @@ def main() -> int:
     from gasr_tpu_torch.config import PRESETS, Config
     from gasr_tpu_torch.decoder.beam_search import (_init_beam,
                                                     ctc_beam_search,
-                                                    decode_to_lists)
+                                                    decode_to_lists,
+                                                    streaming_init,
+                                                    streaming_step)
     from gasr_tpu_torch.infer import Pipeline
     from gasr_tpu_torch.models import model_init
+    from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
     from gasr_tpu_torch.ops.cuda import (_lib, fused_decode, rnn_scan,
                                          topk)
 
@@ -265,12 +277,13 @@ def main() -> int:
         max_abs_err=max(step_err, rnn_err, rev_err), bound_ms=b_ms,
         bound_by=b_by)
 
-    # ---- 4. golden fixtures through the kernel path
-    for name, lens in (("prefix_small", None), ("prefix_wide", None),
-                       ("prefix_lens", [18, 12, 7])):
+    # ---- 4. golden fixtures through the port on the card: the prefix
+    # ones through the kernels, reference_small through the sort merge
+    for name, kw in (("prefix_small", {}), ("prefix_wide", {}),
+                     ("prefix_lens", {"input_lengths": torch.tensor(
+                         [18, 12, 7], device=dev)}),
+                     ("reference_small", {"algorithm": "reference"})):
         d = np.load(os.path.join(ROOT, "tests", "golden", name + ".npz"))
-        kw = {} if lens is None else {
-            "input_lengths": torch.tensor(lens, device=dev)}
         res = ctc_beam_search(torch.from_numpy(d["log_probs"]).to(dev),
                               beam_width=d["tokens"].shape[1], max_len=32,
                               **kw)
@@ -324,21 +337,25 @@ def main() -> int:
     topk.launches = 0
     fused_decode.decode_launches = 0
     fused_decode.traceback_launches = 0
+    fused_decode.overlay_launches = 0
     rnn_scan.launches = 0
     out = pipe.transcribe(x)
     torch.cuda.synchronize()
     launches = {"topk": topk.launches,
                 "fused_prefix_decode": fused_decode.decode_launches,
                 "traceback": fused_decode.traceback_launches,
+                "traceback_overlay": fused_decode.overlay_launches,
                 "rnn_scan": rnn_scan.launches}
     # The main path runs the block top-W of topk.cuh as a device function
     # inside each fused_prefix_decode launch, never as the standalone topk
     # kernel; what shows it ran is the decode kernel's launch and its
     # bit-equality with the plain decoder (which sorts on the same keys).
     inside = {"topk": "fused_prefix_decode"}
-    for name, n in launches.items():
-        if name not in inside:
-            check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("fused_prefix_decode", "traceback", "rnn_scan"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the main path")
+    check(launches["traceback_overlay"] == 0,
+          "transcribe launched the streaming overlay kernel")
     print(f"main path launches per transcribe: {launches} (topk runs inside "
           f"fused_prefix_decode)", flush=True)
 
@@ -388,6 +405,136 @@ def main() -> int:
           f"ms (median of 5, host clock incl. D2H and lists); mean "
           f"transcript length {mean_len:.1f}", flush=True)
 
+    # ---- 7. the streaming path: the same log-probs in chunks of 20 frames
+    n_chunks = cfg.seg_len // STREAM_TC
+    W, L = cfg.beam_width, cfg.decode_max_len
+
+    def stream(lp_in, keep=False):
+        st = streaming_init(cfg.batch_size, W, max_len=L, device=dev)
+        states, snap = [st], None
+        for i in range(n_chunks):
+            st, snap = streaming_step(
+                st, lp_in[i * STREAM_TC:(i + 1) * STREAM_TC])
+            if keep:
+                states.append(st)
+        return states, snap
+
+    stream(lp)                                           # warm-up
+    torch.cuda.synchronize()
+    topk.launches = 0
+    fused_decode.decode_launches = 0
+    fused_decode.traceback_launches = 0
+    fused_decode.overlay_launches = 0
+    rnn_scan.launches = 0
+    states, snap = stream(lp, keep=True)
+    torch.cuda.synchronize()
+    s_launches = {"topk": topk.launches,
+                  "fused_prefix_decode": fused_decode.decode_launches,
+                  "traceback": fused_decode.traceback_launches,
+                  "traceback_overlay": fused_decode.overlay_launches,
+                  "rnn_scan": rnn_scan.launches}
+    want_launches = {"fused_prefix_decode": n_chunks,
+                     "traceback_overlay": n_chunks, "traceback": 0}
+    for name, n in want_launches.items():
+        check(s_launches[name] == n, f"streaming launches of {name}: "
+              f"{s_launches[name]}, expected {n}")
+    print(f"streaming path launches per stream of {n_chunks} chunks: "
+          f"{s_launches}", flush=True)
+    for field in ("tokens", "lengths", "timesteps", "overflow"):
+        check(torch.equal(getattr(snap, field), getattr(res_k, field)),
+              f"streaming decode {field} differ from the batch decode")
+    check(torch.equal(snap.scores.view(torch.int32),
+                      res_k.scores.view(torch.int32)),
+          "streaming decode scores differ from the batch decode in their "
+          "bits")
+    print(f"streaming decode ({n_chunks} x {STREAM_TC} frames) == batch "
+          f"decode: tokens, lengths, timesteps, overflow equal, scores "
+          f"bit-equal", flush=True)
+
+    # each checked chunk's overlay output (made by the kernel in the
+    # counted run) against the plain version on the same inputs
+    ov_err = 0
+    for i in (0, n_chunks // 2, n_chunks - 1):
+        st0, st1 = states[i], states[i + 1]
+        chunk = lp[i * STREAM_TC:(i + 1) * STREAM_TC]
+        fin_i, ys_i = fused_decode.fused_prefix_decode(chunk, st0.beam)
+        check(torch.equal(fin_i.length, st1.beam.length),
+              f"chunk {i}: decode rerun differs")
+        want = fused_decode.traceback_overlay_plain(
+            ys_i, fin_i.length, st0.tokens, st0.timesteps, st0.frames)
+        for a, b, what in zip((st1.tokens, st1.timesteps), want,
+                              ("tokens", "timesteps")):
+            check(torch.equal(a, b), f"traceback_overlay {what} differ "
+                  f"from the plain version on chunk {i}")
+            ov_err = max(ov_err, int((a - b).abs().max()))
+        if i == n_chunks // 2:
+            ov_args = (ys_i, fin_i.length, st0.tokens, st0.timesteps,
+                       st0.frames)
+    print(f"traceback_overlay == plain on chunks 0, {n_chunks // 2}, "
+          f"{n_chunks - 1} (tokens, timesteps)", flush=True)
+    del states
+    nb = (STREAM_TC * B * W * 4 + 2 * B * W * 4 + 4 * B * W * L * 4)
+    b_ms, b_by = bound(nb, STREAM_TC * B * W * 5, F32_FLOPS)
+    report["traceback_overlay"] = dict(
+        ms=cuda_ms(lambda: fused_decode.traceback_overlay(*ov_args),
+                   iters=20, warmup=3),
+        plain_ms=cuda_ms(
+            lambda: fused_decode.traceback_overlay_plain(*ov_args),
+            iters=2, warmup=1),
+        library_ms=None, max_abs_err=float(ov_err), bound_ms=b_ms,
+        bound_by=b_by)
+
+    def step_ms_mean():
+        st = streaming_init(cfg.batch_size, W, max_len=L, device=dev)
+        times = []
+        for i in range(n_chunks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = streaming_step(
+                st, lp[i * STREAM_TC:(i + 1) * STREAM_TC])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.mean(times))
+
+    stream_ms = host_ms(lambda: stream(lp))
+    step_ms = sorted(step_ms_mean() for _ in range(5))[2]
+    batch_ms = host_ms(lambda: ctc_beam_search(
+        lp, beam_width=W, max_len=L))
+    print(f"streaming decode reference_large ({n_chunks} chunks of "
+          f"{STREAM_TC} frames) on {card}: whole stream {stream_ms:.3f} ms "
+          f"(median of 5, host clock), per streaming_step {step_ms:.3f} ms "
+          f"(mean of {n_chunks}, median of 5 streams), batch decode "
+          f"{batch_ms:.3f} ms (median of 5), streaming / batch "
+          f"{stream_ms / batch_ms:.3f}", flush=True)
+
+    # Pipeline.transcribe_streaming: chunked float32 forward with carried
+    # RNN state, against the one-shot float32 forward (rnn_impl="scan")
+    pipe_s = Pipeline(dataclasses.replace(cfg, rnn_impl="scan"),
+                      params=params)
+    chunks = [x[:, i * STREAM_TC:(i + 1) * STREAM_TC]
+              for i in range(n_chunks)]
+    with torch.no_grad():
+        lp_parts, rnn_state = [], None
+        for c in chunks:
+            part, rnn_state = deepspeech_apply_streaming(params, c,
+                                                         rnn_state)
+            lp_parts.append(part)
+    lp_one = pipe_s.log_probs(x)
+    lp_err = float((torch.cat(lp_parts) - lp_one).abs().max())
+    check(lp_err <= STREAM_LP_TOL, f"chunked forward differs from the "
+          f"one-shot forward by {lp_err}")
+    out_s = pipe_s.transcribe_streaming(chunks)
+    out_one = pipe_s.transcribe(x)
+    n_same = sum(a[0] == b[0] for a, b in zip(out_s, out_one))
+    ts_ms = host_ms(lambda: pipe_s.transcribe_streaming(chunks))
+    print(f"transcribe_streaming reference_large (float32 forward, "
+          f"{n_chunks} chunks of {STREAM_TC} frames) on {card}: "
+          f"{ts_ms:.3f} ms (median of 5 whole calls, host clock) = "
+          f"{audio_s / (ts_ms / 1e3):.1f} audio-seconds/s; log-probs max "
+          f"|chunked - one-shot| {lp_err} (tolerance {STREAM_LP_TOL}); "
+          f"transcripts equal to the one-shot transcribe: {n_same} of "
+          f"{len(out_one)}", flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -395,24 +542,34 @@ def main() -> int:
                                 "gasr_tpu/ops/pallas/fused_decode.py:839"),
         "traceback": ("gasr_tpu_torch/csrc/fused_decode.cu",
                       "gasr_tpu/ops/pallas/fused_decode.py:1618"),
+        "traceback_overlay": ("gasr_tpu_torch/csrc/fused_decode.cu",
+                              "gasr_tpu/ops/pallas/fused_decode.py:1719"),
         "rnn_scan": ("gasr_tpu_torch/csrc/rnn_scan.cu",
                      "gasr_tpu/ops/pallas/rnn_scan.py:52"),
     }
+    # `launches` is each kernel's count on the path that exercises it:
+    # transcribe for the first four, the stream for traceback_overlay
+    paths = {name: {"transcribe": launches[name],
+                    "streaming": s_launches[name]} for name in sources}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
+        n_main = (s_launches[name] if name == "traceback_overlay"
+                  else launches[name])
         lib_ms = ("none" if r["library_ms"] is None
                   else f"{r['library_ms']:.4f} ms")
         print(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {lib_ms}, launches per transcribe "
-              f"{launches[name]}"
+              f"{paths[name]['transcribe']}, per stream "
+              f"{paths[name]['streaming']}"
               + (f" (runs inside {inside[name]})" if name in inside else "")
               + f", bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |kernel - plain| {r['max_abs_err']} "
               f"on {card}")
         entry = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_main,
+            "launches_by_path": paths[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

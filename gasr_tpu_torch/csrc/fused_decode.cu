@@ -1,9 +1,11 @@
-// Whole-scan CTC prefix beam-search decode, and its backpointer traceback.
+// Whole-scan CTC prefix beam-search decode, its backpointer traceback, and
+// the streaming chunk's traceback with the base overlay.
 //
 // fused_prefix_decode replaces gasr_tpu/ops/pallas/fused_decode.py::
 // fused_prefix_decode (`_kernel`, `_frame_math`); traceback replaces
-// fused_decode.py::traceback_pallas (`_tb_kernel(fused=False)`). Both are
-// held equal to the eager matched-merge decoder of
+// fused_decode.py::traceback_pallas (`_tb_kernel(fused=False)`);
+// traceback_overlay replaces fused_decode.py::traceback_overlay_pallas
+// (`_tb_kernel(fused=True)`). All are held equal to the eager decoder of
 // gasr_tpu_torch/decoder/beam_search.py, whose expressions they copy one
 // for one (built with -fmad=false so that no product is fused into a
 // following sum that PyTorch computes as a separate op).
@@ -36,6 +38,22 @@
 // is a coalesced memset; then one thread per (b, w) walks t = T-1..0,
 // reading one ys word per frame and writing each emission at position
 // pos-1 (dropped when < 0 or >= L: head-keeping on overflow).
+//
+// Traceback with overlay (one streaming chunk). Bound on the card: bytes,
+// the reorder copy of the two [B, W, L] buffers (at B=256, W=100, L=256:
+// 2 x 26.2 MB read and 2 x 26.2 MB written; ys of a 20-frame chunk is
+// 2 MB). Design: one warp per (b, w) row. All 32 lanes walk the chunk's
+// Tc frames together (the same ys word each step, one broadcast load);
+// lane 0 writes each emission at pos-1, timestep t + t_offset. The walk
+// ends at the start slot p and at pos, and the emissions fill exactly
+// [pos, final length) (less what falls outside [0, L)); the warp then
+// copies every other position of its row from row p of the base buffers
+// with coalesced 16-byte loads and stores (4-byte ones when L is not a
+// multiple of 4 or a buffer is not 16-byte aligned). The written ranges
+// are disjoint, so no ordering between lanes is needed. Many rows may
+// read the same parent row; the outputs are fresh buffers the wrapper
+// allocates, never the base (a later chunk reads them as its base, and a
+// caller may still hold them as a snapshot).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -247,6 +265,72 @@ __global__ void traceback_kernel(const int* __restrict__ ys,
   start_parent[gid] = cur;
 }
 
+template <bool kVec>
+__global__ void traceback_overlay_kernel(
+    const int* __restrict__ ys, const int* __restrict__ lengths,
+    const int* __restrict__ base_tok, const int* __restrict__ base_ts,
+    int Tc, int B, int W, int L, int t_offset, int* __restrict__ tok,
+    int* __restrict__ ts, int* __restrict__ start_parent) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= B * W) return;   // whole warps leave together
+  const int b = row / W;
+  int* trow = tok + (size_t)row * L;
+  int* srow = ts + (size_t)row * L;
+  const int len = lengths[row];
+  int cur = row - b * W;
+  int pos = len;
+  for (int t = Tc - 1; t >= 0; --t) {
+    const int packed = ys[((size_t)t * B + b) * W + cur];
+    if ((packed >> 30) & 1) {
+      const int e = pos - 1;
+      if (lane == 0 && e >= 0 && e < L) {
+        trow[e] = (packed >> 15) & 0x7FFF;
+        srow[e] = t + t_offset;
+      }
+      pos -= 1;
+    }
+    cur = packed & 0x7FFF;
+  }
+  if (lane == 0) start_parent[row] = cur;
+
+  // the walk wrote [lo, hi) (within [0, L)); the rest is base row `cur`
+  const int lo = pos, hi = len;
+  const size_t src = ((size_t)b * W + cur) * L;
+  if (kVec) {
+    const int4* bt = reinterpret_cast<const int4*>(base_tok + src);
+    const int4* bs = reinterpret_cast<const int4*>(base_ts + src);
+    int4* to = reinterpret_cast<int4*>(trow);
+    int4* so = reinterpret_cast<int4*>(srow);
+    for (int q = lane; q < (L >> 2); q += 32) {
+      const int p0 = q << 2;
+      const int4 a = __ldg(bt + q);
+      const int4 c = __ldg(bs + q);
+      if (p0 + 4 <= lo || p0 >= hi) {
+        to[q] = a;
+        so[q] = c;
+      } else {
+        const int av[4] = {a.x, a.y, a.z, a.w};
+        const int cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (p0 + k < lo || p0 + k >= hi) {
+            trow[p0 + k] = av[k];
+            srow[p0 + k] = cv[k];
+          }
+        }
+      }
+    }
+  } else {
+    for (int p = lane; p < L; p += 32) {
+      if (p < lo || p >= hi) {
+        trow[p] = base_tok[src + p];
+        srow[p] = base_ts[src + p];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int fused_prefix_decode_launch(const float* lp, const int* init,
@@ -276,5 +360,31 @@ extern "C" int traceback_launch(const int* ys, const int* lengths, int T,
   const int blocks = (B * W + threads - 1) / threads;
   traceback_kernel<<<blocks, threads, 0, stream>>>(ys, lengths, T, B, W, L,
                                                    tok, ts, start_parent);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int traceback_overlay_launch(const int* ys, const int* lengths,
+                                        const int* base_tok,
+                                        const int* base_ts, int Tc, int B,
+                                        int W, int L, int t_offset, int* tok,
+                                        int* ts, int* start_parent,
+                                        cudaStream_t stream) {
+  const int threads = 256;               // 8 warps, one row each
+  const int rows_per_block = threads / 32;
+  const int blocks = (B * W + rows_per_block - 1) / rows_per_block;
+  const bool vec = (L % 4 == 0) &&
+                   ((reinterpret_cast<uintptr_t>(base_tok) |
+                     reinterpret_cast<uintptr_t>(base_ts) |
+                     reinterpret_cast<uintptr_t>(tok) |
+                     reinterpret_cast<uintptr_t>(ts)) % 16 == 0);
+  if (vec) {
+    traceback_overlay_kernel<true><<<blocks, threads, 0, stream>>>(
+        ys, lengths, base_tok, base_ts, Tc, B, W, L, t_offset, tok, ts,
+        start_parent);
+  } else {
+    traceback_overlay_kernel<false><<<blocks, threads, 0, stream>>>(
+        ys, lengths, base_tok, base_ts, Tc, B, W, L, t_offset, tok, ts,
+        start_parent);
+  }
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,9 @@
 `Pipeline.transcribe` is the port's main path: the DeepSpeech forward
 (with `rnn_impl="pallas"` the CUDA recurrence kernel) and the prefix
 beam search (on the card the fused decode and traceback kernels).
+`Pipeline.transcribe_streaming` is the live-audio path: the chunked
+forward with carried RNN state and, per chunk, one decode kernel launch
+from the carried beam and one traceback-with-overlay launch.
 """
 
 from __future__ import annotations
@@ -14,8 +17,11 @@ import torch
 
 from gasr_tpu_torch.config import Config, resolve_device
 from gasr_tpu_torch.decoder import ctc_beam_search, greedy_decode
-from gasr_tpu_torch.decoder.beam_search import decode_to_lists
+from gasr_tpu_torch.decoder.beam_search import (decode_to_lists,
+                                                streaming_init,
+                                                streaming_step)
 from gasr_tpu_torch.models import model_apply, model_init
+from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
 from gasr_tpu_torch.runtime.validation import check_features
 
 # default character vocabulary: blank + space + a-z (29 incl. apostrophe)
@@ -65,14 +71,40 @@ class Pipeline:
             max_len=self.config.decode_max_len, algorithm=algorithm)
         return decode_to_lists(res, top=top)
 
-    def transcribe_streaming(self, feature_chunks):
-        raise NotImplementedError(
-            "streaming decode is not ported yet (ROADMAP.md Queue 1 item 8)")
+    def transcribe_streaming(self, feature_chunks
+                             ) -> List[Tuple[List[int], float]]:
+        """Decode an iterable of [B, Tc, F] feature chunks with carried
+        model state and carried beam state: equal to a full-utterance
+        transcribe with the float32 forward, for any total length.
+
+        Needs a streaming topology (deepspeech, unidirectional). For
+        partial results call `decoder.beam_search.streaming_step`.
+        """
+        if self.config.model != "deepspeech" or self.config.bidirectional:
+            raise ValueError(
+                "streaming requires the unidirectional deepspeech model")
+        state = rnn_state = None
+        chunks = list(feature_chunks)
+        for i, chunk in enumerate(chunks):
+            if not isinstance(chunk, torch.Tensor):
+                chunk = torch.from_numpy(np.asarray(chunk, np.float32))
+            x = chunk.to(device=self.device, dtype=torch.float32)
+            with torch.no_grad():
+                lp, rnn_state = deepspeech_apply_streaming(
+                    self.params, x, rnn_state)
+            if state is None:
+                state = streaming_init(lp.shape[1], self.config.beam_width,
+                                       max_len=self.config.decode_max_len,
+                                       device=self.device)
+            state, snap = streaming_step(
+                state, lp, blank_id=self.config.blank_id,
+                is_final=(i == len(chunks) - 1))
+        return decode_to_lists(snap)
 
     def transcribe_audio(self, audio_batch, sample_rate: int = 16000):
         raise NotImplementedError(
             "the audio front end is not ported yet (ROADMAP.md Queue 1 "
-            "items 8 and 11)")
+            "item 11)")
 
     def to_text(self, ids: Sequence[int]) -> str:
         if self.vocab is None:

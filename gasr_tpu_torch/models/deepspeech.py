@@ -19,7 +19,8 @@ import torch
 
 from gasr_tpu_torch.config import Config
 from gasr_tpu_torch.ops.linear import linear, linear_init
-from gasr_tpu_torch.ops.rnn import rnn_forward, rnn_init
+from gasr_tpu_torch.ops.rnn import (rnn_forward, rnn_forward_streaming,
+                                    rnn_init)
 
 
 def deepspeech_init(generator: torch.Generator, config: Config,
@@ -56,3 +57,22 @@ def deepspeech_apply(params: dict, x: torch.Tensor, *,
     if compat_final_relu:
         return torch.relu(logits)
     return torch.log_softmax(logits, dim=-1)
+
+
+def deepspeech_apply_streaming(params: dict, x: torch.Tensor,
+                               rnn_state: Optional[torch.Tensor] = None):
+    """Chunked forward with carried RNN state.
+
+    x: [B, Tc, feat] -> (log-probs [Tc, B, vocab+1], new rnn_state). The
+    linears are frame-local and the RNN unidirectional, so chunked calls
+    with the state carried equal the full-utterance forward (float32,
+    `rnn_impl="scan"`).
+    """
+    x = x.transpose(0, 1)
+    h = linear(params["mlp1"], x, "relu")
+    h = linear(params["mlp2"], h, "relu")
+    h = linear(params["mlp3"], h, "relu")
+    h, rnn_state = rnn_forward_streaming(params["rnn"], h, rnn_state)
+    h = linear(params["mlp5"], h, "relu")
+    logits = linear(params["mlp6"], h, None)
+    return torch.log_softmax(logits, dim=-1), rnn_state

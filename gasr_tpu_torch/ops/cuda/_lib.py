@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "fused_prefix_decode_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
                                        _P],
         "traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "traceback_overlay_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                     _P, _P, _P],
     },
     "rnn_scan": {"rnn_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P]},
 }

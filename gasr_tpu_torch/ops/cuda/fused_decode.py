@@ -13,11 +13,19 @@ top-W of `csrc/topk.cuh`. It writes the packed backpointers ys
 backwards and writes tokens and frame indices [B, W, L] (-1 where
 nothing was emitted) and the start slot.
 
-For CUDA tensors both launch their kernel (`csrc/fused_decode.cu`),
-raising outside the envelope W <= 128, W*V <= 16384 (which holds the
-TPU kernel's W <= 128 with V <= 128 and W <= 64 with V <= 256). For CPU
-tensors they run their plain versions, the eager decoder of
-`decoder/beam_search.py` (`_matched_scan`, `_traceback`).
+`traceback_overlay` replaces `fused_decode.py::traceback_overlay_pallas`
+(`_tb_kernel(fused=True)`), the streaming chunk's traceback: one warp
+per (utterance, slot) walks the chunk's ys, writes the chunk's
+emissions at their absolute positions and timesteps, and copies the
+rest of its row from row start_parent of the previous chunk's buffers,
+into fresh output buffers.
+
+For CUDA tensors each launches its kernel (`csrc/fused_decode.cu`); the
+decode kernel raises outside JAX's `_use_pallas` shape rule (W <= 128
+and V <= 128, or W <= 64 and V <= 256), which `in_envelope` states and
+the decoder checks before it launches anything. For CPU tensors they
+run their plain versions, the eager decoder of `decoder/beam_search.py`
+(`_matched_scan`, `_traceback`).
 """
 
 from __future__ import annotations
@@ -25,14 +33,13 @@ from __future__ import annotations
 import torch
 
 from gasr_tpu_torch.decoder import beam_search as _bs
-from gasr_tpu_torch.ops.cuda import _lib, topk as _topk
+from gasr_tpu_torch.ops.cuda import _lib
 
-# kernel launches made by fused_prefix_decode / traceback
+# kernel launches made by fused_prefix_decode / traceback /
+# traceback_overlay
 decode_launches = 0
 traceback_launches = 0
-
-MAX_W = _topk.MAX_K        # the block top-W keeps 128 keys
-MAX_GRID = 16384           # W*V absorbed-extend flags in shared memory
+overlay_launches = 0
 
 # packed beam-state field order of the kernel's [NF, B, W] int32 state
 FIELDS = ("h1", "h2", "hp1", "hp2", "last", "length", "live", "s1", "s2")
@@ -48,8 +55,20 @@ def traceback_plain(packed_ys, final_lengths, L: int):
     return _bs._traceback(packed_ys, final_lengths, L)
 
 
+def traceback_overlay_plain(packed_ys, final_lengths, base_tokens,
+                            base_timesteps, t_offset: int):
+    """Plain PyTorch version: the eager reverse walk with the base
+    overlay."""
+    return _bs._traceback(packed_ys, final_lengths, base_tokens.shape[2],
+                          base_tokens, base_timesteps, t_offset)
+
+
 def in_envelope(W: int, V: int) -> bool:
-    return 1 <= W <= MAX_W and W * V <= MAX_GRID and V < 2 ** 15
+    """JAX `_use_pallas`'s shape rule, which the decode kernel takes
+    (the block top-W keeps at most 128 keys; W*V <= 16384 absorbed-extend
+    flags sit in shared memory)."""
+    return W >= 1 and V >= 1 and ((W <= 128 and V <= 128)
+                                  or (W <= 64 and V <= 256))
 
 
 def _u32_to_i32(h: torch.Tensor) -> torch.Tensor:
@@ -80,7 +99,7 @@ def unpack_state(packed: torch.Tensor):
         elif name == "live":
             x = x != 0
         fields[name] = x
-    return _bs._BeamState(**fields)
+    return _bs._BeamState(tb=torch.zeros_like(packed[0]), **fields)
 
 
 def fused_prefix_decode(log_probs: torch.Tensor, init, blank_id: int = 0):
@@ -96,8 +115,8 @@ def fused_prefix_decode(log_probs: torch.Tensor, init, blank_id: int = 0):
     if not in_envelope(W, V):
         raise ValueError(
             f"fused_prefix_decode: W={W}, V={V} is outside the kernel's "
-            f"envelope (W <= {MAX_W}, W*V <= {MAX_GRID}); use "
-            "merge_impl='matched'")
+            "envelope (W <= 128 and V <= 128, or W <= 64 and V <= 256); "
+            "use merge_impl='matched'")
     if not 0 <= blank_id < V:
         raise ValueError(f"blank_id {blank_id} out of range for V={V}")
     lp = log_probs.to(torch.float32).contiguous()
@@ -140,4 +159,48 @@ def traceback(packed_ys: torch.Tensor, final_lengths: torch.Tensor, L: int):
     _lib.check(err, "traceback")
     global traceback_launches
     traceback_launches += 1
+    return tok, ts, start
+
+
+def traceback_overlay(packed_ys: torch.Tensor, final_lengths: torch.Tensor,
+                      base_tokens: torch.Tensor, base_timesteps: torch.Tensor,
+                      t_offset: int):
+    """One streaming chunk's traceback. packed_ys [Tc, B, W] int32,
+    final_lengths [B, W] (absolute, at chunk end), base_tokens /
+    base_timesteps [B, W, L] int32 (the buffers at chunk start),
+    t_offset the absolute frame of the chunk's first frame -> (tokens,
+    timesteps [B, W, L] in fresh tensors, start_parent [B, W] int32)."""
+    if packed_ys.device.type == "cpu":
+        return traceback_overlay_plain(packed_ys, final_lengths, base_tokens,
+                                       base_timesteps, t_offset)
+    if packed_ys.device.type != "cuda":
+        raise ValueError(f"traceback_overlay: unsupported device "
+                         f"{packed_ys.device}")
+    Tc, B, W = packed_ys.shape
+    if base_tokens.ndim != 3 or base_tokens.shape[:2] != (B, W) or \
+            base_timesteps.shape != base_tokens.shape:
+        raise ValueError("traceback_overlay: base buffers must be [B, W, L] "
+                         f"with B={B}, W={W}")
+    if W > 2 ** 15 or not -2 ** 31 <= t_offset < 2 ** 31 - Tc:
+        raise ValueError(f"traceback_overlay: W={W} / t_offset={t_offset} "
+                         "out of range")
+    L = base_tokens.shape[2]
+    dev = packed_ys.device
+    ys = packed_ys.to(torch.int32).contiguous()
+    lens = final_lengths.to(device=dev, dtype=torch.int32).contiguous()
+    base_tok = base_tokens.to(device=dev, dtype=torch.int32).contiguous()
+    base_ts = base_timesteps.to(device=dev, dtype=torch.int32).contiguous()
+    tok = torch.empty(B, W, L, dtype=torch.int32, device=dev)
+    ts = torch.empty_like(tok)
+    start = torch.empty(B, W, dtype=torch.int32, device=dev)
+    if B * W == 0:
+        return tok, ts, start
+    lib = _lib.load("fused_decode")
+    err = lib.traceback_overlay_launch(
+        _lib.ptr(ys), _lib.ptr(lens), _lib.ptr(base_tok), _lib.ptr(base_ts),
+        Tc, B, W, L, int(t_offset), _lib.ptr(tok), _lib.ptr(ts),
+        _lib.ptr(start), _lib.stream(dev))
+    _lib.check(err, "traceback_overlay")
+    global overlay_launches
+    overlay_launches += 1
     return tok, ts, start

@@ -11,6 +11,8 @@ recurrence. The recurrence itself is:
   - impl="pallas": the hand-written CUDA recurrence kernel
     (`ops/cuda/rnn_scan.py`, W_hh held in bf16, float32 accumulate);
     its plain version runs for CPU tensors.
+`rnn_forward_streaming` carries the hidden state across chunks with the
+float32 loop, as the JAX package streams with its `lax.scan`.
 """
 
 from __future__ import annotations
@@ -62,8 +64,10 @@ def _input_projection(cell: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, cell["w_ih"]) + cell["b_ih"] + cell["b_hh"]
 
 
-def _scan_one_direction(cell: dict, x: torch.Tensor,
-                        h0: torch.Tensor) -> torch.Tensor:
+def _scan_one_direction(cell: dict, x: torch.Tensor, h0: torch.Tensor,
+                        return_final: bool = False):
+    """One layer, forward in time: [T, B, in] -> [T, B, H] (and the last
+    hidden state [B, H] with return_final)."""
     xw = _input_projection(cell, x)
     w_hh = cell["w_hh"]
     out = torch.empty_like(xw)
@@ -71,6 +75,8 @@ def _scan_one_direction(cell: dict, x: torch.Tensor,
     for t in range(xw.shape[0]):
         h = torch.tanh(xw[t] + torch.matmul(h, w_hh))
         out[t] = h
+    if return_final:
+        return out, h
     return out
 
 
@@ -100,3 +106,28 @@ def rnn_forward(params: dict, x: torch.Tensor,
         else:
             out = _scan_one_direction(cell, out, h_init)
     return out
+
+
+def rnn_forward_streaming(params: dict, x: torch.Tensor,
+                          h_stack: Optional[torch.Tensor] = None):
+    """Unidirectional forward carrying hidden state across chunks.
+
+    x: [Tc, B, in]; h_stack: [num_layers, B, H] (None -> zeros).
+    Returns (out [Tc, B, H], new h_stack); chunked calls equal one
+    full-sequence `rnn_forward(..., impl="scan")`.
+    """
+    if "layers_rev" in params:
+        raise ValueError("bidirectional RNNs cannot stream")
+    layers = params["layers"]
+    B = x.shape[1]
+    H = layers[0]["w_hh"].shape[0]
+    if h_stack is None:
+        h_stack = torch.zeros(len(layers), B, H, dtype=x.dtype,
+                              device=x.device)
+    out = x
+    finals = []
+    for l, cell in enumerate(layers):
+        out, h_fin = _scan_one_direction(cell, out, h_stack[l],
+                                         return_final=True)
+        finals.append(h_fin)
+    return out, torch.stack(finals)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at edge shapes the main path does not reach (ragged sizes, envelope
-corners, short runs). Marked `cuda`; every test skips without a card.
+at edge shapes the main paths do not reach (ragged sizes, envelope
+corners, short runs, the streaming overlay's overflow and shared
+parents), and the decoder's dispatch on CUDA tensors. Marked `cuda`; every test skips without a card.
 
 This file imports no JAX, so on a machine without JAX it runs as
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
@@ -77,13 +78,111 @@ def test_decode_and_traceback_kernels_equal_plain(dev, W, V, T, B, blank,
             assert torch.equal(a, b)
 
 
-def test_decode_kernel_outside_envelope_raises(dev):
-    lp = torch.zeros(2, 1, 129, device=dev)
-    with pytest.raises(ValueError, match="envelope"):
-        tbs.ctc_beam_search(lp, beam_width=128)
-    # the eager scan stays available on the card by explicit request
-    res = tbs.ctc_beam_search(lp, beam_width=128, merge_impl="matched")
-    assert res.tokens.shape == (1, 128, 256)
+@pytest.mark.parametrize("W,V", [(128, 129), (32, 500)])
+def test_auto_dispatch_follows_jax_shape_rule(dev, W, V):
+    # outside (W <= 128 and V <= 128) or (W <= 64 and V <= 256), "auto"
+    # runs the matched scan without touching the kernels, as JAX's
+    # _use_pallas decides, and "pallas" raises JAX's message
+    rng = np.random.default_rng(W + V)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((3, 2, V)))).to(
+        dev)
+    n0 = fused_decode.decode_launches
+    res = tbs.ctc_beam_search(lp, beam_width=W, max_len=8)
+    assert fused_decode.decode_launches == n0
+    want = tbs.ctc_beam_search(lp, beam_width=W, max_len=8,
+                               merge_impl="matched")
+    for f in res._fields:
+        assert torch.equal(getattr(res, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="W <= 128 and V <= 128, or W <= 64 "
+                                         "and V <= 256"):
+        tbs.ctc_beam_search(lp, beam_width=W, merge_impl="pallas")
+    # inside the rule "auto" takes the kernel
+    tbs.ctc_beam_search(lp[:, :, :47].log_softmax(-1), beam_width=W // 2)
+    assert fused_decode.decode_launches == n0 + 1
+
+
+def _overlay_inputs(dev, Tc, B, W, L, seed, parent=None, max_len_extra=0,
+                    offset_elems=0):
+    """Synthetic chunk: random backpointers (parents in [0, W), or all
+    `parent`), chars and append flags; final lengths up to L +
+    max_len_extra; arbitrary base rows, placed `offset_elems` int32 into
+    their allocation (unaligned when not a multiple of 4)."""
+    rng = np.random.default_rng(seed)
+    par = (rng.integers(0, W, (Tc, B, W)) if parent is None
+           else np.full((Tc, B, W), parent))
+    ys = (par | (rng.integers(0, 47, (Tc, B, W)) << 15)
+          | (rng.integers(0, 2, (Tc, B, W)) << 30)).astype(np.int32)
+    lens = rng.integers(0, L + max_len_extra + 1, (B, W)).astype(np.int32)
+    n = B * W * L
+
+    def base(hi):
+        flat = torch.from_numpy(rng.integers(-1, hi, offset_elems + n,
+                                             dtype=np.int32)).to(dev)
+        return flat[offset_elems:].view(B, W, L)
+    return (torch.from_numpy(ys).to(dev), torch.from_numpy(lens).to(dev),
+            base(47), base(10 ** 6))
+
+
+@pytest.mark.parametrize("Tc,B,W,L,parent,extra,offset", [
+    (1, 3, 100, 256, None, 0, 0),      # Tc = 1
+    (150, 2, 16, 64, None, 0, 0),      # a chunk of more than 128 frames
+    (20, 4, 32, 8, None, 40, 0),       # emissions past L drop (overflow)
+    (20, 3, 128, 32, 0, 5, 0),         # every row reads parent row 0
+    (7, 2, 5, 13, None, 3, 0),         # L not a multiple of 4
+    (7, 2, 5, 16, None, 3, 1),         # base buffers not 16-byte aligned
+    (5, 2, 3, 0, None, 2, 0),          # L = 0: only start_parent
+    (0, 2, 4, 8, None, 0, 0),          # an empty chunk: the base copied
+])
+def test_traceback_overlay_kernel_equals_plain(dev, Tc, B, W, L, parent,
+                                               extra, offset):
+    ys, lens, bt, bs = _overlay_inputs(dev, Tc, B, W, L, Tc * 1000 + W,
+                                       parent, extra, offset)
+    n0 = fused_decode.overlay_launches
+    got = fused_decode.traceback_overlay(ys, lens, bt, bs, 1234)
+    want = fused_decode.traceback_overlay_plain(ys, lens, bt, bs, 1234)
+    torch.cuda.synchronize()
+    assert fused_decode.overlay_launches == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for out in got[:2]:                # fresh buffers, never the base
+        assert out.numel() == 0 or \
+            out.data_ptr() not in (bt.data_ptr(), bs.data_ptr())
+
+
+def test_traceback_overlay_kernel_empty_batch(dev):
+    ys, lens, bt, bs = _overlay_inputs(dev, 4, 0, 8, 16, 1)
+    n0 = fused_decode.overlay_launches
+    tok, ts, start = fused_decode.traceback_overlay(ys, lens, bt, bs, 0)
+    assert tok.shape == (0, 8, 16) and start.shape == (0, 8)
+    assert fused_decode.overlay_launches == n0     # nothing to launch
+
+
+@pytest.mark.parametrize("chunks", [[5, 1, 7, 2], [20, 20], [150, 10]])
+def test_streaming_kernels_equal_plain_stream_on_card(dev, chunks):
+    T, B, V, W, L = sum(chunks), 3, 29, 16, 32
+    rng = np.random.default_rng(T)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((T, B, V)))).to(
+        dev)
+    counts = (fused_decode.decode_launches, fused_decode.overlay_launches,
+              fused_decode.traceback_launches)
+    results = {}
+    for impl in ("auto", "matched"):
+        st = tbs.streaming_init(B, W, max_len=L, device=dev)
+        t = 0
+        for c in chunks:
+            st, snap = tbs.streaming_step(st, lp[t:t + c], merge_impl=impl)
+            t += c
+        results[impl] = snap
+    n = len(chunks)
+    assert (fused_decode.decode_launches, fused_decode.overlay_launches,
+            fused_decode.traceback_launches) == (counts[0] + n,
+                                                 counts[1] + n, counts[2])
+    for f in results["auto"]._fields:
+        assert torch.equal(getattr(results["auto"], f),
+                           getattr(results["matched"], f)), f
+    batch = tbs.ctc_beam_search(lp, beam_width=W, max_len=L)
+    for f in batch._fields:
+        assert torch.equal(getattr(results["auto"], f), getattr(batch, f)), f
 
 
 def test_ctc_beam_search_input_lengths_kernel_equals_plain(dev):

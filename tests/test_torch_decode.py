@@ -124,10 +124,7 @@ def test_input_lengths_blank_padding_matches_jax():
     _assert_same_result(got, want)
 
 
-@pytest.mark.parametrize("kw", [{"algorithm": "reference"},
-                                {"prob_domain": True},
-                                {"merge_impl": "sort"},
-                                {"topk_impl": "approx"},
+@pytest.mark.parametrize("kw", [{"topk_impl": "approx"},
                                 {"lm_bias": torch.zeros(4, 3)}])
 def test_unported_decoder_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -86,9 +86,12 @@ def test_pipeline_params_from_seed_on_cpu():
     a = Pipeline(tc, generator=torch.Generator().manual_seed(7))
     b = Pipeline(tc, generator=torch.Generator().manual_seed(7))
     x = _feats(tc, 6)
-    assert a.transcribe(x) == b.transcribe(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        a.transcribe_streaming([x])
+    want = a.transcribe(x)
+    assert want == b.transcribe(x)
+    got = a.transcribe_streaming([x[:, :4], x[:, 4:]])
+    assert [ids for ids, _ in got] == [ids for ids, _ in want]
+    np.testing.assert_allclose([s for _, s in got], [s for _, s in want],
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_pipeline_default_device_raises_without_card():
