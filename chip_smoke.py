@@ -11,7 +11,13 @@ golden decode fixtures through the port, and drives two paths on the
   - `Pipeline.transcribe` with rnn_impl="pallas" (phase 6);
   - the streaming decode, `streaming_step` over the same log-probs in 10
     chunks of 20 frames, held array-equal to the batch decode, then
-    `Pipeline.transcribe_streaming` (phase 7).
+    `Pipeline.transcribe_streaming` (phase 7);
+and one path on the `conformer_l` preset (d=512, 17 blocks, 8 heads,
+B=64, T=1200 -> T'=300, F=80, V=129, beam 16, max_len 256, bf16, on one
+card: mesh_shape={}), as bench.py drives it: `model_apply(...,
+compute_dtype="bfloat16")` then `ctc_beam_search` and `decode_to_lists`,
+with the flash attention kernel (17 launches) and, with
+stem_impl="pallas", the fused stem kernel (phase 8).
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -63,6 +69,14 @@ RNN_SCAN_TOL = 1e-2        # 200 steps: each step rounds h to bf16, so the
                            # init; PERF.md gives the H100 readings over the
                            # seeds of RNN_SEEDS
 RNN_SEEDS = (1, 2, 3)      # weights and inputs of the 200-step check
+KERNEL_REL_TOL = 0.02      # flash attention and fused stem against their
+                           # plain versions: max |kernel - plain| <=
+                           # 0.02 * max(1, max|plain|) on valid rows, the
+                           # JAX package's own kernel-against-oracle bound
+                           # (tests/test_flash_mhsa.py, tests/test_stem.py):
+                           # bf16 operands summed in another float32 order
+                           # flip some bf16 roundings (us, uc, A, B, the
+                           # attention; conv2's output), 2^-8 relative each
 FWD_SEEDS = (1, 2, 3)      # weights and inputs of the small forward check
 FWD_CARD_CPU_TOL = {       # small forward, card against CPU, same weights
     "scan": 1e-5,          # float32 all through (TF32 off): only the
@@ -101,10 +115,12 @@ def main() -> int:
                                                     streaming_init,
                                                     streaming_step)
     from gasr_tpu_torch.infer import Pipeline
-    from gasr_tpu_torch.models import model_init
+    from gasr_tpu_torch.models import model_apply, model_init
     from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
-    from gasr_tpu_torch.ops.cuda import (_lib, fused_decode, rnn_scan,
-                                         topk)
+    from gasr_tpu_torch.ops.attention import _rel_shift, _sinusoid_pos
+    from gasr_tpu_torch.ops.conv import conv2d
+    from gasr_tpu_torch.ops.cuda import (_lib, flash_mhsa, fused_decode,
+                                         rnn_scan, stem, topk)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -131,6 +147,23 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    # every kernel's launch counter: (module, attribute)
+    counters = {"topk": (topk, "launches"),
+                "fused_prefix_decode": (fused_decode, "decode_launches"),
+                "traceback": (fused_decode, "traceback_launches"),
+                "traceback_overlay": (fused_decode, "overlay_launches"),
+                "rnn_scan": (rnn_scan, "launches"),
+                "flash_mhsa_rel": (flash_mhsa, "launches"),
+                "fused_stem": (stem, "launches")}
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
 
     def bound(nbytes, ops, peak_ops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -334,18 +367,10 @@ def main() -> int:
     pipe.transcribe(x)                                   # warm-up
     torch.cuda.synchronize()
 
-    topk.launches = 0
-    fused_decode.decode_launches = 0
-    fused_decode.traceback_launches = 0
-    fused_decode.overlay_launches = 0
-    rnn_scan.launches = 0
+    zero_counts()
     out = pipe.transcribe(x)
     torch.cuda.synchronize()
-    launches = {"topk": topk.launches,
-                "fused_prefix_decode": fused_decode.decode_launches,
-                "traceback": fused_decode.traceback_launches,
-                "traceback_overlay": fused_decode.overlay_launches,
-                "rnn_scan": rnn_scan.launches}
+    launches = read_counts()
     # The main path runs the block top-W of topk.cuh as a device function
     # inside each fused_prefix_decode launch, never as the standalone topk
     # kernel; what shows it ran is the decode kernel's launch and its
@@ -354,8 +379,8 @@ def main() -> int:
     for name in ("fused_prefix_decode", "traceback", "rnn_scan"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
-    check(launches["traceback_overlay"] == 0,
-          "transcribe launched the streaming overlay kernel")
+    for name in ("traceback_overlay", "flash_mhsa_rel", "fused_stem"):
+        check(launches[name] == 0, f"transcribe launched {name}")
     print(f"main path launches per transcribe: {launches} (topk runs inside "
           f"fused_prefix_decode)", flush=True)
 
@@ -421,18 +446,10 @@ def main() -> int:
 
     stream(lp)                                           # warm-up
     torch.cuda.synchronize()
-    topk.launches = 0
-    fused_decode.decode_launches = 0
-    fused_decode.traceback_launches = 0
-    fused_decode.overlay_launches = 0
-    rnn_scan.launches = 0
+    zero_counts()
     states, snap = stream(lp, keep=True)
     torch.cuda.synchronize()
-    s_launches = {"topk": topk.launches,
-                  "fused_prefix_decode": fused_decode.decode_launches,
-                  "traceback": fused_decode.traceback_launches,
-                  "traceback_overlay": fused_decode.overlay_launches,
-                  "rnn_scan": rnn_scan.launches}
+    s_launches = read_counts()
     want_launches = {"fused_prefix_decode": n_chunks,
                      "traceback_overlay": n_chunks, "traceback": 0}
     for name, n in want_launches.items():
@@ -535,6 +552,214 @@ def main() -> int:
           f"transcripts equal to the one-shot transcribe: {n_same} of "
           f"{len(out_one)}", flush=True)
 
+    # ---- 8. the conformer path: conformer_l at full width on one card
+    F8 = torch.nn.functional
+    bf = torch.bfloat16
+
+    def masked_err(got, want, lens):
+        """max |got - want| and max |want| over the valid query rows."""
+        T_ = got.shape[2]
+        rows = (torch.arange(T_, device=dev)[None, :]
+                < lens[:, None])[:, None, :, None]
+        g, w = got.float(), want.float()
+        return (float(torch.where(rows, (g - w).abs(), 0.0).max()),
+                float(torch.where(rows, w.abs(), 0.0).max()))
+
+    def flash_inputs(B_, H_, T_, dh_, seed, ragged):
+        f_rng = np.random.default_rng(seed)
+
+        def t(*shape, sc=1.0):
+            return torch.from_numpy((f_rng.standard_normal(shape) * sc
+                                     ).astype(np.float32)).to(dev)
+        D_ = H_ * dh_
+        lens = f_rng.integers(1, T_ + 1, B_) if ragged else np.full(B_, T_)
+        return (t(B_, H_, T_, dh_).to(bf), t(B_, H_, T_, dh_).to(bf),
+                t(B_, H_, T_, dh_).to(bf), t(D_, D_, sc=D_ ** -0.5),
+                t(H_, dh_, sc=0.1), t(H_, dh_, sc=0.1),
+                torch.from_numpy(lens.astype(np.int32)).to(dev))
+
+    # 8a. flash attention kernel against its plain version: conformer_l's
+    # shape full and ragged, conformer_s's (dh = 36), T = 1024 and T = 2
+    flash_err = 0.0
+    for B_, H_, T_, dh_, ragged in ((64, 8, 300, 64, False),
+                                    (64, 8, 300, 64, True),
+                                    (32, 4, 150, 36, True),
+                                    (4, 8, 1024, 64, True),
+                                    (8, 8, 2, 64, False)):
+        ins = flash_inputs(B_, H_, T_, dh_, T_ + dh_ + ragged, ragged)
+        for out_f32 in (False, True):
+            got = flash_mhsa.flash_mhsa_rel(*ins, out_f32=out_f32)
+            want = flash_mhsa.flash_mhsa_rel_plain(*ins, out_f32=out_f32)
+            torch.cuda.synchronize()
+            err, scale = masked_err(got, want, ins[-1])
+            tol = KERNEL_REL_TOL * max(1.0, scale)
+            check(got.dtype == want.dtype and bool(torch.isfinite(got).all()),
+                  f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] output")
+            check(err <= tol, f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] "
+                  f"ragged={ragged} out_f32={out_f32}: {err} > {tol}")
+            flash_err = max(flash_err, err)
+            print(f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] ragged={ragged} "
+                  f"out_f32={out_f32}: max |kernel - plain| {err} "
+                  f"(tolerance {tol}, max |plain| {scale})", flush=True)
+        if (T_, ragged) == (300, False):
+            fl_ins = ins
+    # time at conformer_l's shape; the yardstick is SDPA with the position
+    # term precomputed as a [B, H, T, T] additive bf16 mask (SDPA takes a
+    # float mask only in the query's dtype), not timed
+    q8, k8, v8, wr8, u8, vb8, len8 = fl_ins
+    B_, H_, T_, dh_ = q8.shape
+    D_ = H_ * dh_
+    with torch.no_grad():
+        r8 = (_sinusoid_pos(T_, D_, dev) @ wr8).reshape(2 * T_ - 1, H_, dh_)
+        bd8 = _rel_shift(torch.einsum("bhtd,lhd->bhtl",
+                                      q8.float() + vb8[None, :, None], r8))
+        mask8 = (bd8 / dh_ ** 0.5).to(bf)
+        qu8 = (q8.float() + u8[None, :, None]).to(bf)
+    del r8, bd8
+    fl_flops = 2 * B_ * H_ * (2 * T_ * T_ * dh_ + T_ * dh_ * D_
+                              + T_ * T_ * D_)
+    fl_bytes = 4 * q8.numel() * 2 + wr8.numel() * 4 + 2 * u8.numel() * 4
+    b_ms, b_by = bound(fl_bytes, fl_flops, BF16_TENSOR_FLOPS)
+    report["flash_mhsa_rel"] = dict(
+        ms=cuda_ms(lambda: flash_mhsa.flash_mhsa_rel(*fl_ins)),
+        plain_ms=cuda_ms(lambda: flash_mhsa.flash_mhsa_rel_plain(*fl_ins),
+                         iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: F8.scaled_dot_product_attention(
+            qu8, k8, v8, attn_mask=mask8)),
+        library_call="scaled_dot_product_attention(q+u, k, v, attn_mask="
+                     "bd/sqrt(dh) precomputed [B,H,T,T] bf16)",
+        max_abs_err=flash_err, bound_ms=b_ms, bound_by=b_by)
+    del qu8, mask8
+
+    # 8b. the fused stem against its plain version on conformer_l's
+    # weights: T = 1200 -> T/4 = 300, and T = 1000 (T/4 = 250, a ragged
+    # tile of 16 rows)
+    cfg_c = dataclasses.replace(PRESETS["conformer_l"], mesh_shape={})
+    params_c = model_init(cfg_c, torch.Generator().manual_seed(0))
+    feats_c = rng.uniform(size=(cfg_c.batch_size, cfg_c.seg_len,
+                                cfg_c.feat_size)).astype(np.float32)
+    x_c = torch.from_numpy(feats_c).to(dev)
+    sw = (params_c["sub1"]["w"], params_c["sub1"]["b"], params_c["sub2"]["w"],
+          params_c["sub2"]["b"], params_c["sub_proj"]["w"],
+          params_c["sub_proj"]["b"])
+    stem_err = 0.0
+    for xs in (x_c, x_c[:8, :1000]):
+        got = stem.fused_stem(xs, *sw)
+        want = stem.fused_stem_plain(xs, *sw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        tol = KERNEL_REL_TOL * max(1.0, scale)
+        check(tuple(got.shape) == (xs.shape[0], xs.shape[1] // 4, 512)
+              and bool(torch.isfinite(got).all()),
+              f"fused_stem {tuple(xs.shape)} output")
+        check(err <= tol, f"fused_stem {tuple(xs.shape)}: {err} > {tol}")
+        stem_err = max(stem_err, err)
+        print(f"fused_stem {list(xs.shape)} -> {list(got.shape)}: max "
+              f"|kernel - plain| {err} (tolerance {tol}, max |plain| {scale})",
+              flush=True)
+    Bc, Tc, Fc = x_c.shape
+    dc = sw[2].shape[-1]
+    st_flops = 2 * Bc * (Tc // 2) * (Fc // 2) * dc * 9 \
+        + 2 * Bc * (Tc // 4) * (Fc // 4) * dc * (9 * dc + dc)
+    st_bytes = x_c.numel() * 4 + sum(w.numel() * 4 for w in sw) \
+        + Bc * (Tc // 4) * dc * 2
+    b_ms, b_by = bound(st_bytes, st_flops, BF16_TENSOR_FLOPS)
+    conv1_ms = cuda_ms(lambda: conv2d({"w": sw[0], "b": sw[1]}, x_c[..., None],
+                                      (2, 2), compute_dtype=bf), iters=3)
+    stem_plain_ms = cuda_ms(lambda: stem.fused_stem_plain(x_c, *sw),
+                            iters=3, warmup=1)
+    report["fused_stem"] = dict(
+        ms=cuda_ms(lambda: stem.fused_stem(x_c, *sw), iters=3, warmup=1),
+        plain_ms=stem_plain_ms, library_ms=stem_plain_ms,
+        library_call="the plain version: cuDNN conv1 and conv2 at bf16 + "
+                     "clip, cuBLAS sub_proj",
+        max_abs_err=stem_err, bound_ms=b_ms, bound_by=b_by)
+    print(f"fused_stem times include conv1 (cuDNN, bf16): conv1 alone "
+          f"{conv1_ms:.4f} ms on {card}", flush=True)
+
+    # 8c. the forward and decode as bench.py drives them
+    def c_forward(**kw):
+        with torch.no_grad():
+            return model_apply(cfg_c, params_c, x_c,
+                               compute_dtype="bfloat16", **kw)
+
+    def c_decode(lp_in, **kw):
+        return ctc_beam_search(lp_in, beam_width=cfg_c.beam_width,
+                               blank_id=cfg_c.blank_id,
+                               max_len=cfg_c.decode_max_len, **kw)
+
+    decode_to_lists(c_decode(c_forward()))                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    lp_c = c_forward()
+    res_c = c_decode(lp_c)
+    tr_c = decode_to_lists(res_c)
+    torch.cuda.synchronize()
+    c_launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_blocks = len(params_c["blocks"])
+    want_c = {"flash_mhsa_rel": n_blocks, "fused_stem": 0,
+              "fused_prefix_decode": 1, "traceback": 1, "topk": 0,
+              "traceback_overlay": 0, "rnn_scan": 0}
+    for name, n in want_c.items():
+        check(c_launches[name] == n, f"conformer path launches of {name}: "
+              f"{c_launches[name]}, expected {n}")
+    print(f"conformer path launches per forward + decode: {c_launches}",
+          flush=True)
+    T4 = cfg_c.seg_len // 4
+    check(tuple(lp_c.shape) == (T4, cfg_c.batch_size, cfg_c.output_size),
+          f"conformer log_probs shape {tuple(lp_c.shape)}")
+    check(bool(torch.isfinite(lp_c).all()), "conformer log_probs not finite")
+    norm_err = float((lp_c.exp().sum(-1) - 1).abs().max())
+    check(norm_err < 1e-4, "conformer log_probs rows do not normalise")
+    res_cm = c_decode(lp_c, merge_impl="matched")
+    for field in ("tokens", "lengths", "timesteps"):
+        check(torch.equal(getattr(res_c, field), getattr(res_cm, field)),
+              f"conformer decode: kernel and matched {field} differ")
+    print(f"conformer_l log-probs {list(lp_c.shape)} finite, rows normalised "
+          f"to {norm_err}; decode (W={cfg_c.beam_width}, V="
+          f"{cfg_c.output_size}) == merge_impl='matched' (tokens, lengths, "
+          f"timesteps); peak device memory {peak_gb:.2f} GB", flush=True)
+
+    zero_counts()
+    lp_cs = c_forward(stem_impl="pallas")
+    decode_to_lists(c_decode(lp_cs))
+    torch.cuda.synchronize()
+    cs_launches = read_counts()
+    check(cs_launches["fused_stem"] == 1 and
+          cs_launches["flash_mhsa_rel"] == n_blocks,
+          f"stem_impl='pallas' launches {cs_launches}")
+    lp_cx = c_forward(attn_impl="xla")
+    tr_cx = decode_to_lists(c_decode(lp_cx))
+    tr_cs = decode_to_lists(c_decode(lp_cs))
+    same_x = sum(a[0] == b[0] for a, b in zip(tr_c, tr_cx))
+    same_s = sum(a[0] == b[0] for a, b in zip(tr_c, tr_cs))
+    print(f"stem_impl='pallas' launches: {cs_launches}; against the default "
+          f"forward: max |lp diff| {float((lp_cs - lp_c).abs().max())}, "
+          f"transcripts equal {same_s} of {len(tr_c)}; attn_impl='xla' on the "
+          f"card: max |lp diff| {float((lp_cx - lp_c).abs().max())}, "
+          f"transcripts equal {same_x} of {len(tr_c)} (not gated: bf16 "
+          f"roundings flip across 17 blocks)", flush=True)
+    del lp_cs, lp_cx
+
+    c_e2e_ms = host_ms(lambda: decode_to_lists(c_decode(c_forward())))
+    c_fwd_ms = cuda_ms(c_forward, iters=3, warmup=1)
+    c_fwd_x_ms = cuda_ms(lambda: c_forward(attn_impl="xla"), iters=3,
+                         warmup=1)
+    c_dec_ms = cuda_ms(lambda: c_decode(lp_c), iters=5, warmup=1)
+    c_audio_s = cfg_c.batch_size * cfg_c.seg_len * 0.01
+    mean_len_c = float(np.mean([len(ids) for ids, _ in tr_c]))
+    print(f"conformer_l (B=64, T=1200, bf16, 17 blocks, beam 16) on {card}: "
+          f"forward + decode + decode_to_lists {c_e2e_ms:.3f} ms (median of "
+          f"5 whole calls, host clock) = {c_audio_s / (c_e2e_ms / 1e3):.1f} "
+          f"audio-seconds/s ({c_audio_s:.0f} s of audio per call); forward "
+          f"{c_fwd_ms:.3f} ms, forward with attn_impl='xla' {c_fwd_x_ms:.3f} "
+          f"ms, decode {c_dec_ms:.3f} ms (CUDA events, means of 3 / 3 / 5); "
+          f"mean transcript length {mean_len_c:.1f}", flush=True)
+    del lp_c, params_c, x_c
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -546,22 +771,30 @@ def main() -> int:
                               "gasr_tpu/ops/pallas/fused_decode.py:1719"),
         "rnn_scan": ("gasr_tpu_torch/csrc/rnn_scan.cu",
                      "gasr_tpu/ops/pallas/rnn_scan.py:52"),
+        "flash_mhsa_rel": ("gasr_tpu_torch/csrc/flash_mhsa.cu",
+                           "gasr_tpu/ops/pallas/flash_mhsa.py:308"),
+        "fused_stem": ("gasr_tpu_torch/csrc/stem.cu",
+                       "gasr_tpu/ops/pallas/stem.py:285"),
     }
     # `launches` is each kernel's count on the path that exercises it:
-    # transcribe for the first four, the stream for traceback_overlay
-    paths = {name: {"transcribe": launches[name],
-                    "streaming": s_launches[name]} for name in sources}
+    # transcribe for the first four, the stream for traceback_overlay, the
+    # conformer forward + decode for flash_mhsa_rel, and that path with
+    # stem_impl="pallas" for fused_stem
+    runs = {"transcribe": launches, "streaming": s_launches,
+            "conformer": c_launches, "conformer_stem_pallas": cs_launches}
+    main_path = {"traceback_overlay": "streaming",
+                 "flash_mhsa_rel": "conformer",
+                 "fused_stem": "conformer_stem_pallas"}
+    paths = {name: {path: run[name] for path, run in runs.items()}
+             for name in sources}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = report[name]
-        n_main = (s_launches[name] if name == "traceback_overlay"
-                  else launches[name])
+        n_main = paths[name][main_path.get(name, "transcribe")]
         lib_ms = ("none" if r["library_ms"] is None
                   else f"{r['library_ms']:.4f} ms")
         print(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, library {lib_ms}, launches per transcribe "
-              f"{paths[name]['transcribe']}, per stream "
-              f"{paths[name]['streaming']}"
+              f"ms, library {lib_ms}, launches by path {paths[name]}"
               + (f" (runs inside {inside[name]})" if name in inside else "")
               + f", bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |kernel - plain| {r['max_abs_err']} "
@@ -575,6 +808,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if name in inside:
             entry["inside"] = inside[name]
+        if "library_call" in r:
+            entry["library_call"] = r["library_call"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

@@ -9,6 +9,8 @@ framework-neutral module it keeps its own copy.
 What runs here (ROADMAP.md "Queue 1" lists the rest):
   - DeepSpeech-1 forward (3 x Linear+ReLU, tanh Elman RNN, Linear+ReLU,
     Linear, log_softmax), `models/deepspeech.py`;
+  - Conformer-CTC forward (conv subsampling stem, rel-pos MHSA blocks,
+    bf16 mixed precision), `models/conformer.py`;
   - greedy decoding and CTC beam search, the "prefix" and "reference"
     algorithms (log or prob domain, matched or sort merge), batch and
     streaming (`streaming_init` / `streaming_step`), `decoder/`;
@@ -17,8 +19,9 @@ What runs here (ROADMAP.md "Queue 1" lists the rest):
 
 Kernels (`csrc/*.cu`, wrappers in `ops/cuda/`): the fused whole-scan
 prefix decode with its stable block top-W, the backpointer traceback,
-the streaming chunk's traceback with the base overlay, and the Elman
-recurrence. A wrapper given a CUDA tensor launches its
+the streaming chunk's traceback with the base overlay, the Elman
+recurrence, the rel-pos flash attention and the fused conformer stem
+(conv2 + sub_proj). A wrapper given a CUDA tensor launches its
 kernel or raises; given a CPU tensor it runs its plain PyTorch version.
 
 Entry points that make tensors (`Pipeline`, `model_init`) run on the

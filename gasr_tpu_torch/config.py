@@ -8,7 +8,9 @@ Differences from the JAX package:
   - `rnn_impl="pallas"` keeps its name so configs carry across; here it
     selects the hand-written CUDA recurrence kernel
     (`ops/cuda/rnn_scan.py`), and the same holds for the decoder's
-    `merge_impl="pallas"` (`ops/cuda/fused_decode.py`).
+    `merge_impl="pallas"` (`ops/cuda/fused_decode.py`) and the
+    conformer's `attn_impl` / `stem_impl="pallas"`
+    (`ops/cuda/flash_mhsa.py`, `ops/cuda/stem.py`).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Model families. Only `deepspeech` is ported so far; the others raise
+"""Model families. `deepspeech` and the conformers (`conformer_s`,
+`conformer_l`, `conformer`) are ported; the others raise
 `NotImplementedError` naming their ROADMAP.md queue item."""
 
 from typing import Optional
@@ -6,16 +7,18 @@ from typing import Optional
 import torch
 
 from gasr_tpu_torch.config import resolve_device
+from gasr_tpu_torch.models.conformer import (  # noqa: F401
+    conformer_apply, conformer_init,
+)
 from gasr_tpu_torch.models.deepspeech import (  # noqa: F401
     deepspeech_apply, deepspeech_init,
 )
 
+CONFORMERS = ("conformer_s", "conformer_l", "conformer")
+
 _NOT_PORTED = {
-    "bilstm": "ROADMAP.md Queue 1 item 9",
-    "deepspeech2": "ROADMAP.md Queue 1 item 9",
-    "conformer_s": "ROADMAP.md Queue 1 item 10",
-    "conformer_l": "ROADMAP.md Queue 1 item 10",
-    "conformer": "ROADMAP.md Queue 1 item 10",
+    "bilstm": "ROADMAP.md Queue 1 item 10",
+    "deepspeech2": "ROADMAP.md Queue 1 item 10",
 }
 
 
@@ -23,7 +26,7 @@ def _check_family(name: str) -> None:
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet ({_NOT_PORTED[name]})")
-    if name != "deepspeech":
+    if name != "deepspeech" and name not in CONFORMERS:
         raise ValueError(f"unknown model {name!r}")
 
 
@@ -36,10 +39,14 @@ def model_init(config, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device or config.device)
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
+    if config.model in CONFORMERS:
+        return conformer_init(generator, config, dev)
     return deepspeech_init(generator, config, dev)
 
 
 def model_apply(config, params, x, **kw):
-    """Apply the configured model: x [B, T, F] -> log-probs [T, B, V+1]."""
+    """Apply the configured model: x [B, T, F] -> log-probs [T', B, V+1]."""
     _check_family(config.model)
+    if config.model in CONFORMERS:
+        return conformer_apply(config, params, x, **kw)
     return deepspeech_apply(params, x, **kw)

@@ -33,9 +33,12 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # separate tensor ops in PyTorch. (topk does no float arithmetic.)
 _EXTRA_FLAGS = {"fused_decode": ["-fmad=false"]}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (argtypes) of each library's entry points
 SIGNATURES: Dict[str, Dict[str, List]] = {
+    "flash_mhsa": {"flash_mhsa_rel_launch": [_P] * 10 + [_I] * 7
+                   + [_F, _I, _P, _P]},
+    "stem": {"fused_stem_launch": [_P] * 5 + [_I] * 6 + [_P, _P]},
     "topk": {"topk_launch": [_P, _I, _I, _I, _P, _P, _P]},
     "fused_decode": {
         "fused_prefix_decode_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P,

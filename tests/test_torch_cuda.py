@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main paths do not reach (ragged sizes, envelope
 corners, short runs, the streaming overlay's overflow and shared
-parents), and the decoder's dispatch on CUDA tensors. Marked `cuda`; every test skips without a card.
+parents, the attention's shortest and longest T and head widths, the
+stem's ragged tiles and widths), the decoder's and the conformer's
+dispatch on CUDA tensors, and the wrappers' refusals. Marked `cuda`;
+every test skips without a card.
 
 This file imports no JAX, so on a machine without JAX it runs as
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,8 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from gasr_tpu_torch.config import PRESETS
 from gasr_tpu_torch.decoder import beam_search as tbs
-from gasr_tpu_torch.ops.cuda import fused_decode, rnn_scan, topk
+from gasr_tpu_torch.models import model_apply, model_init
+from gasr_tpu_torch.ops.cuda import (flash_mhsa, fused_decode, rnn_scan, stem,
+                                     topk)
+from gasr_tpu_torch.ops.linear import matmul
 
 pytestmark = pytest.mark.cuda
 
@@ -22,6 +31,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -221,3 +231,146 @@ def test_rnn_scan_kernel_rejects_float32_weights(dev):
                           torch.zeros(4, 4, device=dev),
                           torch.zeros(2, 4, device=dev),
                           weight_dtype=torch.float32)
+
+
+# kernel against plain: 0.02 * max(1, max|plain|), the JAX package's own
+# kernel-against-oracle bound (tests/test_flash_mhsa.py, tests/test_stem.py)
+KERNEL_REL = 0.02
+
+
+def _flash_inputs(dev, B, H, T, dh, seed, ragged):
+    rng = np.random.default_rng(seed)
+    D = H * dh
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+            np.float32)).to(dev)
+    lens = rng.integers(1, T + 1, B) if ragged else np.full(B, T)
+    return (t(B, H, T, dh), t(B, H, T, dh), t(B, H, T, dh),
+            t(D, D, s=D ** -0.5), t(H, dh, s=0.1), t(H, dh, s=0.1),
+            torch.from_numpy(lens.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("B,H,T,dh,ragged", [
+    (64, 8, 300, 64, True),        # conformer_l, ragged lengths
+    (32, 4, 150, 36, True),        # conformer_s: dh padded to 48
+    (2, 8, 1024, 64, True),        # the longest eligible T (query tile 32)
+    (3, 8, 2, 64, False),          # the shortest
+    (2, 3, 17, 10, True),          # D/2 = 15, T not a multiple of 16
+    (2, 16, 77, 128, True),        # dh = 128, D = 2048
+    (1, 2, 1024, 128, False),      # query tile 32 at D = 256
+])
+@pytest.mark.parametrize("out_f32", [False, True])
+def test_flash_mhsa_kernel_close_to_plain(dev, B, H, T, dh, ragged, out_f32):
+    ins = _flash_inputs(dev, B, H, T, dh, B * T + dh, ragged)
+    n0 = flash_mhsa.launches
+    got = flash_mhsa.flash_mhsa_rel(*ins, out_f32=out_f32)
+    want = flash_mhsa.flash_mhsa_rel_plain(*ins, out_f32=out_f32)
+    torch.cuda.synchronize()
+    assert flash_mhsa.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    lens = ins[-1].cpu()
+    for b in range(B):
+        g, w = got[b, :, :lens[b]].float(), want[b, :, :lens[b]].float()
+        assert float((g - w).abs().max()) <= KERNEL_REL * max(
+            1.0, float(w.abs().max()))
+
+
+def test_flash_mhsa_kernel_zero_length_averages_v(dev):
+    ins = list(_flash_inputs(dev, 2, 2, 40, 16, 3, False))
+    ins[-1] = torch.tensor([0, 40], dtype=torch.int32, device=dev)
+    got = flash_mhsa.flash_mhsa_rel(*ins, out_f32=True)
+    want = flash_mhsa.flash_mhsa_rel_plain(*ins, out_f32=True)
+    assert float((got - want).abs().max()) <= KERNEL_REL
+
+
+@pytest.mark.parametrize("B,T,F,d,dout,out", [
+    (64, 1200, 80, 512, 512, torch.bfloat16),   # conformer_l
+    (3, 1000, 80, 512, 512, torch.float32),     # T/4 = 250: a ragged tile
+    (2, 16, 8, 128, 256, torch.float32),        # F/4 = 2: a ragged f group
+    (2, 40, 12, 256, 1024, torch.bfloat16),     # dout = 1024
+    (1, 24, 16, 1024, 128, torch.float32),      # d = 1024
+])
+def test_fused_stem_kernel_close_to_plain(dev, B, T, F, d, dout, out):
+    rng = np.random.default_rng(T + d)
+
+    def t(*shape, s):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+            np.float32)).to(dev)
+    x = torch.from_numpy(rng.uniform(size=(B, T, F)).astype(np.float32)).to(
+        dev)
+    w = (t(3, 3, 1, d, s=0.2), t(d, s=0.1), t(3, 3, d, d, s=(9 * d) ** -0.5),
+         t(d, s=0.1), t(F // 4 * d, dout, s=(F // 4 * d) ** -0.5 * 2),
+         t(dout, s=0.1))
+    n0 = stem.launches
+    got = stem.fused_stem(x, *w, out_dtype=out)
+    want = stem.fused_stem_plain(x, *w, out_dtype=out)
+    torch.cuda.synchronize()
+    assert stem.launches == n0 + 1
+    assert got.dtype == out and got.shape == (B, T // 4, dout)
+    assert float((got.float() - want.float()).abs().max()) <= KERNEL_REL * \
+        max(1.0, float(want.float().abs().max()))
+
+
+def test_kernel_wrappers_refuse(dev):
+    ins = _flash_inputs(dev, 1, 2, 8, 8, 0, False)
+    with pytest.raises(ValueError, match="flash_eligible"):
+        flash_mhsa.flash_mhsa_rel(*_flash_inputs(dev, 1, 1, 1025, 8, 0,
+                                                 False))
+    with pytest.raises(ValueError, match="one device"):
+        flash_mhsa.flash_mhsa_rel(*ins[:-1], ins[-1].cpu())
+    with pytest.raises(NotImplementedError, match="forward only"):
+        flash_mhsa.flash_mhsa_rel(ins[0].clone().requires_grad_(True),
+                                  *ins[1:])
+    w = [torch.zeros(s, device=dev) for s in
+         ((3, 3, 1, 128), (128,), (3, 3, 128, 128), (128,), (256, 128),
+          (128,))]
+    with pytest.raises(ValueError, match="stem_eligible"):
+        stem.fused_stem(torch.zeros(1, 18, 8, device=dev), *w)
+    with pytest.raises(ValueError, match="one device"):
+        stem.fused_stem(torch.zeros(1, 16, 8, device=dev), *w[:-1],
+                        w[-1].cpu())
+    with pytest.raises(NotImplementedError, match="forward only"):
+        stem.fused_stem(torch.zeros(1, 16, 8, device=dev,
+                                    requires_grad=True), *w)
+
+
+def test_bf16_matmul_on_card_close_to_cpu(dev):
+    # tensor cores (float32 output) against the float32 emulation on the
+    # CPU: only the float32 summation order differs
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((3, 70, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((96, 40)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((3, 96, 40)).astype(np.float32))
+    for bb in (b, c):
+        got = matmul(a.to(dev), bb.to(dev), torch.bfloat16).cpu()
+        want = matmul(a, bb, torch.bfloat16)
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 2.0 ** -8 * float(
+            want.abs().max())
+
+
+def test_conformer_forward_launches_and_matches_cpu(dev):
+    cfg = dataclasses.replace(PRESETS["conformer_s"], linear_size=128,
+                              num_blocks=2, input_size=8, batch_size=2,
+                              seg_len=32, mesh_shape={})
+    params = model_init(dataclasses.replace(cfg, device="cpu"),
+                        torch.Generator().manual_seed(0))
+    on_card = model_init(cfg, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(2, 32, 8)).astype(np.float32))
+    with torch.no_grad():
+        for stem_impl, n_stem in (("auto", 0), ("pallas", 1)):
+            f0, s0 = flash_mhsa.launches, stem.launches
+            got = model_apply(cfg, on_card, x.to(dev),
+                              compute_dtype="bfloat16", stem_impl=stem_impl)
+            assert (flash_mhsa.launches - f0, stem.launches - s0) == (2,
+                                                                      n_stem)
+            want = model_apply(cfg, params, x, compute_dtype="bfloat16",
+                               stem_impl=stem_impl, attn_impl="pallas")
+            assert got.shape == want.shape == (8, 2, cfg.output_size)
+            assert float((got.cpu() - want).abs().max()) <= KERNEL_REL * \
+                max(1.0, float(want.abs().max()))
+        f0 = flash_mhsa.launches
+        model_apply(cfg, on_card, x.to(dev))        # float32: never the kernel
+        assert flash_mhsa.launches == f0

@@ -105,7 +105,7 @@ def test_pipeline_default_device_raises_without_card():
         model_init(tcfg.PRESETS["reference_toy"])
 
 
-@pytest.mark.parametrize("family", ["bilstm", "deepspeech2", "conformer_s"])
+@pytest.mark.parametrize("family", ["bilstm", "deepspeech2"])
 def test_unported_model_families_raise(family):
     cfg = dataclasses.replace(tcfg.PRESETS["reference_toy"], model=family,
                               device="cpu")
