@@ -17,7 +17,14 @@ B=64, T=1200 -> T'=300, F=80, V=129, beam 16, max_len 256, bf16, on one
 card: mesh_shape={}), as bench.py drives it: `model_apply(...,
 compute_dtype="bfloat16")` then `ctc_beam_search` and `decode_to_lists`,
 with the flash attention kernel (17 launches) and, with
-stem_impl="pallas", the fused stem kernel (phase 8).
+stem_impl="pallas", the fused stem kernel (phase 8); and the two LSTM
+presets through `Pipeline.transcribe` with rnn_impl="pallas" at full
+size, `deepspeech2` (B=32, T=600 -> 300, F=160, two convs, 5 BiLSTM
+layers of H=512, W=32) and `bilstm_2x256` (B=16, T=400, F=80, 2 BiLSTM
+layers of H=256, W=10), with the LSTM recurrence kernel (one launch per
+step for both directions: 1500 and 800), after the kernel is held to its
+plain version at both shapes, and small forwards of both, card against
+CPU (phase 9).
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -87,6 +94,27 @@ FWD_CARD_CPU_TOL = {       # small forward, card against CPU, same weights
                            # log-probs through two linears; H100 runs
                            # measured 4.8e-7 without a flip, 6.9e-5 with
 }
+LSTM_STEP_TOL = 1e-5       # one LSTM step from the same (h, c): only the
+                           # float32 summation order (tensor cores vs
+                           # cuBLAS) and expf / tanhf against torch's
+                           # sigmoid / tanh differ
+LSTM_SCAN_TOL = 1e-2       # 300 or 400 steps: each step rounds h to bf16, so
+                           # the sum-order differences flip some bf16
+                           # roundings (one ulp is 2^-8 of |h|) and the flips
+                           # feed the next steps through W_hh and c; the
+                           # forget gate (about 1/2 at this init) damps them
+                           # as tanh does in the Elman recurrence (same
+                           # bound as RNN_SCAN_TOL); PERF.md gives the H100
+                           # readings over LSTM_SEEDS
+LSTM_SEEDS = (1, 2, 3)     # weights and inputs of the full-length checks
+FWD_LSTM_CARD_CPU_TOL = {  # small DS2 / BiLSTM forwards, card against CPU
+    "scan": 1e-5,          # float32 all through (TF32 off in cuDNN's convs
+                           # and cuBLAS): only the summation order differs
+    "pallas": 1e-3,        # recurrence steps that round h to bf16: a
+                           # sum-order difference can flip one rounding (up
+                           # to 2^-8 in h) and the flip reaches the
+                           # log-probs through the layers above
+}
 
 
 def check(cond, msg):
@@ -120,7 +148,9 @@ def main() -> int:
     from gasr_tpu_torch.ops.attention import _rel_shift, _sinusoid_pos
     from gasr_tpu_torch.ops.conv import conv2d
     from gasr_tpu_torch.ops.cuda import (_lib, flash_mhsa, fused_decode,
-                                         rnn_scan, stem, topk)
+                                         lstm_scan, rnn_scan, stem, topk)
+    from gasr_tpu_torch.ops.linear import linear
+    from gasr_tpu_torch.ops.lstm import _input_projection
 
     dev = torch.device("cuda")
     card = card_line()
@@ -155,7 +185,8 @@ def main() -> int:
                 "traceback_overlay": (fused_decode, "overlay_launches"),
                 "rnn_scan": (rnn_scan, "launches"),
                 "flash_mhsa_rel": (flash_mhsa, "launches"),
-                "fused_stem": (stem, "launches")}
+                "fused_stem": (stem, "launches"),
+                "lstm_scan": (lstm_scan, "launches")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -329,11 +360,12 @@ def main() -> int:
               f"{err}", flush=True)
 
     # ---- 5. small forward + decode: card against the CPU, over FWD_SEEDS
-    small = Config(batch_size=4, seg_len=20, linear_size=256,
+    # B=8: the recurrence kernel's shape rule (H % 128 == 0, B % 8 == 0)
+    small = Config(batch_size=8, seg_len=20, linear_size=256,
                    rnn_hidden_size=256, beam_width=16, device="cpu")
     for seed in FWD_SEEDS:
         feats_small = np.random.default_rng(seed).uniform(
-            size=(4, 20, small.feat_size)).astype(np.float32)
+            size=(8, 20, small.feat_size)).astype(np.float32)
         errs = {}
         for impl in ("scan", "pallas"):
             c = dataclasses.replace(small, rnn_impl=impl)
@@ -347,15 +379,17 @@ def main() -> int:
             check(errs[impl] <= FWD_CARD_CPU_TOL[impl],
                   f"small forward card vs CPU, rnn_impl={impl}, seed "
                   f"{seed}: {errs[impl]}")
-        r_cpu = decode_to_lists(ctc_beam_search(lp_gpu.cpu(), beam_width=16))
-        r_gpu = decode_to_lists(ctc_beam_search(lp_gpu, beam_width=16))
-        check([ids for ids, _ in r_cpu] == [ids for ids, _ in r_gpu],
-              "small decode card vs CPU transcripts differ")
+            # forward + decode on the CPU against forward + decode on the card
+            r_cpu = decode_to_lists(ctc_beam_search(lp_cpu, beam_width=16))
+            r_gpu = decode_to_lists(ctc_beam_search(lp_gpu, beam_width=16))
+            check([ids for ids, _ in r_cpu] == [ids for ids, _ in r_gpu],
+                  f"small transcripts card vs CPU differ, rnn_impl={impl}, "
+                  f"seed {seed}")
         print(f"small forward card vs CPU, seed {seed}: max err rnn_impl="
               f"scan {errs['scan']} (tolerance {FWD_CARD_CPU_TOL['scan']}), "
               f"pallas {errs['pallas']} (tolerance "
-              f"{FWD_CARD_CPU_TOL['pallas']}); transcripts equal",
-              flush=True)
+              f"{FWD_CARD_CPU_TOL['pallas']}); transcripts of forward + "
+              f"decode equal, card vs CPU, both rnn_impl", flush=True)
 
     # ---- 6. the main path: Pipeline.transcribe on reference_large
     cfg = dataclasses.replace(PRESETS["reference_large"], rnn_impl="pallas")
@@ -379,7 +413,8 @@ def main() -> int:
     for name in ("fused_prefix_decode", "traceback", "rnn_scan"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
-    for name in ("traceback_overlay", "flash_mhsa_rel", "fused_stem"):
+    for name in ("traceback_overlay", "flash_mhsa_rel", "fused_stem",
+                 "lstm_scan"):
         check(launches[name] == 0, f"transcribe launched {name}")
     print(f"main path launches per transcribe: {launches} (topk runs inside "
           f"fused_prefix_decode)", flush=True)
@@ -702,7 +737,7 @@ def main() -> int:
     n_blocks = len(params_c["blocks"])
     want_c = {"flash_mhsa_rel": n_blocks, "fused_stem": 0,
               "fused_prefix_decode": 1, "traceback": 1, "topk": 0,
-              "traceback_overlay": 0, "rnn_scan": 0}
+              "traceback_overlay": 0, "rnn_scan": 0, "lstm_scan": 0}
     for name, n in want_c.items():
         check(c_launches[name] == n, f"conformer path launches of {name}: "
               f"{c_launches[name]}, expected {n}")
@@ -760,6 +795,271 @@ def main() -> int:
           f"mean transcript length {mean_len_c:.1f}", flush=True)
     del lp_c, params_c, x_c
 
+    # ---- 9. the LSTM paths: deepspeech2 and bilstm_2x256
+    def lstm_inputs(T_, B_, H_, seed):
+        l_rng = np.random.default_rng(seed)
+
+        def t(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+        return (t(l_rng.standard_normal((T_, B_, 4 * H_)) * 0.5),
+                t(l_rng.uniform(-1, 1, (H_, 4 * H_)) / H_ ** 0.5),
+                t(np.tanh(l_rng.standard_normal((B_, H_)))),
+                t(l_rng.standard_normal((B_, H_))))
+
+    # 9a. the recurrence kernel against its plain version at the two
+    # presets' shapes, forward and reverse, from zero state (as the path
+    # runs it); one step from a random (h, c)
+    lstm_err = 0.0
+    for tag, (T_, B_, H_) in (("deepspeech2", (300, 32, 512)),
+                              ("bilstm_2x256", (400, 16, 256))):
+        for seed in LSTM_SEEDS:
+            xw_, w_, h_, c_ = lstm_inputs(T_, B_, H_, seed)
+            s_err = float((lstm_scan.lstm_scan(xw_[:1], w_, h_, c_)
+                           - lstm_scan.lstm_scan_plain(xw_[:1], w_, h_, c_)
+                           ).abs().max())
+            check(s_err <= LSTM_STEP_TOL, f"lstm_scan step [{B_}, {H_}] "
+                  f"differs by {s_err} (seed {seed})")
+            z = torch.zeros_like(h_)
+            errs = []
+            for rev in (False, True):
+                got = lstm_scan.lstm_scan(xw_, w_, z, z, reverse=rev)
+                want = lstm_scan.lstm_scan_plain(xw_, w_, z, z, reverse=rev)
+                check(bool(torch.isfinite(got).all()),
+                      "lstm_scan output not finite")
+                e = float((got - want).abs().max())
+                check(e <= LSTM_SCAN_TOL, f"lstm_scan {tag} reverse={rev} "
+                      f"differs from plain by {e} (seed {seed})")
+                errs.append((e, float((got - want).abs().mean())))
+            lstm_err = max(lstm_err, s_err, *(e for e, _ in errs))
+            print(f"lstm_scan {tag} T={T_} B={B_} H={H_} seed {seed}: one "
+                  f"step max |kernel - plain| {s_err} (tolerance "
+                  f"{LSTM_STEP_TOL}); forward max {errs[0][0]}, mean "
+                  f"{errs[0][1]}; reverse max {errs[1][0]}, mean "
+                  f"{errs[1][1]} (tolerance {LSTM_SCAN_TOL})", flush=True)
+    # B off the 16-row tile, and H padded inside the wrapper (200 -> 208):
+    # the padded units stay exactly 0 and change no real unit's output
+    for B_, H_ in ((24, 512), (24, 200)):
+        xw_, w_, h_, c_ = lstm_inputs(50, B_, H_, B_ + H_)
+        xb_, wb_, _, _ = lstm_inputs(50, B_, H_, B_ + H_ + 1)
+        got_f = lstm_scan.lstm_scan(xw_, w_, h_, c_)
+        got_b = lstm_scan.lstm_scan(xb_, wb_, h_, c_, reverse=True)
+        e = max(float((got_f - lstm_scan.lstm_scan_plain(xw_, w_, h_, c_)
+                       ).abs().max()),
+                float((got_b - lstm_scan.lstm_scan_plain(
+                    xb_, wb_, h_, c_, reverse=True)).abs().max()))
+        check(e <= LSTM_SCAN_TOL, f"lstm_scan B={B_} H={H_}: {e}")
+        bi = lstm_scan.lstm_scan_bidir(xw_, xb_, w_, wb_, h_, c_)
+        check(torch.equal(bi, torch.cat([got_f, got_b], -1)),
+              f"lstm_scan_bidir B={B_} H={H_} differs from two calls")
+        lstm_err = max(lstm_err, e)
+        msg = ""
+        if H_ % 16:
+            Hp = H_ + (-H_ % 16)
+            pad = Hp - H_
+            xw_p = F8.pad(xw_.view(50, B_, 4, H_), (0, pad)).view(
+                50, B_, 4 * Hp)
+            w_p = F8.pad(w_.view(H_, 4, H_), (0, pad, 0, 0, 0, pad)).view(
+                Hp, 4 * Hp)
+            got_p = lstm_scan.lstm_scan(xw_p, w_p, F8.pad(h_, (0, pad)),
+                                        F8.pad(c_, (0, pad)))
+            check(bool((got_p[..., H_:] == 0).all()),
+                  "lstm_scan: a padded unit left 0")
+            check(torch.equal(got_p[..., :H_], got_f),
+                  "lstm_scan: padded units changed a real unit")
+            msg = f"; padded units ({H_} -> {Hp}) stay 0, real units equal"
+        print(f"lstm_scan T=50 B={B_} H={H_}: max |kernel - plain| {e} "
+              f"(forward and reverse); lstm_scan_bidir == two calls{msg}",
+              flush=True)
+
+    # time at deepspeech2's shape, one layer: one direction, both
+    # directions in one call (the path's), the plain version, and
+    # torch.nn.LSTM (cuDNN, bf16, one layer and one direction, input 2H:
+    # its time includes its own input projection) as the yardstick
+    T_, B_, H_ = 300, 32, 512
+    xw_, w_, _, _ = lstm_inputs(T_, B_, H_, 1)
+    xb_, wb_, _, _ = lstm_inputs(T_, B_, H_, 2)
+    z = torch.zeros(B_, H_, device=dev)
+    nn_lstm = torch.nn.LSTM(2 * H_, H_).to(dev, torch.bfloat16)
+    nn_lstm.flatten_parameters()      # one weight buffer, as cuDNN wants
+    x_lib = torch.from_numpy(rng.standard_normal((T_, B_, 2 * H_)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        lib_ms = cuda_ms(lambda: nn_lstm(x_lib), iters=5)
+    b_ms, b_by = bound(T_ * B_ * 4 * H_ * 4 + T_ * B_ * H_ * 4
+                       + H_ * 4 * H_ * 2 + 2 * B_ * H_ * 4,
+                       2 * T_ * B_ * H_ * 4 * H_, BF16_TENSOR_FLOPS)
+    report["lstm_scan"] = dict(
+        ms=cuda_ms(lambda: lstm_scan.lstm_scan(xw_, w_, z, z), iters=5),
+        ms_bidir=cuda_ms(lambda: lstm_scan.lstm_scan_bidir(
+            xw_, xb_, w_, wb_, z, z), iters=5),
+        plain_ms=cuda_ms(lambda: lstm_scan.lstm_scan_plain(xw_, w_, z, z),
+                         iters=2, warmup=1),
+        library_ms=lib_ms,
+        library_call="torch.nn.LSTM(1024, 512) bf16 on [300, 32, 1024] "
+                     "(cuDNN; includes its input projection)",
+        max_abs_err=lstm_err, bound_ms=b_ms, bound_by=b_by)
+    print(f"lstm_scan deepspeech2 layer (T=300, B=32, H=512) on {card}: one "
+          f"direction {report['lstm_scan']['ms']:.4f} ms (300 launches), both "
+          f"directions in one call {report['lstm_scan']['ms_bidir']:.4f} ms "
+          f"(300 launches), plain {report['lstm_scan']['plain_ms']:.4f} ms, "
+          f"torch.nn.LSTM bf16 {lib_ms:.4f} ms, bound per direction "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    del xw_, xb_, w_, wb_, x_lib, nn_lstm
+
+    def lstm_path(preset):
+        """Pipeline.transcribe on the preset at full size with
+        rnn_impl="pallas": launches of one counted run, log-probs and
+        decode checks, timings."""
+        cfg_l = dataclasses.replace(PRESETS[preset], rnn_impl="pallas")
+        params_l = model_init(cfg_l, torch.Generator().manual_seed(0))
+        pipe_l = Pipeline(cfg_l, params=params_l)
+        x_l = torch.from_numpy(rng.uniform(size=(
+            cfg_l.batch_size, cfg_l.seg_len, cfg_l.feat_size)).astype(
+                np.float32)).to(dev)
+        pipe_l.transcribe(x_l)                             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out_l = pipe_l.transcribe(x_l)
+        torch.cuda.synchronize()
+        got = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        lp_l = pipe_l.log_probs(x_l)
+        T_out = lp_l.shape[0]
+        want = {name: 0 for name in counters}
+        want.update(lstm_scan=cfg_l.rnn_num_layers * T_out,
+                    fused_prefix_decode=1, traceback=1)
+        for name, n in want.items():
+            check(got[name] == n, f"{preset} launches of {name}: "
+                  f"{got[name]}, expected {n}")
+        print(f"{preset} path launches per transcribe: {got} (lstm_scan = "
+              f"{cfg_l.rnn_num_layers} layers x {T_out} steps, both "
+              f"directions per launch)", flush=True)
+        check(tuple(lp_l.shape) == (T_out, cfg_l.batch_size,
+                                    cfg_l.output_size),
+              f"{preset} log_probs shape {tuple(lp_l.shape)}")
+        check(bool(torch.isfinite(lp_l).all()),
+              f"{preset} log_probs not finite")
+        norm = float((lp_l.exp().sum(-1) - 1).abs().max())
+        check(norm < 1e-4, f"{preset} log_probs rows do not normalise")
+
+        def decode(**kw):
+            return ctc_beam_search(lp_l, beam_width=cfg_l.beam_width,
+                                   max_len=cfg_l.decode_max_len, **kw)
+        res_k, res_m = decode(), decode(merge_impl="matched")
+        for field in ("tokens", "lengths", "timesteps"):
+            check(torch.equal(getattr(res_k, field), getattr(res_m, field)),
+                  f"{preset} decode: kernel and matched {field} differ")
+        check([ids for ids, _ in out_l] ==
+              [ids for ids, _ in decode_to_lists(res_k)],
+              f"{preset} transcribe differs from its own stages")
+        e2e = host_ms(lambda: pipe_l.transcribe(x_l))
+        fwd = cuda_ms(lambda: pipe_l.log_probs(x_l), iters=3, warmup=1)
+        dec = host_ms(lambda: decode_to_lists(decode()))
+        audio = cfg_l.batch_size * cfg_l.seg_len * 0.01
+        split = lstm_stages(params_l, x_l, lp_l)
+        mean_len = float(np.mean([len(ids) for ids, _ in out_l]))
+        print(f"transcribe {preset} (B={cfg_l.batch_size}, T="
+              f"{cfg_l.seg_len}, rnn_impl=pallas, beam {cfg_l.beam_width}) "
+              f"on {card}: {e2e:.3f} ms (median of 5 whole calls, host "
+              f"clock) = {audio / (e2e / 1e3):.1f} audio-seconds/s "
+              f"({audio:.0f} s of audio per call); log-probs "
+              f"{list(lp_l.shape)} finite, rows normalised to {norm}; "
+              f"decode == merge_impl='matched'; forward {fwd:.3f} ms (CUDA "
+              f"events, mean of 3)"
+              + "".join(f", {k} {v:.3f} ms" for k, v in split.items())
+              + f"; decode {dec:.3f} ms (median of 5, host clock incl. D2H "
+              f"and lists); peak device memory {peak:.2f} GB; mean "
+              f"transcript length {mean_len:.1f}", flush=True)
+        return got
+
+    def lstm_stages(params_l, x_l, lp_l):
+        """CUDA-event ms of the forward's stages (DS2's convs, the LSTM
+        layers' input GEMMs and recurrence kernels, the head), each timed
+        alone on the inputs the forward gives it (mean of 3).
+
+        The stages mirror `ds2_apply` / `bilstm_apply` and `lstm_forward`
+        with impl="pallas" step by step and must change with them; their
+        composition is held bit-equal to the path's log-probs `lp_l`, so
+        a drift fails the check instead of skewing the split."""
+        with torch.no_grad():
+            out = {}
+            h = x_l.transpose(0, 1)
+            if "conv1" in params_l:
+                def convs():
+                    h = conv2d(params_l["conv1"], x_l[..., None], (2, 2))
+                    return conv2d(params_l["conv2"], h, (1, 2))
+                out["convs"] = cuda_ms(convs, iters=3, warmup=1)
+                h = convs()
+                h = h.reshape(h.shape[0], h.shape[1], -1).transpose(0, 1)
+            z = torch.zeros(h.shape[1], params_l["lstm"]["layers"][0][
+                "w_hh"].shape[0], device=dev)
+            gemm = rec = 0.0
+            for cf, cb in zip(params_l["lstm"]["layers"],
+                              params_l["lstm"]["layers_rev"]):
+                def proj(h=h, cf=cf, cb=cb):
+                    return _input_projection(cf, h), _input_projection(cb, h)
+                gemm += cuda_ms(proj, iters=3, warmup=1)
+                xf, xb = proj()
+                rec += cuda_ms(lambda: lstm_scan.lstm_scan_bidir(
+                    xf, xb, cf["w_hh"], cb["w_hh"], z, z), iters=3, warmup=1)
+                h = lstm_scan.lstm_scan_bidir(xf, xb, cf["w_hh"],
+                                              cb["w_hh"], z, z)
+            out["input GEMMs"] = gemm
+            out["lstm_scan kernels"] = rec
+            def head():
+                return torch.log_softmax(linear(params_l["proj"], h, None),
+                                         -1)
+            out["proj + log_softmax"] = cuda_ms(head, iters=3, warmup=1)
+            check(torch.equal(head(), lp_l),
+                  "the stage split does not compose to the path's log-probs")
+        return out
+
+    # 9b. deepspeech2 (B=32, T=600 -> T'=300, F=160, 5 BiLSTM layers of
+    # H=512, W=32); 9c. bilstm_2x256 (B=16, T=400, F=80, 2 layers, W=10)
+    d_launches = lstm_path("deepspeech2")
+    b_launches = lstm_path("bilstm_2x256")
+
+    # 9d. small DS2 and BiLSTM forwards, card against CPU, over FWD_SEEDS
+    for preset, over in (("deepspeech2", dict(seg_len=40, input_size=80)),
+                         ("bilstm_2x256", dict(seg_len=40))):
+        for seed in FWD_SEEDS:
+            c = dataclasses.replace(PRESETS[preset], device="cpu",
+                                    batch_size=8, rnn_hidden_size=128,
+                                    rnn_num_layers=2, **over)
+            f_small = np.random.default_rng(seed).uniform(
+                size=(8, c.seg_len, c.feat_size)).astype(np.float32)
+            errs = {}
+            for impl in ("scan", "pallas"):
+                ci = dataclasses.replace(c, rnn_impl=impl)
+                lp_cpu = Pipeline(ci, generator=torch.Generator().manual_seed(
+                    seed)).log_probs(f_small)
+                n0 = lstm_scan.launches
+                lp_gpu = Pipeline(dataclasses.replace(ci, device="cuda"),
+                                  generator=torch.Generator().manual_seed(
+                                      seed)).log_probs(f_small)
+                n_k = lstm_scan.launches - n0
+                check(n_k == (2 * lp_gpu.shape[0] if impl == "pallas" else 0),
+                      f"small {preset} rnn_impl={impl}: {n_k} lstm_scan "
+                      f"launches")
+                errs[impl] = float((lp_gpu.cpu() - lp_cpu).abs().max())
+                check(errs[impl] <= FWD_LSTM_CARD_CPU_TOL[impl],
+                      f"small {preset} card vs CPU, rnn_impl={impl}, seed "
+                      f"{seed}: {errs[impl]}")
+                # forward + decode on the CPU against both on the card
+                r_cpu = decode_to_lists(ctc_beam_search(lp_cpu, beam_width=8))
+                r_gpu = decode_to_lists(ctc_beam_search(lp_gpu, beam_width=8))
+                check([ids for ids, _ in r_cpu] == [ids for ids, _ in r_gpu],
+                      f"small {preset} transcripts card vs CPU differ, "
+                      f"rnn_impl={impl}, seed {seed}")
+            print(f"small {preset} forward (B=8, T={c.seg_len}, H=128, 2 "
+                  f"layers) card vs CPU, seed {seed}: max err rnn_impl=scan "
+                  f"{errs['scan']} (tolerance {FWD_LSTM_CARD_CPU_TOL['scan']}"
+                  f"), pallas {errs['pallas']} (tolerance "
+                  f"{FWD_LSTM_CARD_CPU_TOL['pallas']}); transcripts of "
+                  f"forward + decode equal, card vs CPU, both rnn_impl",
+                  flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -775,16 +1075,21 @@ def main() -> int:
                            "gasr_tpu/ops/pallas/flash_mhsa.py:308"),
         "fused_stem": ("gasr_tpu_torch/csrc/stem.cu",
                        "gasr_tpu/ops/pallas/stem.py:285"),
+        "lstm_scan": ("gasr_tpu_torch/csrc/lstm_scan.cu",
+                      "gasr_tpu/ops/pallas/lstm_scan.py:47"),
     }
     # `launches` is each kernel's count on the path that exercises it:
     # transcribe for the first four, the stream for traceback_overlay, the
-    # conformer forward + decode for flash_mhsa_rel, and that path with
-    # stem_impl="pallas" for fused_stem
+    # conformer forward + decode for flash_mhsa_rel, that path with
+    # stem_impl="pallas" for fused_stem, the deepspeech2 transcribe for
+    # lstm_scan
     runs = {"transcribe": launches, "streaming": s_launches,
-            "conformer": c_launches, "conformer_stem_pallas": cs_launches}
+            "conformer": c_launches, "conformer_stem_pallas": cs_launches,
+            "deepspeech2": d_launches, "bilstm_2x256": b_launches}
     main_path = {"traceback_overlay": "streaming",
                  "flash_mhsa_rel": "conformer",
-                 "fused_stem": "conformer_stem_pallas"}
+                 "fused_stem": "conformer_stem_pallas",
+                 "lstm_scan": "deepspeech2"}
     paths = {name: {path: run[name] for path, run in runs.items()}
              for name in sources}
     kernels = []
@@ -808,8 +1113,9 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if name in inside:
             entry["inside"] = inside[name]
-        if "library_call" in r:
-            entry["library_call"] = r["library_call"]
+        for extra in ("library_call", "ms_bidir"):
+            if extra in r:
+                entry[extra] = r[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

@@ -6,8 +6,11 @@ Differences from the JAX package:
     value. `resolve_device` raises when "cuda" is asked for and no card
     is present: nothing falls back to the CPU quietly.
   - `rnn_impl="pallas"` keeps its name so configs carry across; here it
-    selects the hand-written CUDA recurrence kernel
-    (`ops/cuda/rnn_scan.py`), and the same holds for the decoder's
+    selects the hand-written CUDA recurrence kernels, the Elman one
+    (`ops/cuda/rnn_scan.py`) for deepspeech and the LSTM one
+    (`ops/cuda/lstm_scan.py`) for bilstm and deepspeech2, on the shapes
+    that JAX's rule admits (H % 128 == 0 and B % 8 == 0; the float32
+    loop elsewhere, as in JAX), and the same holds for the decoder's
     `merge_impl="pallas"` (`ops/cuda/fused_decode.py`) and the
     conformer's `attn_impl` / `stem_impl="pallas"`
     (`ops/cuda/flash_mhsa.py`, `ops/cuda/stem.py`).

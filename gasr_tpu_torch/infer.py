@@ -1,8 +1,12 @@
 """End-to-end inference pipeline: features -> acoustic model -> decoder.
 
-`Pipeline.transcribe` is the port's main path: the DeepSpeech forward
-(with `rnn_impl="pallas"` the CUDA recurrence kernel) and the prefix
-beam search (on the card the fused decode and traceback kernels).
+`Pipeline.transcribe` is the port's main path: the configured model's
+forward through `models.model_apply(..., rnn_impl=config.rnn_impl)`
+(deepspeech with `rnn_impl="pallas"` runs the Elman recurrence kernel,
+bilstm and deepspeech2 the LSTM recurrence kernel; the conformers run in
+float32 here, as JAX's Pipeline runs them) and the prefix beam search
+(on the card the fused decode and traceback kernels). Nothing in it
+depends on the family beyond that dispatch.
 `Pipeline.transcribe_streaming` is the live-audio path: the chunked
 forward with carried RNN state and, per chunk, one decode kernel launch
 from the carried beam and one traceback-with-overlay launch.

@@ -1,32 +1,31 @@
-"""Model families. `deepspeech` and the conformers (`conformer_s`,
-`conformer_l`, `conformer`) are ported; the others raise
-`NotImplementedError` naming their ROADMAP.md queue item."""
+"""Model families: `deepspeech`, `bilstm`, `deepspeech2` and the
+conformers (`conformer_s`, `conformer_l`, `conformer`), the JAX
+package's five, all ported."""
 
 from typing import Optional
 
 import torch
 
 from gasr_tpu_torch.config import resolve_device
+from gasr_tpu_torch.models.bilstm import bilstm_apply, bilstm_init
 from gasr_tpu_torch.models.conformer import (  # noqa: F401
     conformer_apply, conformer_init,
 )
 from gasr_tpu_torch.models.deepspeech import (  # noqa: F401
     deepspeech_apply, deepspeech_init,
 )
+from gasr_tpu_torch.models.deepspeech2 import ds2_apply, ds2_init
 
 CONFORMERS = ("conformer_s", "conformer_l", "conformer")
 
-_NOT_PORTED = {
-    "bilstm": "ROADMAP.md Queue 1 item 10",
-    "deepspeech2": "ROADMAP.md Queue 1 item 10",
-}
+_INIT = {"deepspeech": deepspeech_init, "bilstm": bilstm_init,
+         "deepspeech2": ds2_init, **{c: conformer_init for c in CONFORMERS}}
+_APPLY = {"deepspeech": deepspeech_apply, "bilstm": bilstm_apply,
+          "deepspeech2": ds2_apply}
 
 
 def _check_family(name: str) -> None:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet ({_NOT_PORTED[name]})")
-    if name != "deepspeech" and name not in CONFORMERS:
+    if name not in _INIT:
         raise ValueError(f"unknown model {name!r}")
 
 
@@ -39,9 +38,7 @@ def model_init(config, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device or config.device)
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
-    if config.model in CONFORMERS:
-        return conformer_init(generator, config, dev)
-    return deepspeech_init(generator, config, dev)
+    return _INIT[config.model](generator, config, dev)
 
 
 def model_apply(config, params, x, **kw):
@@ -49,4 +46,4 @@ def model_apply(config, params, x, **kw):
     _check_family(config.model)
     if config.model in CONFORMERS:
         return conformer_apply(config, params, x, **kw)
-    return deepspeech_apply(params, x, **kw)
+    return _APPLY[config.model](params, x, **kw)

@@ -1,7 +1,8 @@
 """DeepSpeech-1 CTC acoustic model (the flagship topology).
 
-  3 x (Linear + ReLU) -> RNN (tanh, unidirectional) -> Linear + ReLU
-  -> Linear (no act) -> log_softmax over vocab+blank.
+  3 x (Linear + ReLU) -> RNN (tanh, unidirectional unless the config
+  asks for bidirectional) -> Linear + ReLU -> Linear (no act)
+  -> log_softmax over vocab+blank.
 
 Functions over a param dict with the JAX package's names and layouts,
 so `runtime.checkpoint.params_from_jax` carries weights across as they
@@ -28,13 +29,14 @@ def deepspeech_init(generator: torch.Generator, config: Config,
     feat = config.feat_size
     L = config.linear_size
     H = config.rnn_hidden_size
+    n_dir = 2 if config.bidirectional else 1
     return {
         "mlp1": linear_init(generator, feat, L, device),
         "mlp2": linear_init(generator, L, L, device),
         "mlp3": linear_init(generator, L, H, device),
         "rnn": rnn_init(generator, H, H, config.rnn_num_layers,
                         config.bidirectional, device),
-        "mlp5": linear_init(generator, H, L, device),
+        "mlp5": linear_init(generator, H * n_dir, L, device),
         "mlp6": linear_init(generator, L, config.output_size, device),
     }
 

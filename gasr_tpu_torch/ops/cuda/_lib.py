@@ -48,9 +48,19 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                      _P, _P, _P],
     },
     "rnn_scan": {"rnn_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P]},
+    "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 5 + [_P, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def scan_supported(B: int, H: int) -> bool:
+    """The JAX package's shape rule for its recurrence kernels
+    (`gasr_tpu/ops/pallas/rnn_scan.py:96-115`, `lstm_scan.py:83-97`):
+    `rnn_forward` / `lstm_forward` with impl="pallas" take the rnn_scan /
+    lstm_scan kernel at these (batch, hidden) shapes and the float32 loop
+    at any other. The wrappers themselves take every shape."""
+    return H % 128 == 0 and B % 8 == 0
 
 
 def _nvcc() -> str:

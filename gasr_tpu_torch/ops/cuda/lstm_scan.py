@@ -1,0 +1,154 @@
+"""LSTM recurrence kernel: gates i, f, g, o from
+pre = xw[t] + bf16(h_{t-1}) @ bf16(W_hh), then c = f*c + i*g, h = o*tanh(c).
+
+Replaces `gasr_tpu/ops/pallas/lstm_scan.py::lstm_scan_pallas_raw`
+(kernel body `_kernel`): h and c are carried in float32, h is rounded to
+bf16 only as the product's operand, W_hh is held in bf16, the product
+accumulates in float32 and the gates are float32. Forward or reverse in
+time; the output keeps xw's time index.
+
+`lstm_scan` (one direction) and `lstm_scan_bidir` (a forward and a
+reverse direction, both in each step's launch) launch the CUDA kernel
+(`csrc/lstm_scan.cu`, one launch per step) for CUDA tensors and run
+`lstm_scan_plain` for CPU tensors. Every (B, H) goes through the kernel;
+other devices raise. `ops/lstm.py::lstm_forward` takes it only where
+`_lib.scan_supported` (the JAX package's shape rule) holds.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from gasr_tpu_torch.ops.cuda import _lib
+
+# kernel launches made by lstm_scan / lstm_scan_bidir (one per time step,
+# whatever the number of directions)
+launches = 0
+
+_H_ALIGN = 16     # the kernel's unit tile
+
+
+def lstm_scan_plain(xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
+                    c0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: the same casts, step by step (products of
+    two bf16 values are exact in float32, so the float32 matmul of the
+    up-cast operands is the bf16 product with float32 accumulation)."""
+    H = w_hh.shape[0]
+    w = w_hh.to(torch.bfloat16).float()
+    out = xw.new_empty(xw.shape[0], xw.shape[1], H)
+    h, c = h0.float(), c0.float()
+    steps = range(xw.shape[0] - 1, -1, -1) if reverse else range(xw.shape[0])
+    for t in steps:
+        pre = xw[t] + torch.matmul(h.to(torch.bfloat16).float(), w)
+        i = torch.sigmoid(pre[:, 0 * H:1 * H])
+        f = torch.sigmoid(pre[:, 1 * H:2 * H])
+        g = torch.tanh(pre[:, 2 * H:3 * H])
+        o = torch.sigmoid(pre[:, 3 * H:4 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        out[t] = h
+    return out
+
+
+def _check(xws, ws, h0, c0) -> None:
+    dev = xws[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"lstm_scan: unsupported device {dev}")
+    shape = tuple(xws[0].shape)
+    if len(shape) != 3 or shape[2] % 4:
+        raise ValueError(f"lstm_scan: xw must be [T, B, 4H], got {shape}")
+    T, B, H4 = shape
+    H = H4 // 4
+    for xw in xws:
+        if xw.dtype != torch.float32 or tuple(xw.shape) != shape:
+            raise ValueError("lstm_scan: xw must be float32 [T, B, 4H], the "
+                             "same for both directions")
+    for w in ws:
+        if tuple(w.shape) != (H, H4):
+            raise ValueError(f"lstm_scan: w_hh {tuple(w.shape)} does not fit "
+                             f"xw {shape}")
+    for s in (h0, c0):
+        if tuple(s.shape) != (B, H):
+            raise ValueError(f"lstm_scan: h0 / c0 {tuple(s.shape)} do not "
+                             f"fit xw {shape}")
+    for t in (*xws, *ws, h0, c0):
+        if t.device != dev:
+            raise ValueError("lstm_scan: all tensors must be on one device")
+
+
+def _launch(xws: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+            h0: torch.Tensor, c0: torch.Tensor,
+            reverse: Sequence[bool]) -> torch.Tensor:
+    """The kernel over len(xws) directions -> [T, B, D*H] float32."""
+    D = len(xws)
+    T, B, H4 = xws[0].shape
+    H = H4 // 4
+    if T * B * H == 0:
+        return xws[0].new_empty(T, B, D * H)
+    # The kernel's unit tile is 16 wide, so H goes up to a multiple of 16
+    # with zeros in every gate: zero xw and zero W_hh rows and columns keep
+    # a padded unit's c and h at 0 and out of every real unit's sum.
+    pad = -H % _H_ALIGN
+    Hp = H + pad
+
+    def gates(x):                       # [T, B, 4H] -> [T, B, 4Hp]
+        if pad:
+            x = F.pad(x.reshape(T, B, 4, H), (0, pad)).reshape(T, B, 4 * Hp)
+        return x.contiguous()
+
+    def weight(w):                      # [H, 4H] -> bf16 [Hp, 4Hp]
+        w = w.to(torch.bfloat16)
+        if pad:
+            w = F.pad(w.reshape(H, 4, H), (0, pad, 0, 0, 0, pad)).reshape(
+                Hp, 4 * Hp)
+        return w.contiguous()
+
+    xs = [gates(x) for x in xws]
+    wb = [weight(w) for w in ws]
+    h = F.pad(h0.float(), (0, pad))
+    hbf = torch.empty(D, 2, B, Hp, dtype=torch.bfloat16, device=h.device)
+    hbf[:, 0] = h.to(torch.bfloat16)
+    c = F.pad(c0.float(), (0, pad)).expand(D, B, Hp).contiguous()
+    out = torch.empty(T, B, D * Hp, dtype=torch.float32, device=h.device)
+    rev_mask = sum(1 << d for d, r in enumerate(reverse) if r)
+    lib = _lib.load("lstm_scan")
+    err = lib.lstm_scan_launch(_lib.ptr(xs[0]), _lib.ptr(xs[-1]),
+                               _lib.ptr(wb[0]), _lib.ptr(wb[-1]),
+                               _lib.ptr(hbf), _lib.ptr(c), D, T, B, Hp,
+                               rev_mask, _lib.ptr(out),
+                               _lib.stream(h.device))
+    _lib.check(err, "lstm_scan")
+    global launches
+    launches += T
+    if pad:
+        out = out.view(T, B, D, Hp)[..., :H].reshape(T, B, D * H)
+    return out
+
+
+def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
+              c0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """xw: [T, B, 4H] float32 input projection (+ biases); w_hh: [H, 4H];
+    h0, c0: [B, H]. Returns the hidden history [T, B, H] float32."""
+    if xw.device.type == "cpu":
+        return lstm_scan_plain(xw, w_hh, h0, c0, reverse)
+    _check([xw], [w_hh], h0, c0)
+    return _launch([xw], [w_hh], h0, c0, [reverse])
+
+
+def lstm_scan_bidir(xw_f: torch.Tensor, xw_b: torch.Tensor,
+                    w_f: torch.Tensor, w_b: torch.Tensor, h0: torch.Tensor,
+                    c0: torch.Tensor) -> torch.Tensor:
+    """A bidirectional layer's recurrences: the forward direction on
+    (xw_f, w_f), the reverse one on (xw_b, w_b), both from (h0, c0).
+    Returns [T, B, 2H], the same as concatenating `lstm_scan(xw_f, w_f,
+    h0, c0)` and `lstm_scan(xw_b, w_b, h0, c0, reverse=True)`; on the card
+    each step's launch covers both directions."""
+    if xw_f.device.type == "cpu":
+        return torch.cat(
+            [lstm_scan_plain(xw_f, w_f, h0, c0, False),
+             lstm_scan_plain(xw_b, w_b, h0, c0, True)], dim=-1)
+    _check([xw_f, xw_b], [w_f, w_b], h0, c0)
+    return _launch([xw_f, xw_b], [w_f, w_b], h0, c0, [False, True])

