@@ -24,7 +24,15 @@ layers of H=512, W=32) and `bilstm_2x256` (B=16, T=400, F=80, 2 BiLSTM
 layers of H=256, W=10), with the LSTM recurrence kernel (one launch per
 step for both directions: 1500 and 800), after the kernel is held to its
 plain version at both shapes, and small forwards of both, card against
-CPU (phase 9).
+CPU (phase 9); and audio in, text out with bigram shallow fusion (phase
+10): the decode kernel's LM variant against its plain version at the
+flagship shape (two tables, two kinds of log-probs) and at the envelope's
+edges (V=129 W=64, V=255 W=64; V=256 takes the matched scan), the LM
+stream of 10 x 20 frames against the batch LM decode,
+`Pipeline.transcribe_audio` on `reference_large` (B=256 tone-speech
+waveforms of 1.0-2.0 s; the native log-mel, cmvn off and on) with the
+card's log-mel held to the native one, and `eval.evaluate_batch` with a
+bigram table.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -107,6 +115,11 @@ LSTM_SCAN_TOL = 1e-2       # 300 or 400 steps: each step rounds h to bf16, so
                            # bound as RNN_SCAN_TOL); PERF.md gives the H100
                            # readings over LSTM_SEEDS
 LSTM_SEEDS = (1, 2, 3)     # weights and inputs of the full-length checks
+LOGMEL_TOL = 5e-3          # log-mel on the card (cuFFT) against the native
+                           # C++ one: natural-log mel energies from two FFTs
+                           # differ in the last bits, which the log magnifies
+                           # in the quietest bins; tests/test_torch_frontend.py
+                           # measured up to 1.2e-3 between the CPU's FFTs
 FWD_LSTM_CARD_CPU_TOL = {  # small DS2 / BiLSTM forwards, card against CPU
     "scan": 1e-5,          # float32 all through (TF32 off in cuDNN's convs
                            # and cuBLAS): only the summation order differs
@@ -136,12 +149,18 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
 
+    from gasr_tpu_torch import native
     from gasr_tpu_torch.config import PRESETS, Config
+    from gasr_tpu_torch.data.dataset import ids_to_text
+    from gasr_tpu_torch.data.features import logmel_torch
     from gasr_tpu_torch.decoder.beam_search import (_init_beam,
+                                                    _quantize_lm,
                                                     ctc_beam_search,
                                                     decode_to_lists,
                                                     streaming_init,
                                                     streaming_step)
+    from gasr_tpu_torch.decoder.lm import bigram_bias_from_text
+    from gasr_tpu_torch.eval import evaluate_batch
     from gasr_tpu_torch.infer import Pipeline
     from gasr_tpu_torch.models import model_apply, model_init
     from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
@@ -164,6 +183,10 @@ def main() -> int:
     t_build = _lib.build_all()
     print(f"kernel build: {t_build:.1f} s ({', '.join(_lib.SIGNATURES)})",
           flush=True)
+    t0 = time.perf_counter()
+    native.build()
+    print(f"native host library (g++): {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     def cuda_ms(fn, iters=10, warmup=2):
         for _ in range(warmup):
@@ -181,6 +204,9 @@ def main() -> int:
     # every kernel's launch counter: (module, attribute)
     counters = {"topk": (topk, "launches"),
                 "fused_prefix_decode": (fused_decode, "decode_launches"),
+                # the decode launches of its shallow-fusion instantiation
+                "fused_prefix_decode_lm": (fused_decode,
+                                           "decode_lm_launches"),
                 "traceback": (fused_decode, "traceback_launches"),
                 "traceback_overlay": (fused_decode, "overlay_launches"),
                 "rnn_scan": (rnn_scan, "launches"),
@@ -1060,6 +1086,289 @@ def main() -> int:
                   f"forward + decode equal, card vs CPU, both rnn_impl",
                   flush=True)
 
+    # ---- 10. bigram shallow fusion and audio in, text out
+    # 10a. the decode kernel's LM variant against its plain version at the
+    # flagship shape (T=200, B=256, V=47, W=100) on phase 2's log-probs,
+    # with a standard-normal table and a bigram table from a seeded corpus
+    T, B, V, W = 200, 256, 47, 100
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz'"),
+                                int(rng.integers(1, 8))))
+             for _ in range(300)]
+    corpus = [" ".join(rng.choice(words, int(rng.integers(3, 12))))
+              for _ in range(200)]
+    lm_text = bigram_bias_from_text(corpus, V)
+    lm_text[::4, ::5] = -0.0          # the quantization turns these to +0.0
+    tables = {"normal": rng.standard_normal((V + 1, V)).astype(np.float32),
+              "bigram": lm_text}
+
+    def lm_check(lp_in, lm_q, W_, tag):
+        """Kernel against plain with the table at beam W_: ys equal, the
+        final state equal in its bits; returns the kernel's ys."""
+        init = _init_beam(lp_in.shape[1], W_, dev)
+        fin_k, ys_k = fused_decode.fused_prefix_decode(lp_in, init,
+                                                       lm_q=lm_q)
+        fin_p, ys_p = fused_decode.fused_prefix_decode_plain(lp_in, init,
+                                                             lm_q=lm_q)
+        torch.cuda.synchronize()
+        check(torch.equal(ys_k, ys_p), f"LM decode ys differ ({tag})")
+        for name in fused_decode.FIELDS:
+            a, b = getattr(fin_k, name), getattr(fin_p, name)
+            if name in ("s1", "s2"):
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a.long(), b.long()),
+                  f"LM decode final {name} differs in its bits ({tag})")
+        return ys_k
+
+    lm_err = 0.0
+    for t_name, table in tables.items():
+        lm_q = _quantize_lm(torch.from_numpy(table), V, dev)
+        for l_name, lp_np in (("random", lp_rand), ("tie-heavy relu",
+                                                   lp_ties)):
+            lp_in = torch.from_numpy(lp_np).to(dev)
+            tag = f"{t_name} table, {l_name} log-probs"
+            ys_k = lm_check(lp_in, lm_q, W, tag)
+            res_lm = ctc_beam_search(lp_in, beam_width=W, max_len=L,
+                                     lm_bias=lm_q)
+            res_lm_p = ctc_beam_search(lp_in, beam_width=W, max_len=L,
+                                       lm_bias=lm_q, merge_impl="matched")
+            for field in ("tokens", "lengths", "timesteps"):
+                check(torch.equal(getattr(res_lm, field),
+                                  getattr(res_lm_p, field)),
+                      f"LM ctc_beam_search {field} differ ({tag})")
+            err = float((res_lm.scores - res_lm_p.scores).abs().max())
+            check(err <= DECODE_SCORE_TOL, f"LM scores differ by {err} "
+                  f"({tag})")
+            lm_err = max(lm_err, err)
+            _, ys_n = fused_decode.fused_prefix_decode(
+                lp_in, _init_beam(B, W, dev))
+            check(not torch.equal(ys_k, ys_n),
+                  f"the LM decode equals the decode without it ({tag})")
+            print(f"LM decode kernel (T={T}, B={B}, V={V}, W={W}, {tag}): "
+                  f"ys and final state bit-equal to the plain version; "
+                  f"scores err {err} (tolerance {DECODE_SCORE_TOL}); differs "
+                  f"from the decode without the LM", flush=True)
+    lm_q47 = _quantize_lm(torch.from_numpy(tables["bigram"]), V, dev)
+    init_lm = _init_beam(B, W, dev)
+    nb_lm = (T * B * V * 4 + 2 * 9 * B * W * 4 + T * B * W * 4
+             + (V + 1) * V * 4)
+    b_ms, b_by = bound(nb_lm, T * B * (3 * W * V + 30 * W), F32_FLOPS)
+    lm_report = dict(
+        ms=cuda_ms(lambda: fused_decode.fused_prefix_decode(
+            lp_r, init_lm, lm_q=lm_q47), iters=5, warmup=1),
+        ms_no_lm=cuda_ms(lambda: fused_decode.fused_prefix_decode(
+            lp_r, init_lm), iters=5, warmup=1),
+        plain_ms=cuda_ms(lambda: fused_decode.fused_prefix_decode_plain(
+            lp_r, init_lm, lm_q=lm_q47), iters=1, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=lm_err, library_ms=None)
+    print(f"LM decode kernel at T={T}, B={B}, V={V}, W={W} on {card}: "
+          f"{lm_report['ms']:.4f} ms with the bigram table, "
+          f"{lm_report['ms_no_lm']:.4f} ms without (CUDA events, mean of 5; "
+          f"ratio {lm_report['ms'] / lm_report['ms_no_lm']:.3f}), plain "
+          f"{lm_report['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"lp + ys + state + table)", flush=True)
+
+    # 10b. the LM envelope's edges: conformer_s's decode shape (V=129,
+    # W=64, B=32, T=600), JAX's LM ceiling V=255 (W=64), and V=256, where
+    # "auto" takes the matched scan and "pallas" refuses
+    for V_, W_, B_, T_ in ((129, 64, 32, 600), (255, 64, 16, 100)):
+        lp_e = torch.from_numpy(log_softmax_np(
+            rng.standard_normal((T_, B_, V_)))).to(dev)
+        lm_e = _quantize_lm(torch.from_numpy(rng.standard_normal(
+            (V_ + 1, V_)).astype(np.float32)), V_, dev)
+        lm_check(lp_e, lm_e, W_, f"V={V_}, W={W_}")
+        init_e = _init_beam(B_, W_, dev)
+        e_ms = cuda_ms(lambda: fused_decode.fused_prefix_decode(
+            lp_e, init_e, lm_q=lm_e), iters=3, warmup=1)
+        e_ms_n = cuda_ms(lambda: fused_decode.fused_prefix_decode(
+            lp_e, init_e), iters=3, warmup=1)
+        lm_report[f"ms_V{V_}_W{W_}_B{B_}_T{T_}"] = e_ms
+        lm_report[f"ms_no_lm_V{V_}_W{W_}_B{B_}_T{T_}"] = e_ms_n
+        print(f"LM decode kernel V={V_}, W={W_}, B={B_}, T={T_}: ys and final "
+              f"state bit-equal to the plain version; {e_ms:.4f} ms with the "
+              f"table, {e_ms_n:.4f} ms without (CUDA events, mean of 3)",
+              flush=True)
+    lp_256 = torch.from_numpy(log_softmax_np(
+        rng.standard_normal((8, 4, 256)))).to(dev)
+    lm_256 = torch.from_numpy(rng.standard_normal((257, 256)).astype(
+        np.float32)).to(dev)
+    zero_counts()
+    res_256 = ctc_beam_search(lp_256, beam_width=16, max_len=16,
+                              lm_bias=lm_256)
+    torch.cuda.synchronize()
+    check(read_counts()["fused_prefix_decode"] == 0,
+          "V=256 with an LM under 'auto' launched the decode kernel")
+    res_256m = ctc_beam_search(lp_256, beam_width=16, max_len=16,
+                               lm_bias=lm_256, merge_impl="matched")
+    check(all(torch.equal(getattr(res_256, f), getattr(res_256m, f))
+              for f in res_256._fields), "V=256 'auto' differs from matched")
+    try:
+        ctc_beam_search(lp_256, beam_width=16, lm_bias=lm_256,
+                        merge_impl="pallas")
+        check(False, "V=256 with an LM under 'pallas' did not raise")
+    except ValueError as e:
+        print(f"V=256 with an LM: 'auto' made no decode launch and equals "
+              f"'matched'; 'pallas' raises: {e}", flush=True)
+
+    # 10c. the LM stream: reference_large's log-probs (phase 6) in 10 chunks
+    # of 20 frames with the bigram table, against the batch LM decode
+    def lm_stream(lp_in):
+        st = streaming_init(cfg.batch_size, W, max_len=L, device=dev)
+        for i in range(n_chunks):
+            st, snap = streaming_step(
+                st, lp_in[i * STREAM_TC:(i + 1) * STREAM_TC], lm_bias=lm_q47)
+        return snap
+
+    lm_stream(lp)                                        # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    snap_lm = lm_stream(lp)
+    torch.cuda.synchronize()
+    lms_launches = read_counts()
+    for name, n in {"fused_prefix_decode": n_chunks,
+                    "fused_prefix_decode_lm": n_chunks,
+                    "traceback_overlay": n_chunks, "traceback": 0}.items():
+        check(lms_launches[name] == n, f"LM streaming launches of {name}: "
+              f"{lms_launches[name]}, expected {n}")
+    batch_lm = ctc_beam_search(lp, beam_width=W, max_len=L, lm_bias=lm_q47)
+    for field in ("tokens", "lengths", "timesteps", "overflow"):
+        check(torch.equal(getattr(snap_lm, field), getattr(batch_lm, field)),
+              f"LM stream {field} differ from the batch LM decode")
+    check(torch.equal(snap_lm.scores.view(torch.int32),
+                      batch_lm.scores.view(torch.int32)),
+          "LM stream scores differ from the batch LM decode in their bits")
+    lms_ms = host_ms(lambda: lm_stream(lp))
+    print(f"LM streaming decode reference_large ({n_chunks} x {STREAM_TC} "
+          f"frames, bigram table) == batch LM decode (tokens, lengths, "
+          f"timesteps, overflow, score bits); launches {lms_launches}; whole "
+          f"stream {lms_ms:.3f} ms (median of 5, host clock)", flush=True)
+
+    # 10d. Pipeline.transcribe_audio on reference_large (rnn_impl="pallas",
+    # H=2048, V=47, W=100): B=256 tone-speech waveforms (the synthesis of
+    # tests/test_audio_anchor.py, one sine per symbol of 14 frames, no
+    # symbol twice in a row, noise 0.02) of 1.0-2.0 s at 16 kHz
+    SR, HOP = 16000, 160
+    seg = 14 * HOP
+    tone = np.sin(2 * np.pi * np.array([500.0, 1200.0, 2600.0, 5200.0])
+                  [:, None] * np.arange(seg)[None, :] / SR)
+    n_samples = rng.integers(SR, 2 * SR + 1, cfg.batch_size)
+    waves, texts = [], []
+    for n in n_samples:
+        syms = []
+        while len(syms) * seg < n:
+            s = int(rng.integers(1, 5))
+            if not syms or s != syms[-1]:
+                syms.append(s)
+        w = np.concatenate([tone[s - 1] for s in syms])[:n]
+        waves.append((w + rng.standard_normal(n) * 0.02).astype(np.float32))
+        texts.append(ids_to_text(syms))
+    audio_s_real = float(n_samples.sum()) / SR
+
+    # the card's log-mel (cuFFT) against the native one the path runs,
+    # on every utterance's valid frames (frames depend only on their
+    # own samples, so the zero-padded batch gives them exactly)
+    wav_b = torch.zeros(len(waves), int(n_samples.max()), device=dev)
+    for i, w in enumerate(waves):
+        wav_b[i, :w.size] = torch.from_numpy(w)
+    lm_card = logmel_torch(wav_b, n_mels=cfg.input_size)
+    logmel_err = 0.0
+    for i, w in enumerate(waves):
+        ref = torch.from_numpy(native.logmel(w, n_mels=cfg.input_size))
+        logmel_err = max(logmel_err, float(
+            (lm_card[i, :ref.shape[0]].cpu() - ref).abs().max()))
+    check(logmel_err <= LOGMEL_TOL, f"logmel_torch on the card differs from "
+          f"the native log-mel by {logmel_err}")
+    logmel_card_ms = cuda_ms(lambda: logmel_torch(wav_b,
+                                                  n_mels=cfg.input_size))
+    print(f"logmel_torch on the card (cuFFT) vs the native log-mel, "
+          f"{len(waves)} utterances of 1.0-2.0 s, {cfg.input_size} mels: max "
+          f"|diff| {logmel_err} (tolerance {LOGMEL_TOL}); batched on the "
+          f"card {logmel_card_ms:.4f} ms (CUDA events; not on the path)",
+          flush=True)
+
+    def audio_path(cmvn):
+        """transcribe_audio with cmvn off (the preset) or on: launches of
+        one counted call, the kernel decode against the plain decode on
+        the same log-probs and lengths, stage times."""
+        pipe_a = Pipeline(dataclasses.replace(cfg, cmvn=cmvn), params=params)
+        pipe_a.transcribe_audio(waves)                   # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        out_a = pipe_a.transcribe_audio(waves)
+        torch.cuda.synchronize()
+        got = read_counts()
+        x_a, lens_a = pipe_a.audio_features(waves)
+        T_pad = x_a.shape[1]
+        want = {name: 0 for name in counters}
+        want.update(rnn_scan=T_pad, fused_prefix_decode=1, traceback=1)
+        for name, n in want.items():
+            check(got[name] == n, f"transcribe_audio (cmvn={cmvn}) launches "
+                  f"of {name}: {got[name]}, expected {n}")
+        check(tuple(x_a.shape) == (len(waves), T_pad, cfg.feat_size)
+              and lens_a.tolist() == [1 + (int(n) - 512) // HOP
+                                      for n in n_samples],
+              f"audio features {tuple(x_a.shape)}")
+        lp_a = pipe_a.log_probs(x_a)
+        check(tuple(lp_a.shape) == (T_pad, len(waves), cfg.output_size)
+              and bool(torch.isfinite(lp_a).all()),
+              f"transcribe_audio log_probs {tuple(lp_a.shape)}")
+
+        def decode(**kw):
+            return ctc_beam_search(lp_a, beam_width=cfg.beam_width,
+                                   max_len=cfg.decode_max_len,
+                                   input_lengths=lens_a, **kw)
+        tr_k = [pipe_a.to_text(ids) for ids, _ in decode_to_lists(decode())]
+        tr_p = [pipe_a.to_text(ids) for ids, _ in
+                decode_to_lists(decode(merge_impl="matched"))]
+        check(tr_k == tr_p, f"transcribe_audio (cmvn={cmvn}): kernel and "
+              f"plain decode transcripts differ")
+        check(out_a == tr_k, f"transcribe_audio (cmvn={cmvn}) differs from "
+              f"its own stages")
+        times = dict(
+            front=host_ms(lambda: pipe_a.audio_features(waves)),
+            forward=cuda_ms(lambda: pipe_a.log_probs(x_a), iters=3,
+                            warmup=1),
+            decode=host_ms(lambda: decode_to_lists(decode())),
+            whole=host_ms(lambda: pipe_a.transcribe_audio(waves)))
+        print(f"transcribe_audio reference_large (B={len(waves)}, cmvn={cmvn}, "
+              f"rnn_impl=pallas, padded T={T_pad}) on {card}: launches {got}; "
+              f"whole call {times['whole']:.3f} ms (median of 5, host clock) "
+              f"= {audio_s_real / (times['whole'] / 1e3):.1f} audio-seconds/s "
+              f"over the real {audio_s_real:.2f} s of audio; front end ({len(waves)} "
+              f"native log-mels, padding, copy{', cmvn' if cmvn else ''}, "
+              f"context) {times['front']:.3f} ms (median of 5, host clock), "
+              f"forward {times['forward']:.3f} ms (CUDA events, mean of 3), "
+              f"decode {times['decode']:.3f} ms (median of 5, host clock incl. "
+              f"D2H and lists); kernel decode == plain decode (transcripts)",
+              flush=True)
+        return got, lp_a
+
+    a_launches, lp_audio = audio_path(cmvn=False)
+    ac_launches, _ = audio_path(cmvn=True)
+
+    # 10e. evaluate_batch with a bigram LM on 10d's log-probs; the
+    # references are the synthesized texts (random weights: the WER value
+    # means nothing, the check is kernel against plain)
+    lm_ref = bigram_bias_from_text(texts, cfg.output_size, weight=0.5)
+    zero_counts()
+    ev_lm = evaluate_batch(lp_audio, texts, beam_width=cfg.beam_width,
+                           lm_bias=torch.from_numpy(lm_ref).to(dev))
+    torch.cuda.synchronize()
+    ev_launches = read_counts()
+    check(ev_launches["fused_prefix_decode_lm"] == 1,
+          f"evaluate_batch with an LM launches {ev_launches}")
+    hyps_p = [ids_to_text(ids) for ids, _ in decode_to_lists(ctc_beam_search(
+        lp_audio, beam_width=cfg.beam_width, merge_impl="matched",
+        lm_bias=torch.from_numpy(lm_ref).to(dev)))]
+    check(ev_lm["hyps"] == hyps_p, "evaluate_batch LM hypotheses differ "
+          "between the kernel and the plain decode")
+    ev_no = evaluate_batch(lp_audio, texts, beam_width=cfg.beam_width)
+    print(f"evaluate_batch on the transcribe_audio log-probs (B="
+          f"{len(texts)}, W={cfg.beam_width}): WER {ev_no['wer']:.4f} without "
+          f"the LM, {ev_lm['wer']:.4f} with a bigram table of the references "
+          f"(weight 0.5): random weights, so the values mean nothing; LM "
+          f"hypotheses of the kernel decode == the plain decode's; launches "
+          f"{ev_launches}", flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -1085,7 +1394,15 @@ def main() -> int:
     # lstm_scan
     runs = {"transcribe": launches, "streaming": s_launches,
             "conformer": c_launches, "conformer_stem_pallas": cs_launches,
-            "deepspeech2": d_launches, "bilstm_2x256": b_launches}
+            "deepspeech2": d_launches, "bilstm_2x256": b_launches,
+            "lm_streaming": lms_launches, "transcribe_audio": a_launches,
+            "transcribe_audio_cmvn": ac_launches, "evaluate_lm": ev_launches}
+    # the LM variant's launches: those of the LM stream, per path beside
+    lm_report.update(
+        launches=lms_launches["fused_prefix_decode_lm"],
+        launches_by_path={path: run["fused_prefix_decode_lm"]
+                          for path, run in runs.items()})
+    report["fused_prefix_decode"]["lm"] = lm_report
     main_path = {"traceback_overlay": "streaming",
                  "flash_mhsa_rel": "conformer",
                  "fused_stem": "conformer_stem_pallas",
@@ -1104,6 +1421,13 @@ def main() -> int:
               + f", bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |kernel - plain| {r['max_abs_err']} "
               f"on {card}")
+        if "lm" in r:
+            print(f"kernel {name}, LM variant: {r['lm']['ms']:.4f} ms (without "
+                  f"the LM {r['lm']['ms_no_lm']:.4f}), plain "
+                  f"{r['lm']['plain_ms']:.4f} ms, launches by path "
+                  f"{r['lm']['launches_by_path']}, bound "
+                  f"{r['lm']['bound_ms']:.4f} ms ({r['lm']['bound_by']}) on "
+                  f"{card}")
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_main,
@@ -1113,7 +1437,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if name in inside:
             entry["inside"] = inside[name]
-        for extra in ("library_call", "ms_bidir"):
+        for extra in ("library_call", "ms_bidir", "lm"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -13,12 +13,18 @@ What runs here (ROADMAP.md "Queue 1" lists the rest):
     bf16 mixed precision), `models/conformer.py`;
   - greedy decoding and CTC beam search, the "prefix" and "reference"
     algorithms (log or prob domain, matched or sort merge), batch and
-    streaming (`streaming_init` / `streaming_step`), `decoder/`;
-  - `infer.Pipeline.transcribe` and `transcribe_streaming`, the
-    end-to-end entry points.
+    streaming (`streaming_init` / `streaming_step`), with bigram shallow
+    fusion (`lm_bias`, tables from `decoder/lm.py`), `decoder/`;
+  - the audio front end: the native C++ log-mel (`native/`, built with
+    g++ at first use), `logmel_torch`, `cmvn`, `add_context`
+    (`data/features.py`) and the dataset helpers (`data/dataset.py`);
+  - `infer.Pipeline.transcribe`, `transcribe_streaming` and
+    `transcribe_audio`, the end-to-end entry points, and WER evaluation
+    (`eval.py`).
 
 Kernels (`csrc/*.cu`, wrappers in `ops/cuda/`): the fused whole-scan
-prefix decode with its stable block top-W, the backpointer traceback,
+prefix decode with its stable block top-W (with and without the bigram
+table), the backpointer traceback,
 the streaming chunk's traceback with the base overlay, the Elman
 recurrence, the rel-pos flash attention and the fused conformer stem
 (conv2 + sub_proj). A wrapper given a CUDA tensor launches its

@@ -33,6 +33,18 @@
 // Redesign for later: the W x W match through a shared hash table, and
 // fewer block phases per frame.
 //
+// Shallow fusion (kLM = true; fused_decode.py's `lm_q` variant). The
+// table lm [V+1, V] (float32, already bf16-quantized by the caller) adds
+// lm[last[w] + 1][v] to every extend candidate's score, in exactly the two
+// places where the extend score is formed: the candidate key of phase 3
+// and the new p_nonblank of phase 4 (the same float additions in the same
+// order, so the two stay bit-equal); never to the absorbed extend's
+// contribution to a stay. The TPU kernel reads the table through one-hot
+// MXU contractions over lane- or row-split copies (a Mosaic workaround);
+// here it is one __ldg per candidate. The table is 9 KB at V=47, 65 KB at
+// V=129 and 261 KB at V=255, so it stays in L1/L2 after the first frames.
+// The kLM = false instantiation is the kernel without the table.
+//
 // Traceback. Bound on the card: bytes (ys read, 20.5 MB; tokens and
 // timesteps written, 52 MB at L=256). Design: the -1 fill of both outputs
 // is a coalesced memset; then one thread per (b, w) walks t = T-1..0,
@@ -84,9 +96,11 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+template <bool kLM>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_prefix_decode_kernel(const float* __restrict__ lp,
-                           const int* __restrict__ init, int T, int B, int W,
+                           const int* __restrict__ init,
+                           const float* __restrict__ lm, int T, int B, int W,
                            int V, int blank, int* __restrict__ ys,
                            int* __restrict__ fin) {
   extern __shared__ unsigned long long smem[];
@@ -181,6 +195,7 @@ fused_prefix_decode_kernel(const float* __restrict__ lp,
         c = sscore[w];
       } else if (live[w] && !excl[i]) {
         c = (v == last[w] ? s1[w] : total[w]) + frow[v];
+        if (kLM) c = c + __ldg(lm + (size_t)(last[w] + 1) * V + v);
       } else {
         c = kDead;
       }
@@ -200,7 +215,12 @@ fused_prefix_decode_kernel(const float* __restrict__ lp,
       const bool stay = v == blank;
       const bool nl = top > kLiveMin;
       const uint32_t vp1 = (uint32_t)(v + 1);
-      const float ext_pnb = (v == last[w] ? s1[w] : total[w]) + frow[v];
+      float ext_pnb = (v == last[w] ? s1[w] : total[w]) + frow[v];
+      if (kLM) {
+        // a dead slot's row is clamped into the table (its value is unused)
+        ext_pnb = ext_pnb +
+                  __ldg(lm + (size_t)clampi(last[w] + 1, 0, V) * V + v);
+      }
       n_h1 = stay ? h1[w] : h1[w] * kM1 + vp1;
       n_h2 = stay ? h2[w] : h2[w] * kM2 + vp1;
       n_hp1 = stay ? hp1[w] : h1[w];
@@ -333,20 +353,31 @@ __global__ void traceback_overlay_kernel(
 
 }  // namespace
 
-extern "C" int fused_prefix_decode_launch(const float* lp, const int* init,
-                                          int T, int B, int W, int V,
-                                          int blank, int* ys, int* fin,
-                                          cudaStream_t stream) {
+template <bool kLM>
+static int launch_decode(const float* lp, const int* init, const float* lm,
+                         int T, int B, int W, int V, int blank, int* ys,
+                         int* fin, cudaStream_t stream) {
   const size_t smem =
       (size_t)(kThreads / 32) * gasr::kListLen * sizeof(unsigned long long) +
       (size_t)(NF * W + V + 6 * W) * sizeof(int) + (size_t)W * V;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_prefix_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_prefix_decode_kernel<kLM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_prefix_decode_kernel<<<B, kThreads, smem, stream>>>(
-      lp, init, T, B, W, V, blank, ys, fin);
+  fused_prefix_decode_kernel<kLM><<<B, kThreads, smem, stream>>>(
+      lp, init, lm, T, B, W, V, blank, ys, fin);
   return (int)cudaGetLastError();
+}
+
+// lm: the [V+1, V] float32 table, or NULL for the decode without an LM
+extern "C" int fused_prefix_decode_launch(const float* lp, const int* init,
+                                          const float* lm, int T, int B,
+                                          int W, int V, int blank, int* ys,
+                                          int* fin, cudaStream_t stream) {
+  return lm ? launch_decode<true>(lp, init, lm, T, B, W, V, blank, ys, fin,
+                                  stream)
+            : launch_decode<false>(lp, init, lm, T, B, W, V, blank, ys, fin,
+                                   stream);
 }
 
 extern "C" int traceback_launch(const int* ys, const int* lengths, int T,

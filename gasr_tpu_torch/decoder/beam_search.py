@@ -29,12 +29,19 @@ Every top-W uses `topk_plain`, so ties fall in `lax.top_k`'s order.
 
 merge_impl: "auto" takes the CUDA kernels on CUDA tensors where JAX's
 `_use_pallas` shape rule holds (W <= 128 and V <= 128, or W <= 64 and
-V <= 256; prefix algorithm, log domain) and the matched scan otherwise,
-or the sort merge for "reference"; "pallas" asks for the kernels and
-raises where that rule fails (CPU tensors run their plain versions);
-"matched" and "sort" always run the eager scan. Not ported
-(`NotImplementedError`, ROADMAP.md Queue 1): topk_impl="approx" and
-`lm_bias`.
+V <= 256, and V <= 255 with `lm_bias`; prefix algorithm, log domain) and
+the matched scan otherwise, or the sort merge for "reference"; "pallas"
+asks for the kernels and raises where that rule fails (CPU tensors run
+their plain versions); "matched" and "sort" always run the eager scan.
+
+lm_bias: bigram shallow fusion, a [V+1, V] table (`decoder/lm.py`) added
+to every extend's score, row = previous char + 1 (row 0 = the empty
+prefix). It is quantized to bfloat16 once and handed, as float32, to the
+decode kernel or to the matched scan alike (JAX's contract,
+`gasr_tpu/decoder/beam_search.py:703-710`); the matched merge only.
+
+Not ported (`NotImplementedError`, ROADMAP.md Queue 1):
+topk_impl="approx".
 """
 
 from __future__ import annotations
@@ -167,8 +174,10 @@ def _init_beam(B: int, W: int, device, log_domain: bool = True
     )
 
 
-def _frame_step(state: _BeamState, f: torch.Tensor, blank_id: int):
-    """One frame of the matched-merge prefix search. f: [B, V] log-probs.
+def _frame_step(state: _BeamState, f: torch.Tensor, blank_id: int,
+                lm_q: Optional[torch.Tensor] = None):
+    """One frame of the matched-merge prefix search. f: [B, V] log-probs;
+    lm_q: the quantized [V+1, V] shallow-fusion table or None.
     Returns (next state, packed backpointers [B, W] int32)."""
     B, W = state.s1.shape
     V = f.shape[1]
@@ -209,6 +218,11 @@ def _frame_step(state: _BeamState, f: torch.Tensor, blank_id: int):
     is_rep = vs[None, None, :] == last[:, :, None]
     ext_pnb = torch.where(is_rep, pb[:, :, None], total[:, :, None]) \
         + f[:, None, :]
+    if lm_q is not None:
+        # + lm[last + 1, v] on every extend (not on the absorbed extend's
+        # contribution to a stay). Dead slots' rows are clamped into the
+        # table; their candidates are DEAD, so the value is never used.
+        ext_pnb = ext_pnb + lm_q[(last + 1).clamp(0, V)]
     excl_idx = torch.where(has_match, match * V + last_clip, W * V)
     excl = torch.zeros(B, W * V + 1, dtype=torch.bool, device=dev)
     excl.scatter_(1, excl_idx, True)
@@ -351,14 +365,17 @@ def _make_frame_step(blank_id: int, algorithm: str, log_domain: bool):
 
 
 def _pick_step(blank_id: int, algorithm: str, log_domain: bool,
-               merge_impl: str):
+               merge_impl: str, lm_q: Optional[torch.Tensor] = None):
     """The eager frame step for merge_impl ("pallas" here means its plain
     version, the matched step): (state, f, is_last) -> (state', ys)."""
-    if merge_impl == "matched" and not (algorithm == "prefix"
-                                        and log_domain):
+    matched = algorithm == "prefix" and log_domain and merge_impl != "sort"
+    if merge_impl == "matched" and not matched:
         raise ValueError("matched merge requires algorithm='prefix'")
-    if algorithm == "prefix" and log_domain and merge_impl != "sort":
-        return lambda state, f, is_last: _frame_step(state, f, blank_id)
+    if lm_q is not None and not matched:
+        raise ValueError("lm_bias requires the matched-merge prefix path")
+    if matched:
+        return lambda state, f, is_last: _frame_step(state, f, blank_id,
+                                                     lm_q)
     return _make_frame_step(blank_id, algorithm, log_domain)
 
 
@@ -375,10 +392,11 @@ def _scan(log_probs: torch.Tensor, init: _BeamState, step,
     return state, ys
 
 
-def _matched_scan(log_probs: torch.Tensor, init: _BeamState, blank_id: int):
+def _matched_scan(log_probs: torch.Tensor, init: _BeamState, blank_id: int,
+                  lm_q: Optional[torch.Tensor] = None):
     """The matched-merge scan: the plain version of the decode kernel."""
     return _scan(log_probs, init,
-                 lambda state, f, _: _frame_step(state, f, blank_id))
+                 lambda state, f, _: _frame_step(state, f, blank_id, lm_q))
 
 
 def _pack_ys(parent, char, appended) -> torch.Tensor:
@@ -445,7 +463,7 @@ def _result(final: _BeamState, tokens, timesteps, L: int,
 
 
 def _check_options(algorithm: str, prob_domain: bool, merge_impl: str,
-                   topk_impl: str = "exact", lm_bias=None) -> None:
+                   topk_impl: str = "exact") -> None:
     if algorithm not in ("prefix", "reference"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if prob_domain and algorithm != "reference":
@@ -458,20 +476,29 @@ def _check_options(algorithm: str, prob_domain: bool, merge_impl: str,
         raise NotImplementedError(
             f"topk_impl={topk_impl!r} is not ported yet (ROADMAP.md Queue 1 "
             "item 8); only 'exact'")
-    if lm_bias is not None:
-        raise NotImplementedError(
-            "lm_bias shallow fusion is not ported yet (ROADMAP.md Queue 1 "
-            "item 17)")
+
+
+def _quantize_lm(lm_bias, V: int, device) -> Optional[torch.Tensor]:
+    """The [V+1, V] table at bfloat16 resolution, as float32 on `device`;
+    `+ 0.0` turns -0.0 into +0.0 (JAX `beam_search.py:703-710`)."""
+    if lm_bias is None:
+        return None
+    lm = torch.as_tensor(lm_bias, dtype=torch.float32, device=device)
+    if tuple(lm.shape) != (V + 1, V):
+        raise ValueError(f"lm_bias must be [V+1, V] = [{V + 1}, {V}], got "
+                         f"{list(lm.shape)}")
+    return (lm.to(torch.bfloat16).to(torch.float32) + 0.0).contiguous()
 
 
 def _use_kernels(merge_impl: str, algorithm: str, log_domain: bool, W: int,
-                 V: int, device: torch.device) -> bool:
+                 V: int, device: torch.device, has_lm: bool = False) -> bool:
     """JAX `_use_pallas`, decided by shape before any launch: "auto" takes
     the CUDA kernels for CUDA tensors where the shape rule holds;
     "pallas" raises where the request cannot be honoured, and takes the
     kernels' plain versions (the eager matched scan) for CPU tensors."""
     from gasr_tpu_torch.ops.cuda.fused_decode import in_envelope
-    eligible = algorithm == "prefix" and log_domain and in_envelope(W, V)
+    eligible = (algorithm == "prefix" and log_domain
+                and in_envelope(W, V, has_lm))
     if merge_impl == "auto":
         return eligible and device.type == "cuda"
     if merge_impl != "pallas":
@@ -479,6 +506,9 @@ def _use_kernels(merge_impl: str, algorithm: str, log_domain: bool, W: int,
     if not (algorithm == "prefix" and log_domain):
         raise ValueError("merge_impl='pallas' requires the log-domain "
                          "prefix algorithm")
+    if has_lm and V > 255:
+        raise ValueError("merge_impl='pallas' supports lm_bias only "
+                         "for V <= 255; use merge_impl='matched'")
     if not eligible:
         raise ValueError("merge_impl='pallas' requires W <= 128 and "
                          "V <= 128, or W <= 64 and V <= 256")
@@ -506,8 +536,10 @@ def ctc_beam_search(
     input_lengths: [B] per-utterance frame counts (prefix algorithm, log
     domain); frames at t >= length become a certain blank, which leaves
     every prefix's probability (transcripts and scores) unchanged.
+    lm_bias: optional [V+1, V] shallow-fusion table (see the module
+    docstring).
     """
-    _check_options(algorithm, prob_domain, merge_impl, topk_impl, lm_bias)
+    _check_options(algorithm, prob_domain, merge_impl, topk_impl)
     if log_probs.ndim != 3 or log_probs.dtype != torch.float32:
         raise ValueError("log_probs must be float32 [T, B, V]")
     log_domain = not prob_domain
@@ -526,16 +558,17 @@ def ctc_beam_search(
         log_probs = torch.where(pad[:, :, None], onehot_blank[None, None, :],
                                 log_probs)
 
+    lm_q = _quantize_lm(lm_bias, V, log_probs.device)
     init = _init_beam(B, W, log_probs.device, log_domain)
     if _use_kernels(merge_impl, algorithm, log_domain, W, V,
-                    log_probs.device):
+                    log_probs.device, lm_q is not None):
         from gasr_tpu_torch.ops.cuda import fused_decode
         final, packed_ys = fused_decode.fused_prefix_decode(
-            log_probs, init, blank_id)
+            log_probs, init, blank_id, lm_q=lm_q)
         tokens, timesteps, _ = fused_decode.traceback(packed_ys,
                                                       final.length, L)
     else:
-        step = _pick_step(blank_id, algorithm, log_domain, merge_impl)
+        step = _pick_step(blank_id, algorithm, log_domain, merge_impl, lm_q)
         # the reference strips trailing blanks only on the final frame,
         # and never when T == 1
         final, packed_ys = _scan(log_probs, init, step,
@@ -587,24 +620,25 @@ def streaming_step(
     min(L, frames + Tc) is safe) bounds that buffer pass: the all -1
     tail beyond it is attached as a constant pad.
     """
-    _check_options(algorithm, prob_domain, merge_impl, lm_bias=lm_bias)
+    _check_options(algorithm, prob_domain, merge_impl)
     if chunk_log_probs.ndim != 3 or chunk_log_probs.dtype != torch.float32:
         raise ValueError("chunk_log_probs must be float32 [Tc, B, V]")
     log_domain = not prob_domain
     Tc, B, V = chunk_log_probs.shape
     W = state.beam.s1.shape[1]
     L = state.tokens.shape[2]
+    lm_q = _quantize_lm(lm_bias, V, chunk_log_probs.device)
 
     if _use_kernels(merge_impl, algorithm, log_domain, W, V,
-                    chunk_log_probs.device):
+                    chunk_log_probs.device, lm_q is not None):
         from gasr_tpu_torch.ops.cuda import fused_decode
         final, packed_ys = fused_decode.fused_prefix_decode(
-            chunk_log_probs, state.beam, blank_id)
+            chunk_log_probs, state.beam, blank_id, lm_q=lm_q)
         tokens, timesteps, _ = fused_decode.traceback_overlay(
             packed_ys, final.length, state.tokens, state.timesteps,
             state.frames)
     else:
-        step = _pick_step(blank_id, algorithm, log_domain, merge_impl)
+        step = _pick_step(blank_id, algorithm, log_domain, merge_impl, lm_q)
         final, packed_ys = _scan(chunk_log_probs, state.beam, step,
                                  last_frame=algorithm == "reference"
                                  and is_final)

@@ -10,6 +10,10 @@ depends on the family beyond that dispatch.
 `Pipeline.transcribe_streaming` is the live-audio path: the chunked
 forward with carried RNN state and, per chunk, one decode kernel launch
 from the carried beam and one traceback-with-overlay launch.
+`Pipeline.transcribe_audio` is the raw-audio path: the native log-mel
+front end on the host per utterance, padding, then on the device cmvn
+(when configured), context stacking, the forward and the beam search
+with per-utterance lengths, and text.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gasr_tpu_torch import native
 from gasr_tpu_torch.config import Config, resolve_device
+from gasr_tpu_torch.data.features import add_context, cmvn
 from gasr_tpu_torch.decoder import ctc_beam_search, greedy_decode
 from gasr_tpu_torch.decoder.beam_search import (decode_to_lists,
                                                 streaming_init,
@@ -105,10 +111,43 @@ class Pipeline:
                 is_final=(i == len(chunks) - 1))
         return decode_to_lists(snap)
 
-    def transcribe_audio(self, audio_batch, sample_rate: int = 16000):
-        raise NotImplementedError(
-            "the audio front end is not ported yet (ROADMAP.md Queue 1 "
-            "item 11)")
+    def audio_features(self, audio_batch: Sequence[np.ndarray],
+                       sample_rate: int = 16000):
+        """The front end of `transcribe_audio`: native log-mel per
+        utterance on the host, padded to the longest and moved to the
+        device; cmvn over each utterance's frames when `config.cmvn`;
+        n_context stacking. Returns (features [B, T, feat_size], lengths
+        [B] int32, the feature frame counts), both on `self.device`."""
+        feats = [native.logmel(a, sample_rate=sample_rate,
+                               n_mels=self.config.input_size)
+                 for a in audio_batch]
+        lengths = np.array([f.shape[0] for f in feats], np.int32)
+        padded = np.zeros((len(feats), int(lengths.max()),
+                           self.config.input_size), np.float32)
+        for i, f in enumerate(feats):
+            padded[i, :f.shape[0]] = f
+        x = torch.from_numpy(padded).to(self.device)
+        lens = torch.from_numpy(lengths).to(self.device)
+        if self.config.cmvn:
+            x = cmvn(x, lengths=lens)
+        return add_context(x, self.config.n_context), lens
+
+    def transcribe_audio(self, audio_batch: Sequence[np.ndarray],
+                         sample_rate: int = 16000) -> List[str]:
+        """Raw waveforms -> transcripts, step for step as JAX's:
+        `audio_features`, the forward, the prefix beam search with
+        per-utterance lengths, text.
+
+        The lengths are the feature frame counts, also for models that
+        subsample time (deepspeech2 halves T, the conformers quarter
+        it): JAX's `transcribe_audio` passes them so, and the port
+        computes what it computes (ROADMAP.md Queue 3)."""
+        x, lens = self.audio_features(audio_batch, sample_rate)
+        res = ctc_beam_search(
+            self.log_probs(x), beam_width=self.config.beam_width,
+            blank_id=self.config.blank_id,
+            max_len=self.config.decode_max_len, input_lengths=lens)
+        return [self.to_text(ids) for ids, _ in decode_to_lists(res)]
 
     def to_text(self, ids: Sequence[int]) -> str:
         if self.vocab is None:

@@ -41,8 +41,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "stem": {"fused_stem_launch": [_P] * 5 + [_I] * 6 + [_P, _P]},
     "topk": {"topk_launch": [_P, _I, _I, _I, _P, _P, _P]},
     "fused_decode": {
-        "fused_prefix_decode_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                       _P],
+        "fused_prefix_decode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                       _P, _P],
         "traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "traceback_overlay_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                      _P, _P, _P],

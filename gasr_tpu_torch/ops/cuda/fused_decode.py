@@ -6,7 +6,9 @@
 search in one launch, one thread block per utterance, the beam state
 resident in shared memory, the per-frame top-W taken by the block
 top-W of `csrc/topk.cuh`. It writes the packed backpointers ys
-[T, B, W] and the final beam state.
+[T, B, W] and the final beam state. With `lm_q` (the quantized [V+1, V]
+bigram table) it launches the kernel's shallow-fusion instantiation,
+which adds lm_q[last + 1, v] to every extend (JAX's `lm_q` variant).
 
 `traceback` replaces `fused_decode.py::traceback_pallas`
 (`_tb_kernel(fused=False)`): one thread per (utterance, slot) walks ys
@@ -23,7 +25,8 @@ into fresh output buffers.
 For CUDA tensors each launches its kernel (`csrc/fused_decode.cu`); the
 decode kernel raises outside JAX's `_use_pallas` shape rule (W <= 128
 and V <= 128, or W <= 64 and V <= 256), which `in_envelope` states and
-the decoder checks before it launches anything. For CPU tensors they
+the decoder checks before it launches anything; with an LM also V <= 255,
+JAX's rule for the `lm_q` variant. For CPU tensors they
 run their plain versions, the eager decoder of `decoder/beam_search.py`
 (`_matched_scan`, `_traceback`).
 """
@@ -36,8 +39,10 @@ from gasr_tpu_torch.decoder import beam_search as _bs
 from gasr_tpu_torch.ops.cuda import _lib
 
 # kernel launches made by fused_prefix_decode / traceback /
-# traceback_overlay
+# traceback_overlay; decode_lm_launches counts the decode launches that
+# ran the shallow-fusion instantiation (also counted in decode_launches)
 decode_launches = 0
+decode_lm_launches = 0
 traceback_launches = 0
 overlay_launches = 0
 
@@ -45,9 +50,10 @@ overlay_launches = 0
 FIELDS = ("h1", "h2", "hp1", "hp2", "last", "length", "live", "s1", "s2")
 
 
-def fused_prefix_decode_plain(log_probs, init, blank_id: int = 0):
+def fused_prefix_decode_plain(log_probs, init, blank_id: int = 0,
+                              lm_q=None):
     """Plain PyTorch version: the eager matched-merge scan."""
-    return _bs._matched_scan(log_probs, init, blank_id)
+    return _bs._matched_scan(log_probs, init, blank_id, lm_q)
 
 
 def traceback_plain(packed_ys, final_lengths, L: int):
@@ -63,12 +69,13 @@ def traceback_overlay_plain(packed_ys, final_lengths, base_tokens,
                           base_tokens, base_timesteps, t_offset)
 
 
-def in_envelope(W: int, V: int) -> bool:
+def in_envelope(W: int, V: int, has_lm: bool = False) -> bool:
     """JAX `_use_pallas`'s shape rule, which the decode kernel takes
     (the block top-W keeps at most 128 keys; W*V <= 16384 absorbed-extend
-    flags sit in shared memory)."""
+    flags sit in shared memory); with an LM, V <= 255 as well."""
     return W >= 1 and V >= 1 and ((W <= 128 and V <= 128)
-                                  or (W <= 64 and V <= 256))
+                                  or (W <= 64 and V <= 256)) \
+        and not (has_lm and V > 255)
 
 
 def _u32_to_i32(h: torch.Tensor) -> torch.Tensor:
@@ -102,24 +109,32 @@ def unpack_state(packed: torch.Tensor):
     return _bs._BeamState(tb=torch.zeros_like(packed[0]), **fields)
 
 
-def fused_prefix_decode(log_probs: torch.Tensor, init, blank_id: int = 0):
-    """log_probs [T, B, V] float32, init `_BeamState` [B, W] ->
-    (final `_BeamState`, packed ys [T, B, W] int32)."""
+def fused_prefix_decode(log_probs: torch.Tensor, init, blank_id: int = 0,
+                        lm_q=None):
+    """log_probs [T, B, V] float32, init `_BeamState` [B, W], lm_q None or
+    the bf16-quantized [V+1, V] float32 table -> (final `_BeamState`,
+    packed ys [T, B, W] int32)."""
     if log_probs.device.type == "cpu":
-        return fused_prefix_decode_plain(log_probs, init, blank_id)
+        return fused_prefix_decode_plain(log_probs, init, blank_id, lm_q)
     if log_probs.device.type != "cuda":
         raise ValueError(f"fused_prefix_decode: unsupported device "
                          f"{log_probs.device}")
     T, B, V = log_probs.shape
     W = init.s1.shape[1]
-    if not in_envelope(W, V):
+    if not in_envelope(W, V, lm_q is not None):
         raise ValueError(
             f"fused_prefix_decode: W={W}, V={V} is outside the kernel's "
-            "envelope (W <= 128 and V <= 128, or W <= 64 and V <= 256); "
-            "use merge_impl='matched'")
+            "envelope (W <= 128 and V <= 128, or W <= 64 and V <= 256; "
+            "V <= 255 with an LM); use merge_impl='matched'")
     if not 0 <= blank_id < V:
         raise ValueError(f"blank_id {blank_id} out of range for V={V}")
+    if lm_q is not None and (tuple(lm_q.shape) != (V + 1, V)
+                             or lm_q.dtype != torch.float32
+                             or lm_q.device != log_probs.device):
+        raise ValueError(f"fused_prefix_decode: lm_q must be float32 "
+                         f"[{V + 1}, {V}] on {log_probs.device}")
     lp = log_probs.to(torch.float32).contiguous()
+    lm = None if lm_q is None else lm_q.contiguous()
     init_p = pack_state(init).to(lp.device)
     ys = torch.empty(T, B, W, dtype=torch.int32, device=lp.device)
     fin = torch.empty_like(init_p)
@@ -127,11 +142,13 @@ def fused_prefix_decode(log_probs: torch.Tensor, init, blank_id: int = 0):
         return unpack_state(init_p), ys
     lib = _lib.load("fused_decode")
     err = lib.fused_prefix_decode_launch(
-        _lib.ptr(lp), _lib.ptr(init_p), T, B, W, V, blank_id, _lib.ptr(ys),
-        _lib.ptr(fin), _lib.stream(lp.device))
+        _lib.ptr(lp), _lib.ptr(init_p),
+        None if lm is None else _lib.ptr(lm), T, B, W, V, blank_id,
+        _lib.ptr(ys), _lib.ptr(fin), _lib.stream(lp.device))
     _lib.check(err, "fused_prefix_decode")
-    global decode_launches
+    global decode_launches, decode_lm_launches
     decode_launches += 1
+    decode_lm_launches += lm is not None
     return unpack_state(fin), ys
 
 

@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main paths do not reach (ragged sizes, envelope
-corners, short runs, the streaming overlay's overflow and shared
+corners, short runs, the decode's LM variant up to V=255 and its stream,
+the streaming overlay's overflow and shared
 parents, the attention's shortest and longest T and head widths, the
 stem's ragged tiles and widths, the LSTM recurrence's padded units,
-off-tile batches and two-direction launches), the decoder's, the
-conformer's and the LSTM models' dispatch on CUDA tensors, and the
+off-tile batches and two-direction launches), the decoder's (also with
+an LM at V=256), the conformer's and the LSTM models' dispatch on CUDA
+tensors, `transcribe_audio` on the card against the CPU, and the
 wrappers' refusals. Marked `cuda`;
 every test skips without a card.
 
@@ -208,6 +210,108 @@ def test_ctc_beam_search_input_lengths_kernel_equals_plain(dev):
                             input_lengths=lens, merge_impl="matched")
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _lm_table(dev, V, seed):
+    """A quantized standard-normal [V+1, V] table with -0.0 planted."""
+    lm = np.random.default_rng(seed).standard_normal((V + 1, V)).astype(
+        np.float32)
+    lm[::3, ::4] = -0.0
+    return tbs._quantize_lm(torch.from_numpy(lm), V, dev)
+
+
+@pytest.mark.parametrize("W,V,T,B", [
+    (100, 47, 20, 4),          # the flagship's W and V
+    (64, 129, 10, 3),          # conformer_s's decode shape
+    (64, 255, 6, 2),           # JAX's LM ceiling
+    (128, 128, 5, 2),
+    (1, 5, 9, 2),
+])
+@pytest.mark.parametrize("kind", ["random", "relu"])
+def test_lm_decode_kernel_equals_plain(dev, W, V, T, B, kind):
+    rng = np.random.default_rng(W * V + T + 1)
+    x = rng.standard_normal((T, B, V)).astype(np.float32)
+    lp = (_log_softmax(x) if kind == "random"
+          else np.maximum(np.round(x * 2) / 2, 0.0).astype(np.float32))
+    lp = torch.from_numpy(lp).to(dev)
+    lm_q = _lm_table(dev, V, W + V)
+    init = tbs._init_beam(B, W, dev)
+    n0 = fused_decode.decode_lm_launches
+    fin_k, ys_k = fused_decode.fused_prefix_decode(lp, init, lm_q=lm_q)
+    fin_p, ys_p = fused_decode.fused_prefix_decode_plain(lp, init, lm_q=lm_q)
+    assert fused_decode.decode_lm_launches == n0 + 1
+    assert torch.equal(ys_k, ys_p)
+    for f in fused_decode.FIELDS:
+        a, b = getattr(fin_k, f), getattr(fin_p, f)
+        assert torch.equal(a.to(b.dtype), b), f
+    _, ys_n = fused_decode.fused_prefix_decode(lp, init)
+    assert T == 1 or not torch.equal(ys_k, ys_n)
+
+
+def test_lm_stream_on_card_equals_plain_stream(dev):
+    chunks, B, V, W, L = [5, 1, 7, 7], 3, 29, 16, 32
+    rng = np.random.default_rng(9)
+    lp = torch.from_numpy(_log_softmax(
+        rng.standard_normal((sum(chunks), B, V)))).to(dev)
+    lm = _lm_table(dev, V, 9)
+    results = {}
+    for impl in ("auto", "matched"):
+        n0 = fused_decode.decode_lm_launches
+        st = tbs.streaming_init(B, W, max_len=L, device=dev)
+        t = 0
+        for c in chunks:
+            st, snap = tbs.streaming_step(st, lp[t:t + c], merge_impl=impl,
+                                          lm_bias=lm)
+            t += c
+        assert fused_decode.decode_lm_launches - n0 == (
+            len(chunks) if impl == "auto" else 0)
+        results[impl] = snap
+    batch = tbs.ctc_beam_search(lp, beam_width=W, max_len=L, lm_bias=lm)
+    for f in batch._fields:
+        assert torch.equal(getattr(results["auto"], f),
+                           getattr(results["matched"], f)), f
+        assert torch.equal(getattr(results["auto"], f), getattr(batch, f)), f
+
+
+def test_lm_auto_at_v256_takes_the_matched_scan(dev):
+    rng = np.random.default_rng(256)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((4, 2, 256)))).to(
+        dev)
+    lm = _lm_table(dev, 256, 1)
+    n0 = fused_decode.decode_launches
+    res = tbs.ctc_beam_search(lp, beam_width=8, max_len=8, lm_bias=lm)
+    assert fused_decode.decode_launches == n0
+    want = tbs.ctc_beam_search(lp, beam_width=8, max_len=8, lm_bias=lm,
+                               merge_impl="matched")
+    for f in res._fields:
+        assert torch.equal(getattr(res, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="lm_bias only for V <= 255"):
+        tbs.ctc_beam_search(lp, beam_width=8, lm_bias=lm, merge_impl="pallas")
+    with pytest.raises(ValueError, match="envelope"):
+        fused_decode.fused_prefix_decode(lp, tbs._init_beam(2, 8, dev),
+                                         lm_q=lm)
+
+
+def test_transcribe_audio_on_card_matches_cpu(dev):
+    from gasr_tpu_torch.config import Config
+    from gasr_tpu_torch.infer import Pipeline
+    rng = np.random.default_rng(5)
+    t = np.arange(16000, dtype=np.float64) / 16000
+    waves = [(np.sin(2 * np.pi * f * t[:n]) + rng.standard_normal(n) * 0.02
+              ).astype(np.float32)
+             for f, n in ((500, 16000), (1200, 9000), (2600, 12345))]
+    for cmvn in (False, True):
+        cfg = Config(input_size=13, linear_size=64, rnn_hidden_size=64,
+                     vocab_size=4, beam_width=8, decode_max_len=32,
+                     cmvn=cmvn, device="cpu")
+        want = Pipeline(cfg, generator=torch.Generator().manual_seed(3)
+                        ).transcribe_audio(waves)
+        n0 = fused_decode.decode_launches
+        got = Pipeline(dataclasses.replace(cfg, device="cuda"),
+                       generator=torch.Generator().manual_seed(3)
+                       ).transcribe_audio(waves)
+        assert fused_decode.decode_launches == n0 + 1
+        assert got == want
 
 
 @pytest.mark.parametrize("T,B,H,reverse", [(4, 3, 100, False),

@@ -124,8 +124,7 @@ def test_input_lengths_blank_padding_matches_jax():
     _assert_same_result(got, want)
 
 
-@pytest.mark.parametrize("kw", [{"topk_impl": "approx"},
-                                {"lm_bias": torch.zeros(4, 3)}])
+@pytest.mark.parametrize("kw", [{"topk_impl": "approx"}])
 def test_unported_decoder_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbs.ctc_beam_search(torch.zeros(2, 1, 3), beam_width=2, **kw)

@@ -322,5 +322,3 @@ def test_pipeline_streaming_rejects_non_streamable(over):
     with pytest.raises(ValueError, match="streaming"):
         pipe.transcribe_streaming([np.zeros((3, 4, cfg.feat_size),
                                             np.float32)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.transcribe_audio([np.zeros(1600, np.float32)])
