@@ -32,7 +32,17 @@ stream of 10 x 20 frames against the batch LM decode,
 `Pipeline.transcribe_audio` on `reference_large` (B=256 tone-speech
 waveforms of 1.0-2.0 s; the native log-mel, cmvn off and on) with the
 card's log-mel held to the native one, and `eval.evaluate_batch` with a
-bigram table.
+bigram table; and the vocab-sharded (tensor-parallel) decode on meshes
+whose shards all sit on the one card (phase 11): `tp_frame` against its
+plain version on every shard (the flagship decode shape at n = 4 and 1,
+conformer_l's at n = 2 and 4), `tp_scan` at n = 1, 2, 4 against
+`fused_prefix_decode` (and its plain version at T=40), the exchange toy at
+n = 2, 4, 8 against its numpy oracle, `ctc_beam_search_tp` on the
+reference_large log-probs with {"model": 4} ("fused": 1 tp_scan launch,
+"fused_frame": 800 tp_frame launches, "xla" on 40 frames) and on
+conformer_l's log-probs with its {"data": 2, "model": 4} mesh, each equal
+to the single-card decode, and `streaming_step_tp` in 10 chunks of 20
+frames equal to the TP batch decode.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -74,6 +84,9 @@ STREAM_LP_TOL = 1e-5       # chunked float32 forward against the one-shot
                            # block the sums differently; H100 reading
                            # 4.8e-7 (PERF.md)
 STREAM_TC = 20             # frames per streaming chunk (bench.py's row)
+TP_XLA_T = 40              # frames of the plain "xla" TP decode in phase
+                           # 11d: its per-frame PyTorch ops (four shards'
+                           # steps and the merge) make the whole T=200 slow
 RNN_STEP_TOL = 1e-5        # one step from the same h: only the float32
                            # summation order (tensor cores vs cuBLAS) and
                            # tanhf differ
@@ -166,10 +179,12 @@ def main() -> int:
     from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
     from gasr_tpu_torch.ops.attention import _rel_shift, _sinusoid_pos
     from gasr_tpu_torch.ops.conv import conv2d
-    from gasr_tpu_torch.ops.cuda import (_lib, flash_mhsa, fused_decode,
-                                         lstm_scan, rnn_scan, stem, topk)
+    from gasr_tpu_torch.ops.cuda import (_lib, exchange_probe, flash_mhsa,
+                                         fused_decode, lstm_scan, rnn_scan,
+                                         stem, topk)
     from gasr_tpu_torch.ops.linear import linear
     from gasr_tpu_torch.ops.lstm import _input_projection
+    from gasr_tpu_torch.parallel import decode_tp, make_mesh
 
     dev = torch.device("cuda")
     card = card_line()
@@ -212,7 +227,10 @@ def main() -> int:
                 "rnn_scan": (rnn_scan, "launches"),
                 "flash_mhsa_rel": (flash_mhsa, "launches"),
                 "fused_stem": (stem, "launches"),
-                "lstm_scan": (lstm_scan, "launches")}
+                "lstm_scan": (lstm_scan, "launches"),
+                "tp_frame": (fused_decode, "tp_frame_launches"),
+                "tp_scan": (fused_decode, "tp_scan_launches"),
+                "toy_exchange": (exchange_probe, "toy_exchange_launches")}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -819,7 +837,7 @@ def main() -> int:
           f"{c_fwd_ms:.3f} ms, forward with attn_impl='xla' {c_fwd_x_ms:.3f} "
           f"ms, decode {c_dec_ms:.3f} ms (CUDA events, means of 3 / 3 / 5); "
           f"mean transcript length {mean_len_c:.1f}", flush=True)
-    del lp_c, params_c, x_c
+    del params_c, x_c           # lp_c and res_c: phase 11e decodes them
 
     # ---- 9. the LSTM paths: deepspeech2 and bilstm_2x256
     def lstm_inputs(T_, B_, H_, seed):
@@ -1369,6 +1387,282 @@ def main() -> int:
           f"hypotheses of the kernel decode == the plain decode's; launches "
           f"{ev_launches}", flush=True)
 
+    # ---- 11. the vocab-sharded (tensor-parallel) decode on one card: a
+    # mesh whose n model shards all sit on cuda:0 (parallel/mesh.py)
+    T, B, V, W = 200, 256, 47, 100
+    F_LAST = fused_decode.FIELDS.index("last")
+
+    def tp_mesh(shape):
+        return make_mesh(shape, devices=[dev] * int(np.prod(list(
+            shape.values()))))
+
+    def max_err(got, want):
+        return max(float((a.double() - b.double()).abs().max())
+                   if a.numel() else 0.0 for a, b in zip(got, want))
+
+    def same_result(got, want, what):
+        for field in want._fields:
+            a, b = getattr(got, field), getattr(want, field)
+            if field == "scores":
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a, b), f"{what}: {field} differ")
+
+    # 11a. tp_frame against its plain version from a mid-decode state (5
+    # frames of the single-card kernel), every shard: the flagship shape
+    # at n = 4 and 1 (shards 1-3 of n = 4 hold no blank) and with the blank
+    # at 23, conformer_l's decode shape (B=64, V=129, W=16) at n = 2 and 4
+    def tp_frame_check(lp_in, W_, n_, blank, tag):
+        V_ = lp_in.shape[2]
+        beam, _ = fused_decode.fused_prefix_decode(
+            lp_in[:5], _init_beam(lp_in.shape[1], W_, dev), blank)
+        st = fused_decode.pack_state(beam)
+        f = lp_in[5]
+        f_last = torch.gather(f, 1, st[F_LAST].long().clamp(0, V_ - 1))
+        f_blank = f[:, blank].contiguous()
+        err, args = 0.0, []
+        for lo, hi in fused_decode.shard_bounds(V_, n_):
+            a = (f[:, lo:hi], f_last, f_blank, st, lo, hi, V_, blank)
+            got = fused_decode.tp_frame(*a)
+            want = fused_decode.tp_frame_plain(*a)
+            torch.cuda.synchronize()
+            for x, y, what in zip(got, want, ("ys", "keys", "fields")):
+                check(torch.equal(x, y), f"tp_frame {what} differ from the "
+                      f"plain version ({tag}, window [{lo}, {hi}))")
+            err = max(err, max_err(got, want))
+            args.append(a)
+        print(f"tp_frame == plain ({tag}, every shard): ys, keys, fields "
+              f"(score bits) equal", flush=True)
+        return err, args
+
+    tpf_err = 0.0
+    for lp_in, W_, n_, blank, tag in (
+            (lp_r, W, 4, 0, "B=256 V=47 W=100 n=4"),
+            (lp_r, W, 1, 0, "B=256 V=47 W=100 n=1"),
+            (lp_r, W, 4, 23, "B=256 V=47 W=100 n=4 blank=23"),
+            (lp_c, 16, 2, 0, "B=64 V=129 W=16 n=2"),
+            (lp_c, 16, 4, 0, "B=64 V=129 W=16 n=4")):
+        e, a = tp_frame_check(lp_in, W_, n_, blank, tag)
+        tpf_err = max(tpf_err, e)
+        if tag == "B=256 V=47 W=100 n=4":
+            tpf_args = a[1]                      # a window without the blank
+    Vw = tpf_args[5] - tpf_args[4]
+    nb = (2 * 9 * B * W * 4 + B * W * 4 + B * 4 + B * Vw * 4 + B * W * 4
+          + B * W * 8)
+    b_ms, b_by = bound(nb, B * (2 * W * Vw + 30 * W), F32_FLOPS)
+    report["tp_frame"] = dict(
+        ms=cuda_ms(lambda: fused_decode.tp_frame(*tpf_args), iters=20),
+        plain_ms=cuda_ms(lambda: fused_decode.tp_frame_plain(*tpf_args),
+                         iters=3, warmup=1),
+        library_ms=None, max_abs_err=tpf_err, bound_ms=b_ms, bound_by=b_by)
+
+    # 11b. tp_scan: n = 1 at the flagship shape against fused_prefix_decode
+    # (JAX's mesh-of-1 probe), n = 2 and 4 against tp_scan_plain at T = 40
+    # and against fused_prefix_decode at T = 200; V = 129 (the full row of
+    # 256 lanes on the TPU) at n = 4
+    init_p = fused_decode.pack_state(init_r)
+    fin1, ys1 = fused_decode.fused_prefix_decode(lp_r, init_r)
+    tps_err = 0.0
+    for lp_in, init_in, n_, tag in (
+            (lp_r, init_r, 1, "T=200 B=256 V=47 W=100 n=1"),
+            (lp_r, init_r, 2, "T=200 B=256 V=47 W=100 n=2"),
+            (lp_r, init_r, 4, "T=200 B=256 V=47 W=100 n=4"),
+            (lp_c, _init_beam(lp_c.shape[1], 16, dev), 4,
+             "T=300 B=64 V=129 W=16 n=4")):
+        pk = fused_decode.pack_state(init_in)
+        if n_ > 1:
+            got = fused_decode.tp_scan(lp_in[:40], pk, [dev] * n_)
+            want = fused_decode.tp_scan_plain(lp_in[:40], pk, n_)
+            torch.cuda.synchronize()
+            for x, y, what in zip(got, want, ("final states", "ys")):
+                check(torch.equal(x, y), f"tp_scan {what} differ from the "
+                      f"plain version ({tag}, T=40)")
+            tps_err = max(tps_err, max_err(got, want))
+        fins, ys_tp = fused_decode.tp_scan(lp_in, pk, [dev] * n_)
+        beam, ys_s = (fin1, ys1) if lp_in is lp_r else \
+            fused_decode.fused_prefix_decode(lp_in, init_in)
+        torch.cuda.synchronize()
+        check(torch.equal(ys_tp, ys_s), f"tp_scan ys differ from "
+              f"fused_prefix_decode ({tag})")
+        for s_ in range(n_):
+            check(torch.equal(fins[s_], fused_decode.pack_state(beam)),
+                  f"tp_scan shard {s_}'s final state differs from "
+                  f"fused_prefix_decode's ({tag})")
+        print(f"tp_scan ({tag}): ys and every shard's final state bit-equal "
+              f"to fused_prefix_decode" + (", and to tp_scan_plain at T=40"
+                                           if n_ > 1 else ""), flush=True)
+    scan_ms = {}
+    for n_ in (1, 4, 2, 1, 4):                   # in turns with row 2
+        scan_ms.setdefault(n_, []).append(cuda_ms(
+            lambda: fused_decode.tp_scan(lp_r, init_p, [dev] * n_), iters=3,
+            warmup=1))
+        scan_ms.setdefault("single", []).append(cuda_ms(
+            lambda: fused_decode.fused_prefix_decode(lp_r, init_r), iters=3,
+            warmup=1))
+    ms_by = {f"n={k}" if k != "single" else "fused_prefix_decode (row 2)":
+             min(v) for k, v in scan_ms.items()}
+    # the bound counts what the function needs in device memory: log-probs
+    # and the initial state in, ys and every shard's final state out. The
+    # shards' exchanged keys (each list written once, read by the 3 peers)
+    # stay apart: on one card they pass through L2, for which the data
+    # sheet gives no rate, and across cards through NVLink
+    nb = T * B * V * 4 + 9 * B * W * 4 + T * B * W * 4 + 4 * 9 * B * W * 4
+    b_ms, b_by = bound(nb, T * B * (2 * W * V + 30 * W * 4), F32_FLOPS)
+    report["tp_scan"] = dict(
+        ms=ms_by["n=4"], ms_by_shards=ms_by,
+        exchange_bytes=T * B * 4 * W * 8 * 4,
+        plain_ms=cuda_ms(lambda: fused_decode.tp_scan_plain(lp_r, init_p, 4),
+                         iters=1, warmup=0),
+        library_ms=None, max_abs_err=tps_err, bound_ms=b_ms, bound_by=b_by)
+    print(f"tp_scan T=200 B=256 V=47 W=100 on {card}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms_by.items()) + " (CUDA events, best "
+        f"of the turns' means of 3)", flush=True)
+
+    # 11c. the exchange protocol's toy at n = 2, 4, 8 (Bt=256, T=6) against
+    # the numpy oracle, every step and every shard
+    toy_keys = {n_: np.sort(rng.integers(-1000, 1000, (n_, 6, 256, 128)),
+                            axis=-1)[..., ::-1].astype(np.int32).copy()
+                for n_ in (2, 4, 8)}
+    zero_counts()
+    toy_out = {n_: exchange_probe.toy_exchange_scan(
+        torch.from_numpy(k).to(dev), n_) for n_, k in toy_keys.items()}
+    torch.cuda.synchronize()
+    toy_launches = read_counts()
+    check(toy_launches["toy_exchange"] == 3,
+          f"toy_exchange launches {toy_launches['toy_exchange']}")
+    toy_err = 0
+    for n_, k in toy_keys.items():
+        want = exchange_probe.toy_exchange_oracle(k)
+        got = toy_out[n_].cpu().numpy()
+        for s_ in range(n_):
+            check(np.array_equal(got[s_], want), f"toy_exchange n={n_} "
+                  f"shard {s_} differs from the oracle")
+            toy_err = max(toy_err, int(np.abs(got[s_] - want).max()))
+    print("toy_exchange n=2, 4, 8 (Bt=256, T=6) == the numpy oracle on every "
+          "step and shard", flush=True)
+    k4 = torch.from_numpy(toy_keys[4]).to(dev)
+    # keys in and out; the exchanged lists (tp_scan's note) stay apart
+    b_ms, b_by = bound(2 * k4.numel() * 4, k4.numel() * 2 * 8 * 4, F32_FLOPS)
+    report["toy_exchange"] = dict(
+        exchange_bytes=k4.numel() * 8 * 4,
+        ms=cuda_ms(lambda: exchange_probe.toy_exchange_scan(k4, 4)),
+        plain_ms=cuda_ms(lambda: exchange_probe.toy_exchange_scan_plain(k4,
+                                                                        4),
+                         iters=1, warmup=1),
+        library_ms=None, max_abs_err=float(toy_err), bound_ms=b_ms,
+        bound_by=b_by)
+
+    # 11d. ctc_beam_search_tp on phase 6's log-probs with {"model": 4} on
+    # cuda:0 x 4: "fused" (1 tp_scan launch), "fused_frame" (T x n = 800
+    # tp_frame launches), each equal to the single-card kernel decode;
+    # "xla" (the plain frame on every shard) on the first TP_XLA_T frames
+    mesh4 = tp_mesh({"model": 4})
+
+    def tp_decode(lp_in, mesh, impl, **kw):
+        return decode_tp.ctc_beam_search_tp(lp_in, beam_width=W, mesh=mesh,
+                                            max_len=L, tp_impl=impl, **kw)
+
+    for impl in ("fused", "fused_frame"):                   # warm-up
+        tp_decode(lp, mesh4, impl)
+    torch.cuda.synchronize()
+    zero_counts()
+    tp_res = {impl: tp_decode(lp, mesh4, impl)
+              for impl in ("fused", "fused_frame")}
+    torch.cuda.synchronize()
+    tpb_launches = read_counts()
+    want_tp = {name: 0 for name in counters}
+    want_tp.update(tp_scan=1, tp_frame=T * 4, traceback=2)
+    for name, n_ in want_tp.items():
+        check(tpb_launches[name] == n_, f"TP batch launches of {name}: "
+              f"{tpb_launches[name]}, expected {n_}")
+    for impl, r in tp_res.items():
+        same_result(r, res_k, f"ctc_beam_search_tp '{impl}' n=4")
+    r_x = tp_decode(lp[:TP_XLA_T], mesh4, "xla")
+    same_result(r_x, ctc_beam_search(lp[:TP_XLA_T], beam_width=W, max_len=L),
+                f"ctc_beam_search_tp 'xla' n=4 T={TP_XLA_T}")
+    mesh1 = tp_mesh({"model": 1})
+    for impl in ("fused", "fused_frame"):
+        same_result(tp_decode(lp, mesh1, impl), res_k,
+                    f"ctc_beam_search_tp '{impl}' n=1")
+    print(f"ctc_beam_search_tp reference_large (T=200, B=256, V=47, W=100) "
+          f"'fused' and 'fused_frame' at n=4 and n=1, 'xla' at n=4 on T="
+          f"{TP_XLA_T}: == the single-card decode (tokens, lengths, "
+          f"timesteps, overflow, score bits); launches {tpb_launches}",
+          flush=True)
+    tp_ms = {f"{impl} n={n_}": host_ms(lambda: tp_decode(lp, m, impl))
+             for n_, m in ((4, mesh4), (1, mesh1))
+             for impl in ("fused", "fused_frame")}
+    tp_ms[f"xla n=4 T={TP_XLA_T}"] = host_ms(
+        lambda: tp_decode(lp[:TP_XLA_T], mesh4, "xla"))
+    tp_ms["single-card ctc_beam_search"] = host_ms(
+        lambda: ctc_beam_search(lp, beam_width=W, max_len=L))
+    print(f"TP decode reference_large on {card} (host clock, median of 5, "
+          f"synchronised; decode + traceback, no lists): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in tp_ms.items()), flush=True)
+
+    # 11e. conformer_l: phase 8's log-probs (B=64, T'=300, V=129, W=16) on
+    # the preset's own mesh {"data": 2, "model": 4}, one model row
+    mesh_c = tp_mesh(PRESETS["conformer_l"].mesh_shape)
+
+    def c_tp(impl):
+        return decode_tp.ctc_beam_search_tp(
+            lp_c, beam_width=cfg_c.beam_width, mesh=mesh_c,
+            blank_id=cfg_c.blank_id, max_len=cfg_c.decode_max_len,
+            tp_impl=impl)
+
+    for impl in ("fused", "fused_frame"):                   # warm-up
+        c_tp(impl)
+    torch.cuda.synchronize()
+    zero_counts()
+    c_res = {impl: c_tp(impl) for impl in ("fused", "fused_frame")}
+    torch.cuda.synchronize()
+    tpc_launches = read_counts()
+    T4 = lp_c.shape[0]
+    check(tpc_launches["tp_scan"] == 1 and tpc_launches["tp_frame"] == T4 * 4,
+          f"conformer TP launches {tpc_launches}")
+    for impl, r in c_res.items():
+        same_result(r, res_c, f"conformer_l ctc_beam_search_tp '{impl}'")
+    c_tp_ms = {impl: host_ms(lambda: c_tp(impl))
+               for impl in ("fused", "fused_frame")}
+    print(f"conformer_l decode (B=64, T'=300, V=129, W=16) on the mesh "
+          f"{mesh_c.shape} (cuda:0 x 8, one model row): 'fused' and "
+          f"'fused_frame' == phase 8's decode (tokens, lengths, timesteps, "
+          f"overflow, score bits); launches {tpc_launches}; 'fused' "
+          f"{c_tp_ms['fused']:.3f} ms, 'fused_frame' "
+          f"{c_tp_ms['fused_frame']:.3f} ms (host clock, median of 5)",
+          flush=True)
+    del lp_c, res_c, c_res
+
+    # 11f. streaming_step_tp over phase 6's log-probs in 10 chunks of 20
+    # frames, "fused" and "fused_frame", each == 11d's batch result
+    def tp_stream(impl):
+        st = streaming_init(B, W, max_len=L, device=dev)
+        for i in range(n_chunks):
+            st, snap_ = decode_tp.streaming_step_tp(
+                st, lp[i * STREAM_TC:(i + 1) * STREAM_TC], mesh=mesh4,
+                tp_impl=impl)
+        return snap_
+
+    tps_launches = {name: 0 for name in counters}
+    per_chunk_of = {"fused": ("tp_scan", 1),
+                    "fused_frame": ("tp_frame", 4 * STREAM_TC)}
+    for impl, (kernel, per_chunk) in per_chunk_of.items():
+        tp_stream(impl)                                      # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        snap_tp = tp_stream(impl)
+        torch.cuda.synchronize()
+        got = read_counts()
+        check(got["traceback_overlay"] == n_chunks and
+              got[kernel] == n_chunks * per_chunk and got["traceback"] == 0,
+              f"TP stream '{impl}' launches {got}")
+        same_result(snap_tp, tp_res[impl], f"TP stream '{impl}' vs TP batch")
+        tps_launches = {k: v + got[k] for k, v in tps_launches.items()}
+        print(f"TP stream '{impl}' ({n_chunks} x {STREAM_TC} frames, n=4) == "
+              f"TP batch decode (tokens, lengths, timesteps, overflow, score "
+              f"bits); launches {got}; whole stream "
+              f"{host_ms(lambda: tp_stream(impl)):.3f} ms (host clock, median "
+              f"of 5)", flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -1386,17 +1680,27 @@ def main() -> int:
                        "gasr_tpu/ops/pallas/stem.py:285"),
         "lstm_scan": ("gasr_tpu_torch/csrc/lstm_scan.cu",
                       "gasr_tpu/ops/pallas/lstm_scan.py:47"),
+        "tp_frame": ("gasr_tpu_torch/csrc/decode_tp.cu",
+                     "gasr_tpu/ops/pallas/fused_decode.py:1072"),
+        "tp_scan": ("gasr_tpu_torch/csrc/decode_tp.cu",
+                    "gasr_tpu/ops/pallas/fused_decode.py:1399"),
+        "toy_exchange": ("gasr_tpu_torch/csrc/exchange_probe.cu",
+                         "gasr_tpu/ops/pallas/exchange_probe.py:127"),
     }
     # `launches` is each kernel's count on the path that exercises it:
     # transcribe for the first four, the stream for traceback_overlay, the
     # conformer forward + decode for flash_mhsa_rel, that path with
     # stem_impl="pallas" for fused_stem, the deepspeech2 transcribe for
-    # lstm_scan
+    # lstm_scan, the TP batch decodes ("fused" then "fused_frame") for
+    # tp_frame and tp_scan, the exchange probe of phase 11c for toy_exchange
+    # (it runs on no serving path: it tests tp_scan's exchange)
     runs = {"transcribe": launches, "streaming": s_launches,
             "conformer": c_launches, "conformer_stem_pallas": cs_launches,
             "deepspeech2": d_launches, "bilstm_2x256": b_launches,
             "lm_streaming": lms_launches, "transcribe_audio": a_launches,
-            "transcribe_audio_cmvn": ac_launches, "evaluate_lm": ev_launches}
+            "transcribe_audio_cmvn": ac_launches, "evaluate_lm": ev_launches,
+            "tp_batch": tpb_launches, "tp_streaming": tps_launches,
+            "tp_conformer": tpc_launches, "toy_exchange": toy_launches}
     # the LM variant's launches: those of the LM stream, per path beside
     lm_report.update(
         launches=lms_launches["fused_prefix_decode_lm"],
@@ -1406,7 +1710,9 @@ def main() -> int:
     main_path = {"traceback_overlay": "streaming",
                  "flash_mhsa_rel": "conformer",
                  "fused_stem": "conformer_stem_pallas",
-                 "lstm_scan": "deepspeech2"}
+                 "lstm_scan": "deepspeech2",
+                 "tp_frame": "tp_batch", "tp_scan": "tp_batch",
+                 "toy_exchange": "toy_exchange"}
     paths = {name: {path: run[name] for path, run in runs.items()}
              for name in sources}
     kernels = []
@@ -1437,7 +1743,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if name in inside:
             entry["inside"] = inside[name]
-        for extra in ("library_call", "ms_bidir", "lm"):
+        for extra in ("library_call", "ms_bidir", "lm", "ms_by_shards",
+                      "exchange_bytes"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -20,14 +20,19 @@ What runs here (ROADMAP.md "Queue 1" lists the rest):
     (`data/features.py`) and the dataset helpers (`data/dataset.py`);
   - `infer.Pipeline.transcribe`, `transcribe_streaming` and
     `transcribe_audio`, the end-to-end entry points, and WER evaluation
-    (`eval.py`).
+    (`eval.py`);
+  - device meshes (`parallel/mesh.py`) and the vocab-sharded
+    (tensor-parallel) beam search, batch and streaming
+    (`parallel/decode_tp.py`), on shards that share a card or sit on
+    several cards of one host.
 
 Kernels (`csrc/*.cu`, wrappers in `ops/cuda/`): the fused whole-scan
 prefix decode with its stable block top-W (with and without the bigram
 table), the backpointer traceback,
-the streaming chunk's traceback with the base overlay, the Elman
-recurrence, the rel-pos flash attention and the fused conformer stem
-(conv2 + sub_proj). A wrapper given a CUDA tensor launches its
+the streaming chunk's traceback with the base overlay, the Elman and
+LSTM recurrences, the rel-pos flash attention, the fused conformer stem
+(conv2 + sub_proj), the vocab-sharded local frame and whole scan with
+its in-kernel winner exchange, and that exchange's toy. A wrapper given a CUDA tensor launches its
 kernel or raises; given a CPU tensor it runs its plain PyTorch version.
 
 Entry points that make tensors (`Pipeline`, `model_init`) run on the

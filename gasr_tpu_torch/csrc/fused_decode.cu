@@ -20,7 +20,9 @@
 // and is never written to device memory until the end; the candidate grid
 // is never stored at all: the block top-W of topk.cuh builds each
 // candidate's key in registers as it sorts (about 9 barriers per frame in
-// all); B blocks run side by side to fill the SMs. Per frame:
+// all); B blocks run side by side to fill the SMs. Per frame (the phases
+// of decode_frame.cuh, which the vocab-sharded kernels of decode_tp.cu
+// share, on the whole vocab here):
 //   1. the frame's log-probs row into shared memory; per slot the total
 //      score, f[last] and the folded match key k2 = 31*h2 + length;
 //   2. per stay slot w', the first live w with h1[w] == hp1[w'] and
@@ -69,32 +71,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "topk.cuh"
+#include "decode_frame.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1.0e30f;   // beam_search.NEG_INF
-constexpr float kDead = -3.0e38f;     // beam_search.DEAD_KEY_LOG
-constexpr float kLiveMin = -1.5e38f;  // DEAD_KEY_LOG * 0.5
-constexpr uint32_t kM1 = 1000003u;
-constexpr uint32_t kM2 = 16777619u;
-constexpr int kThreads = 512;   // 16 warps: a power of two (block_top128)
-
-// packed state field order (ops/cuda/fused_decode.py FIELDS)
-enum { F_H1, F_H2, F_HP1, F_HP2, F_LAST, F_LEN, F_LIVE, F_S1, F_S2, NF };
-
-// beam_search._logaddexp, expression for expression
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  const float lo = fminf(a, b);
-  const float d = lo - m;
-  const float e = __fmul_rn(expf(fmaxf(d, -80.0f)), d > -80.0f ? 1.0f : 0.0f);
-  return m + log1pf(e);
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
+using namespace gasr::frame;
 
 template <bool kLM>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -104,156 +85,44 @@ fused_prefix_decode_kernel(const float* __restrict__ lp,
                            int V, int blank, int* __restrict__ ys,
                            int* __restrict__ fin) {
   extern __shared__ unsigned long long smem[];
-  unsigned long long* lists = smem;                   // [16][kListLen]
-  int* st = reinterpret_cast<int*>(lists + (kThreads / 32) * gasr::kListLen);
-                                                      // [NF][W]
-  float* frow = reinterpret_cast<float*>(st + NF * W);  // [V]
-  float* total = frow + V;                            // [W]
-  float* flast = total + W;                           // [W]
-  float* spb = flast + W;                             // [W] stay p_blank
-  float* spnb = spb + W;                              // [W] stay p_nonblank
-  float* sscore = spnb + W;                           // [W] stay score
-  uint32_t* k2 = reinterpret_cast<uint32_t*>(sscore + W);  // [W]
-  uint8_t* excl = reinterpret_cast<uint8_t*>(k2 + W);  // [W*V] absorbed
-
-  uint32_t* h1 = reinterpret_cast<uint32_t*>(st + F_H1 * W);
-  uint32_t* h2 = reinterpret_cast<uint32_t*>(st + F_H2 * W);
-  uint32_t* hp1 = reinterpret_cast<uint32_t*>(st + F_HP1 * W);
-  uint32_t* hp2 = reinterpret_cast<uint32_t*>(st + F_HP2 * W);
-  int* last = st + F_LAST * W;
-  int* len = st + F_LEN * W;
-  int* live = st + F_LIVE * W;
-  float* s1 = reinterpret_cast<float*>(st + F_S1 * W);
-  float* s2 = reinterpret_cast<float*>(st + F_S2 * W);
-
+  const Smem s = carve(smem, W, V);
+  const Window all{0, V};
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int N = W * V;
 
   for (int i = tid; i < NF * W; i += blockDim.x) {
     const int f = i / W, w = i - f * W;
-    st[i] = init[((size_t)f * B + b) * W + w];
+    s.st[i] = init[((size_t)f * B + b) * W + w];
   }
-  for (int i = tid; i < N; i += blockDim.x) excl[i] = 0;
-  int my_excl = -1;   // the extend flag this thread (stay slot) raised
+  for (int i = tid; i < W * V; i += blockDim.x) s.excl[i] = 0;
 
   for (int t = 0; t < T; ++t) {
     // ---- 1. frame row; per-slot totals and match keys
     const float* f = lp + ((size_t)t * B + b) * V;
-    for (int v = tid; v < V; v += blockDim.x) frow[v] = f[v];
+    for (int v = tid; v < V; v += blockDim.x) s.frow[v] = f[v];
     __syncthreads();
-    if (tid < W) {
-      total[tid] = logaddexp(s1[tid], s2[tid]);
-      flast[tid] = frow[clampi(last[tid], 0, V - 1)];
-      k2[tid] = h2[tid] * 31u + (uint32_t)len[tid];
-    }
-    __syncthreads();
-
-    // ---- 2. parent match and stay candidates (thread = stay slot w')
-    if (tid < W) {
-      const int wp = tid;
-      int m = -1;
-      if (live[wp]) {
-        const uint32_t want1 = hp1[wp];
-        const uint32_t want2 = hp2[wp] * 31u + (uint32_t)(len[wp] - 1);
-        for (int w = 0; w < W; ++w) {
-          if (live[w] && h1[w] == want1 && k2[w] == want2) {
-            m = w;
-            break;
-          }
-        }
-      }
-      const float fl = flast[wp];
-      const float stay_pb = total[wp] + frow[blank];
-      float stay_pnb = len[wp] > 0 ? s2[wp] + fl : kNegInf;
-      float ext_contrib = kNegInf;
-      if (m >= 0) {
-        const float base = last[m] == last[wp] ? s1[m]
-                                               : logaddexp(s1[m], s2[m]);
-        ext_contrib = base + fl;
-      }
-      stay_pnb = logaddexp(stay_pnb, ext_contrib);
-      spb[wp] = stay_pb;
-      spnb[wp] = stay_pnb;
-      sscore[wp] = live[wp] ? logaddexp(stay_pb, stay_pnb) : kDead;
-      if (m >= 0) {
-        // the extend (m, last[w']) is this stay's own prefix: excluded
-        const int v = clampi(last[wp], 0, V - 1);
-        if (v != blank) {
-          my_excl = m * V + v;
-          excl[my_excl] = 1;
-        }
-      }
-    }
-    __syncthreads();
-
+    slot_prep(s, V, 0, nullptr);
+    // ---- 2. parent match and stay candidates
+    const int my_excl = match_stay(s, V, blank, s.frow[blank], all);
     // ---- 3. stable top-W of the W x V candidate grid
-    auto key_of = [&](int i) {
-      const int w = i / V, v = i - w * V;
-      float c;
-      if (v == blank) {
-        c = sscore[w];
-      } else if (live[w] && !excl[i]) {
-        c = (v == last[w] ? s1[w] : total[w]) + frow[v];
-        if (kLM) c = c + __ldg(lm + (size_t)(last[w] + 1) * V + v);
-      } else {
-        c = kDead;
-      }
-      return gasr::topk_key(c, (uint32_t)i);
-    };
-    gasr::block_top128(key_of, N, lists);
-
+    window_top<kLM, true>(s, V, blank, all, 0, lm);
     // ---- 4. state update for slot k = tid
-    uint32_t n_h1 = 0, n_h2 = 0, n_hp1 = 0, n_hp2 = 0;
-    int n_last = 0, n_len = 0, n_live = 0;
-    float n_s1 = 0.f, n_s2 = 0.f;
+    // zero past W, not undefined: left undefined, it raises the kernel's
+    // register count and its time
+    Slot n{};
     if (tid < W) {
-      const unsigned long long key = lists[tid];
-      const int idx = (int)gasr::key_index(key);
-      const float top = gasr::key_value(key);
-      const int w = idx / V, v = idx - w * V;
-      const bool stay = v == blank;
-      const bool nl = top > kLiveMin;
-      const uint32_t vp1 = (uint32_t)(v + 1);
-      float ext_pnb = (v == last[w] ? s1[w] : total[w]) + frow[v];
-      if (kLM) {
-        // a dead slot's row is clamped into the table (its value is unused)
-        ext_pnb = ext_pnb +
-                  __ldg(lm + (size_t)clampi(last[w] + 1, 0, V) * V + v);
-      }
-      n_h1 = stay ? h1[w] : h1[w] * kM1 + vp1;
-      n_h2 = stay ? h2[w] : h2[w] * kM2 + vp1;
-      n_hp1 = stay ? hp1[w] : h1[w];
-      n_hp2 = stay ? hp2[w] : h2[w];
-      n_last = stay ? last[w] : v;
-      n_len = len[w] + (stay ? 0 : 1);
-      n_live = nl ? 1 : 0;
-      n_s1 = (nl && stay) ? spb[w] : kNegInf;
-      n_s2 = nl ? (stay ? spnb[w] : ext_pnb) : kNegInf;
-      const int appended = (!stay && nl) ? 1 : 0;
-      ys[((size_t)t * B + b) * W + tid] =
-          w | ((n_last > 0 ? n_last : 0) << 15) | (appended << 30);
-      if (my_excl >= 0) excl[my_excl] = 0;   // no reader until next frame
-      my_excl = -1;
+      n = update<kLM>(s, s.lists[tid], V, blank, 0, lm);
+      ys[((size_t)t * B + b) * W + tid] = n.ys;
+      if (my_excl >= 0) s.excl[my_excl] = 0;   // no reader until next frame
     }
     __syncthreads();
-    if (tid < W) {
-      h1[tid] = n_h1;
-      h2[tid] = n_h2;
-      hp1[tid] = n_hp1;
-      hp2[tid] = n_hp2;
-      last[tid] = n_last;
-      len[tid] = n_len;
-      live[tid] = n_live;
-      s1[tid] = n_s1;
-      s2[tid] = n_s2;
-    }
+    if (tid < W) commit(s, n, tid);
     __syncthreads();
   }
 
   for (int i = tid; i < NF * W; i += blockDim.x) {
     const int f = i / W, w = i - f * W;
-    fin[((size_t)f * B + b) * W + w] = st[i];
+    fin[((size_t)f * B + b) * W + w] = s.st[i];
   }
 }
 
@@ -357,9 +226,7 @@ template <bool kLM>
 static int launch_decode(const float* lp, const int* init, const float* lm,
                          int T, int B, int W, int V, int blank, int* ys,
                          int* fin, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(kThreads / 32) * gasr::kListLen * sizeof(unsigned long long) +
-      (size_t)(NF * W + V + 6 * W) * sizeof(int) + (size_t)W * V;
+  const size_t smem = smem_bytes(W, V, V);
   cudaError_t err = cudaFuncSetAttribute(
       fused_prefix_decode_kernel<kLM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

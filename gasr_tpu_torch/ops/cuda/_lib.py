@@ -28,12 +28,14 @@ BUILD = _PKG / "_build"
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# fused_decode is held bit-equal to its plain version: -fmad=false stops
-# nvcc from contracting a product into a following sum across what are
-# separate tensor ops in PyTorch. (topk does no float arithmetic.)
-_EXTRA_FLAGS = {"fused_decode": ["-fmad=false"]}
+# fused_decode and decode_tp are held bit-equal to their plain versions:
+# -fmad=false stops nvcc from contracting a product into a following sum
+# across what are separate tensor ops in PyTorch. (topk and exchange_probe
+# do no float arithmetic.)
+_EXTRA_FLAGS = {"fused_decode": ["-fmad=false"], "decode_tp": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures (argtypes) of each library's entry points
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_mhsa": {"flash_mhsa_rel_launch": [_P] * 10 + [_I] * 7
@@ -46,6 +48,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "traceback_overlay_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                      _P, _P, _P],
+    },
+    "decode_tp": {
+        "tp_frame_launch": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 4,
+        "tp_scan_capacity": [_I, _I, _I, _IP],
+        "tp_scan_launch": [_P, _P] + [_I] * 6 + [_P, _I, _I] + [_P] * 5,
+        "enable_peer_access": [_I],
+    },
+    "exchange_probe": {
+        "toy_exchange_capacity": [_IP],
+        "toy_exchange_launch": [_P] + [_I] * 4 + [_P] * 4,
     },
     "rnn_scan": {"rnn_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P]},
     "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 5 + [_P, _P]},

@@ -22,21 +22,39 @@ emissions at their absolute positions and timesteps, and copies the
 rest of its row from row start_parent of the previous chunk's buffers,
 into fresh output buffers.
 
-For CUDA tensors each launches its kernel (`csrc/fused_decode.cu`); the
+`tp_frame` replaces `fused_decode.py::fused_tp_frame` (`_tp_kernel`):
+one frame of the vocab-sharded decode on one shard's window [lo, hi),
+the shard's W local winners in (score desc, global index asc) order with
+their keys and updated fields. `tp_scan` replaces
+`fused_decode.py::fused_tp_scan` (`_tp_scan_kernel`, `_merge2_top`): all
+T frames of every shard of a model group, the per-frame winner exchange
+and merge inside the kernel (`csrc/decode_tp.cu`, `csrc/exchange.cuh`).
+Their plain versions are `tp_frame_plain` and `tp_scan_plain` (the plain
+frame on every shard, then an in-process exchange and merge).
+
+For CUDA tensors each launches its kernel (`csrc/fused_decode.cu`,
+`csrc/decode_tp.cu`); the
 decode kernel raises outside JAX's `_use_pallas` shape rule (W <= 128
 and V <= 128, or W <= 64 and V <= 256), which `in_envelope` states and
 the decoder checks before it launches anything; with an LM also V <= 255,
-JAX's rule for the `lm_q` variant. For CPU tensors they
-run their plain versions, the eager decoder of `decoder/beam_search.py`
-(`_matched_scan`, `_traceback`).
+JAX's rule for the `lm_q` variant; the vocab-sharded kernels raise
+outside JAX's (`parallel/decode_tp.py:391-397`): W <= 128 and windows of
+at most 128 ids, and for `tp_scan` also n <= V <= 256. For CPU tensors
+they run their plain versions, the eager decoder of
+`decoder/beam_search.py` (`_matched_scan`, `_traceback`) and
+`tp_frame_plain` / `tp_scan_plain`.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
 from gasr_tpu_torch.decoder import beam_search as _bs
 from gasr_tpu_torch.ops.cuda import _lib
+from gasr_tpu_torch.ops.cuda.topk import monotone_bits, topk_plain
 
 # kernel launches made by fused_prefix_decode / traceback /
 # traceback_overlay; decode_lm_launches counts the decode launches that
@@ -45,6 +63,10 @@ decode_launches = 0
 decode_lm_launches = 0
 traceback_launches = 0
 overlay_launches = 0
+# kernel launches made by tp_frame / tp_scan (one tp_scan launch per card
+# that holds shards of the group)
+tp_frame_launches = 0
+tp_scan_launches = 0
 
 # packed beam-state field order of the kernel's [NF, B, W] int32 state
 FIELDS = ("h1", "h2", "hp1", "hp2", "last", "length", "live", "s1", "s2")
@@ -221,3 +243,350 @@ def traceback_overlay(packed_ys: torch.Tensor, final_lengths: torch.Tensor,
     global overlay_launches
     overlay_launches += 1
     return tok, ts, start
+
+
+# ------------------------------------------------ vocab-sharded decode
+
+TP_MAX_WINDOW = 128     # vocab ids per shard (JAX: ceil(V/n) <= 128)
+TP_SCAN_MAX_V = 256     # tp_scan keeps the whole frame row (JAX: V <= 256)
+_LOW32 = 0xFFFFFFFF
+
+
+def shard_bounds(V: int, n: int) -> List[Tuple[int, int]]:
+    """Shard s of n owns vocab ids [s*V // n, (s+1)*V // n): balanced,
+    every shard non-empty for n <= V (JAX: `decode_tp.py:242-243`)."""
+    return [(s * V // n, (s + 1) * V // n) for s in range(n)]
+
+
+def rank_keys(vals: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """The kernels' 64-bit candidate key (`csrc/topk.cuh`: monotone score
+    bits high, inverted global index low) with its sign bit flipped, as
+    int64: larger = earlier in (score desc, global index asc), unique per
+    candidate."""
+    return (monotone_bits(vals) - 2 ** 31) * 2 ** 32 + (_LOW32 - gidx.long())
+
+
+def key_index(keys: torch.Tensor) -> torch.Tensor:
+    """The global candidate index w*V + v that a key names."""
+    return _LOW32 - (keys & _LOW32)
+
+
+def tp_frame_plain(f_loc, f_last, f_blank, state, lo: int, hi: int, V: int,
+                   blank_id: int = 0):
+    """Plain PyTorch version: the matched-merge frame of
+    `decoder/beam_search.py::_frame_step` on the window's candidates."""
+    st = unpack_state(state)
+    B, W = st.s1.shape
+    Vw = hi - lo
+    dev = f_loc.device
+    pb, pnb, live = st.s1, st.s2, st.live
+    last = st.last.long()
+    length = st.length.long()
+    total = _bs._logaddexp(pb, pnb)
+    last_clip = last.clamp(0, V - 1)
+
+    # replicated parent match (identical on every shard)
+    k2 = (st.h2 * 31 + length) & _bs.MASK32
+    kp2 = (st.hp2 * 31 + (length - 1)) & _bs.MASK32
+    eq = ((st.h1[:, :, None] == st.hp1[:, None, :])
+          & (k2[:, :, None] == kp2[:, None, :])
+          & live[:, :, None] & live[:, None, :])
+    has_match = eq.any(dim=1)
+    match = eq.to(torch.int32).argmax(dim=1)
+
+    stay_pb = total + f_blank[:, None]
+    stay_pnb = torch.where(length > 0, pnb + f_last, _bs.NEG_INF)
+    pb_m = torch.gather(pb, 1, match)
+    pnb_m = torch.gather(pnb, 1, match)
+    last_m = torch.gather(last, 1, match)
+    ext_base_m = torch.where(last_m == last, pb_m,
+                             _bs._logaddexp(pb_m, pnb_m))
+    ext_contrib = torch.where(has_match, ext_base_m + f_last, _bs.NEG_INF)
+    stay_pnb = _bs._logaddexp(stay_pnb, ext_contrib)
+    stay_score = torch.where(live, _bs._logaddexp(stay_pb, stay_pnb),
+                             _bs.DEAD_KEY_LOG)
+
+    # the window's extends [B, W, Vw]; the absorbed extend is excluded on
+    # the shard whose window holds its cell
+    vs = lo + torch.arange(Vw, device=dev)
+    is_rep = vs[None, None, :] == last[:, :, None]
+    ext_pnb = torch.where(is_rep, pb[:, :, None], total[:, :, None]) \
+        + f_loc[:, None, :]
+    owned = has_match & (last_clip >= lo) & (last_clip < hi)
+    excl_idx = torch.where(owned, match * Vw + (last_clip - lo), W * Vw)
+    excl = torch.zeros(B, W * Vw + 1, dtype=torch.bool, device=dev)
+    excl.scatter_(1, excl_idx, True)
+    excl = excl[:, :W * Vw].view(B, W, Vw)
+    valid = (vs != blank_id)[None, None, :] & live[:, :, None] & ~excl
+    cand = torch.where(valid, ext_pnb, _bs.DEAD_KEY_LOG)
+    cand = torch.where((vs == blank_id)[None, None, :],
+                       stay_score[:, :, None], cand)
+
+    # local index w*Vw + j orders as the global index w*V + lo + j
+    top_vals, idx = topk_plain(cand.reshape(B, W * Vw), W)
+    idx = idx.long()
+    w_sel = idx // Vw
+    v_sel = lo + idx % Vw
+    is_stay = v_sel == blank_id
+    new_live = top_vals > _bs.DEAD_KEY_LOG * 0.5
+
+    def g(x):
+        return torch.gather(x, 1, w_sel)
+
+    h1g, h2g = g(st.h1), g(st.h2)
+    sel_ext_pnb = torch.gather(ext_pnb.reshape(B, W * Vw), 1, idx)
+    n_last = torch.where(is_stay, g(last), v_sel)
+    vp1 = v_sel + 1
+    new = _bs._BeamState(
+        h1=torch.where(is_stay, h1g, (h1g * _bs.M1 + vp1) & _bs.MASK32),
+        h2=torch.where(is_stay, h2g, (h2g * _bs.M2 + vp1) & _bs.MASK32),
+        hp1=torch.where(is_stay, g(st.hp1), h1g),
+        hp2=torch.where(is_stay, g(st.hp2), h2g),
+        last=n_last.to(torch.int32),
+        length=(g(length) + (~is_stay).long()).to(torch.int32),
+        tb=torch.zeros_like(st.length),
+        live=new_live,
+        s1=torch.where(new_live & is_stay, g(stay_pb), _bs.NEG_INF),
+        s2=torch.where(new_live, torch.where(is_stay, g(stay_pnb),
+                                             sel_ext_pnb), _bs.NEG_INF),
+    )
+    ys = _bs._pack_ys(w_sel, n_last, (~is_stay) & new_live)
+    return ys, rank_keys(top_vals, w_sel * V + v_sel), pack_state(new)
+
+
+def tp_frame(f_loc: torch.Tensor, f_last: torch.Tensor,
+             f_blank: torch.Tensor, state: torch.Tensor, lo: int, hi: int,
+             V: int, blank_id: int = 0):
+    """One vocab-sharded frame on the shard that owns vocab ids [lo, hi).
+
+    f_loc [B, hi - lo] float32: the frame's log-probs of those ids (a view
+    into the full row will do: only its last stride must be 1); f_last
+    [B, W] = f[b, clip(last[b, w], 0, V-1)] and f_blank [B] = f[b, blank],
+    both from the full row; state [NF, B, W] int32 packed. Returns (ys
+    [B, W] int32, keys [B, W] int64, fin [NF, B, W] int32): the shard's W
+    best candidates in (score desc, global index asc) order, their packed
+    backpointers, their `rank_keys` (`key_index` gives w*V + v) and their
+    updated state fields. V is the full vocab: any V with hi - lo <= 128
+    (JAX's envelope, `decode_tp.py:391`)."""
+    if state.device.type == "cpu":
+        return tp_frame_plain(f_loc, f_last, f_blank, state, lo, hi, V,
+                              blank_id)
+    if state.device.type != "cuda":
+        raise ValueError(f"tp_frame: unsupported device {state.device}")
+    if state.ndim != 3 or state.shape[0] != len(FIELDS) or \
+            state.dtype != torch.int32:
+        raise ValueError("tp_frame: state must be int32 [NF, B, W]")
+    _, B, W = state.shape
+    if not (1 <= W <= 128 and 0 <= lo < hi <= V
+            and hi - lo <= TP_MAX_WINDOW and V < 2 ** 15):
+        raise ValueError(f"tp_frame: W={W}, [lo, hi)=[{lo}, {hi}), V={V} is "
+                         f"outside the kernel's envelope (W <= 128, "
+                         f"1 <= hi - lo <= {TP_MAX_WINDOW}, V < 32768)")
+    if not 0 <= blank_id < V:
+        raise ValueError(f"blank_id {blank_id} out of range for V={V}")
+    for name, t, shape in (("f_loc", f_loc, (B, hi - lo)),
+                           ("f_last", f_last, (B, W)),
+                           ("f_blank", f_blank, (B,))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"tp_frame: {name} must be float32 {list(shape)}"
+                             f", got {t.dtype} {list(t.shape)}")
+        if t.device != state.device:
+            raise ValueError("tp_frame: all tensors must be on one device")
+    if f_loc.stride(1) != 1:
+        f_loc = f_loc.contiguous()
+    f_last, f_blank = f_last.contiguous(), f_blank.contiguous()
+    state = state.contiguous()
+    dev = state.device
+    ys = torch.empty(B, W, dtype=torch.int32, device=dev)
+    keys = torch.empty(B, W, dtype=torch.int64, device=dev)
+    fin = torch.empty_like(state)
+    if B == 0:
+        return ys, keys, fin
+    lib = _lib.load("decode_tp")
+    err = lib.tp_frame_launch(
+        _lib.ptr(f_loc), f_loc.stride(0), _lib.ptr(f_last), _lib.ptr(f_blank),
+        _lib.ptr(state), B, W, V, lo, hi, blank_id, _lib.ptr(ys),
+        _lib.ptr(keys), _lib.ptr(fin), _lib.stream(dev))
+    _lib.check(err, "tp_frame")
+    global tp_frame_launches
+    tp_frame_launches += 1
+    return ys, keys, fin
+
+
+def tp_exchange(outs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exchange and merge of one frame: `outs`, every shard's (ys,
+    keys, fin) from `tp_frame`, -> (the global beam [NF, B, W], its ys
+    [B, W]): the W largest keys of the union of the shards' lists, on the
+    first shard's device (the all_gather + global top-W of JAX's
+    `_make_fused_run`, `decode_tp.py:262-284`)."""
+    dev = outs[0][0].device
+    W = outs[0][0].shape[1]
+    keys = torch.cat([k.to(dev) for _, k, _ in outs], dim=1)
+    sel = torch.sort(keys, dim=1, descending=True).indices[:, :W]
+    fin = torch.cat([f.to(dev) for _, _, f in outs], dim=2)
+    ys = torch.cat([y.to(dev) for y, _, _ in outs], dim=1)
+    return (torch.gather(fin, 2, sel.expand(fin.shape[0], -1, -1)),
+            torch.gather(ys, 1, sel))
+
+
+def tp_frames(log_probs: torch.Tensor, init: torch.Tensor,
+              devices: Sequence[torch.device], blank_id: int, frame):
+    """The vocab-sharded scan, frame by frame: on every shard s of
+    `devices` (in model-axis order) `frame` (tp_frame or tp_frame_plain)
+    on its window, then `tp_exchange`; a shard with an empty window
+    (n > V) has no candidate and sits out. Returns (final packed state
+    [NF, B, W], ys [T, B, W]) on the first shard's device."""
+    T, B, V = log_probs.shape
+    W = init.shape[2]
+    n = len(devices)
+    bounds = shard_bounds(V, n)
+    dev0 = devices[0]
+    lps = {d: log_probs.to(d) for d in set(devices)}
+    st = init.to(dev0)
+    ys = torch.empty(T, B, W, dtype=torch.int32, device=dev0)
+    for t in range(T):
+        last_clip = st[FIELDS.index("last")].long().clamp(0, V - 1)
+        outs = []
+        for d, (lo, hi) in zip(devices, bounds):
+            if lo == hi:
+                continue
+            f = lps[d][t]
+            st_d = st.to(d)
+            outs.append(frame(f[:, lo:hi], torch.gather(f, 1, last_clip.to(d)),
+                              f[:, blank_id].contiguous(), st_d, lo, hi, V,
+                              blank_id))
+        st, ys[t] = tp_exchange(outs)
+    return st, ys
+
+
+def tp_envelope(W: int, V: int, n: int, scan: bool) -> bool:
+    """JAX's `frame_ok` / `scan_ok` (`decode_tp.py:391-392`)."""
+    ok = W <= 128 and n <= V and -(-V // n) <= TP_MAX_WINDOW
+    return ok and (not scan or V <= TP_SCAN_MAX_V)
+
+
+def tp_scan_plain(log_probs: torch.Tensor, init: torch.Tensor, n: int,
+                  blank_id: int = 0):
+    """Plain PyTorch version: `tp_frame_plain` on every shard, then the
+    in-process exchange and merge, frame by frame. Returns (fins
+    [n, NF, B, W], ys [T, B, W]) like `tp_scan`."""
+    dev = log_probs.device
+    fin, ys = tp_frames(log_probs, init, [dev] * n, blank_id, tp_frame_plain)
+    return fin.unsqueeze(0).expand(n, -1, -1, -1).contiguous(), ys
+
+
+def _pointer_table(tensors, dev) -> torch.Tensor:
+    return torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64,
+                        device=dev)
+
+
+def tp_scan(log_probs: torch.Tensor, init: torch.Tensor,
+            devices: Sequence[torch.device], blank_id: int = 0):
+    """The whole vocab-sharded scan of one model group.
+
+    log_probs [T, B, V] float32 (replicated onto every shard's device);
+    init [NF, B, W] int32 packed; devices: the group's shards in
+    model-axis order (a device may repeat: several shards on one card).
+    Returns (fins [n, NF, B, W], ys [T, B, W]) on the first shard's
+    device: every shard's final packed beam (equal on every shard) and the
+    packed backpointers, bit-equal to `fused_prefix_decode`'s.
+
+    On CUDA tensors: one cooperative launch per card that holds shards,
+    each card's shards x G blocks (G: as many as every card holds at once,
+    at most B), all issued before any synchronisation;
+    shards on other cards are reached through peer pointers. A grid that
+    cannot be resident at once raises, never runs. Envelope: W <= 128,
+    n <= V <= 256, ceil(V/n) <= 128 (JAX's `scan_ok`)."""
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    kinds = {d.type for d in devices} | {log_probs.device.type}
+    if kinds == {"cpu"}:
+        return tp_scan_plain(log_probs, init, n, blank_id)
+    if kinds != {"cuda"}:
+        raise ValueError(f"tp_scan: the shards' devices {devices} and "
+                         f"log_probs on {log_probs.device} must all be CUDA "
+                         f"or all be the CPU")
+    if log_probs.ndim != 3 or log_probs.dtype != torch.float32:
+        raise ValueError("tp_scan: log_probs must be float32 [T, B, V]")
+    T, B, V = log_probs.shape
+    if init.ndim != 3 or init.shape[:2] != (len(FIELDS), B) or \
+            init.dtype != torch.int32:
+        raise ValueError(f"tp_scan: init must be int32 [NF, {B}, W]")
+    W = init.shape[2]
+    if W < 1 or not tp_envelope(W, V, n, scan=True):
+        raise ValueError(f"tp_scan: W={W}, V={V}, n={n} is outside the "
+                         f"kernel's envelope (W <= 128, n <= V <= 256, "
+                         f"ceil(V/n) <= 128)")
+    if not 0 <= blank_id < V:
+        raise ValueError(f"blank_id {blank_id} out of range for V={V}")
+    cards = list(dict.fromkeys(devices))          # in first-shard order
+    local = {d: [s for s in range(n) if devices[s] == d] for d in cards}
+    dev0 = devices[0]
+    fins = torch.empty(n, len(FIELDS), B, W, dtype=torch.int32, device=dev0)
+    ys = torch.empty(T, B, W, dtype=torch.int32, device=dev0)
+    if T * B == 0:
+        fins[:] = init.to(dev0)
+        return fins, ys
+    lib = _lib.load("decode_tp")
+    cap = {}
+    for d in cards:
+        c = ctypes.c_int(0)
+        with torch.cuda.device(d):
+            _lib.check(lib.tp_scan_capacity(W, V, n, ctypes.byref(c)),
+                       "tp_scan_capacity")
+        cap[d] = c.value
+    G = min(B, min(cap[d] // len(local[d]) for d in cards))
+    if G < 1:
+        raise ValueError(
+            f"tp_scan: {n} shards cannot be resident at once on "
+            f"{[str(d) for d in cards]}, which hold {list(cap.values())} "
+            f"blocks; the exchange needs every block of a group resident")
+    # per card: its shards' outboxes [2, G, W] keys and zeroed flags [G]
+    outbox = {d: torch.empty(len(local[d]), 2, G, W, dtype=torch.int64,
+                             device=d) for d in cards}
+    flags = {d: torch.zeros(len(local[d]), G, dtype=torch.int32, device=d)
+             for d in cards}
+    box_of = [outbox[devices[s]][local[devices[s]].index(s)]
+              for s in range(n)]
+    flag_of = [flags[devices[s]][local[devices[s]].index(s)]
+               for s in range(n)]
+    if len(cards) > 1:
+        ready = {}
+        for d in cards:
+            with torch.cuda.device(d):
+                for e in cards:
+                    if e != d:
+                        _lib.check(lib.enable_peer_access(e.index),
+                                   f"tp_scan: peer access {d} -> {e}")
+                ready[d] = torch.cuda.Event()
+                ready[d].record()
+        for d in cards:                    # every card's flags zeroed first
+            for e in cards:
+                torch.cuda.current_stream(d).wait_event(ready[e])
+    args = []
+    for d in cards:
+        args.append((d, log_probs.to(d).contiguous(), init.to(d).contiguous(),
+                     torch.tensor(local[d], dtype=torch.int32, device=d),
+                     _pointer_table(box_of, d), _pointer_table(flag_of, d),
+                     torch.empty(len(local[d]), len(FIELDS), B, W,
+                                 dtype=torch.int32, device=d)))
+    global tp_scan_launches
+    for d, lp_d, init_d, shards_d, box_d, flag_d, fin_d in args:
+        with torch.cuda.device(d):
+            err = lib.tp_scan_launch(
+                _lib.ptr(lp_d), _lib.ptr(init_d), T, B, W, V, blank_id, n,
+                _lib.ptr(shards_d), len(local[d]), G, _lib.ptr(box_d),
+                _lib.ptr(flag_d), _lib.ptr(ys) if d == dev0 else None,
+                _lib.ptr(fin_d), _lib.stream(d))
+        _lib.check(err, f"tp_scan ({len(local[d])} shards x {G} blocks on "
+                        f"{d})")
+        tp_scan_launches += 1
+    if len(cards) > 1:
+        # the outboxes and flags go back to each card's allocator when this
+        # returns, while peers on other cards may still read them
+        for d in cards:
+            torch.cuda.synchronize(d)
+    for d, _, _, _, _, _, fin_d in args:
+        for i, s in enumerate(local[d]):
+            fins[s] = fin_d[i].to(dev0)
+    return fins, ys

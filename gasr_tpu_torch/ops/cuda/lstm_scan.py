@@ -53,6 +53,15 @@ def lstm_scan_plain(xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     return out
 
 
+def _forward_only(*tensors) -> None:
+    """JAX's `jax.grad` through `lstm_scan_pallas_raw` fails; so does this
+    kernel's wrapper under autograd, rather than leave the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "lstm_scan is forward only, as JAX's lstm_scan_pallas_raw (the "
+            "backward comes with training, ROADMAP.md Queue 1 item 12)")
+
+
 def _check(xws, ws, h0, c0) -> None:
     dev = xws[0].device
     if dev.type != "cuda":
@@ -132,6 +141,7 @@ def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
               c0: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """xw: [T, B, 4H] float32 input projection (+ biases); w_hh: [H, 4H];
     h0, c0: [B, H]. Returns the hidden history [T, B, H] float32."""
+    _forward_only(xw, w_hh, h0, c0)
     if xw.device.type == "cpu":
         return lstm_scan_plain(xw, w_hh, h0, c0, reverse)
     _check([xw], [w_hh], h0, c0)
@@ -146,6 +156,7 @@ def lstm_scan_bidir(xw_f: torch.Tensor, xw_b: torch.Tensor,
     Returns [T, B, 2H], the same as concatenating `lstm_scan(xw_f, w_f,
     h0, c0)` and `lstm_scan(xw_b, w_b, h0, c0, reverse=True)`; on the card
     each step's launch covers both directions."""
+    _forward_only(xw_f, xw_b, w_f, w_b, h0, c0)
     if xw_f.device.type == "cpu":
         return torch.cat(
             [lstm_scan_plain(xw_f, w_f, h0, c0, False),

@@ -48,6 +48,11 @@ def rnn_scan(xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
              weight_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """xw: [T, B, H] float32 input projection (+ biases); w_hh: [H, H];
     h0: [B, H]. Returns the hidden history [T, B, H] float32."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xw, w_hh, h0)):
+        raise NotImplementedError(
+            "rnn_scan is forward only, as JAX's rnn_scan_pallas_raw (the "
+            "backward comes with training, ROADMAP.md Queue 1 item 12)")
     if xw.device.type == "cpu":
         return rnn_scan_plain(xw, w_hh, h0, reverse, weight_dtype)
     if xw.device.type != "cuda":

@@ -4,10 +4,13 @@ corners, short runs, the decode's LM variant up to V=255 and its stream,
 the streaming overlay's overflow and shared
 parents, the attention's shortest and longest T and head widths, the
 stem's ragged tiles and widths, the LSTM recurrence's padded units,
-off-tile batches and two-direction launches), the decoder's (also with
-an LM at V=256), the conformer's and the LSTM models' dispatch on CUDA
-tensors, `transcribe_audio` on the card against the CPU, and the
-wrappers' refusals. Marked `cuda`;
+off-tile batches and two-direction launches; the vocab-sharded frame,
+scan and exchange toy at W = 1, one-id windows, n = V, V = 256 and batches
+off the persistent grid), the decoder's (also with an LM at V=256), the
+conformer's and the LSTM models' dispatch on CUDA tensors, the TP decode
+and stream on a mesh of one card, `transcribe_audio` on the card against
+the CPU, and the refusals (a cooperative grid that cannot be resident,
+the recurrences under autograd). Marked `cuda`;
 every test skips without a card.
 
 This file imports no JAX, so on a machine without JAX it runs as
@@ -23,8 +26,9 @@ import dataclasses
 from gasr_tpu_torch.config import PRESETS
 from gasr_tpu_torch.decoder import beam_search as tbs
 from gasr_tpu_torch.models import model_apply, model_init
-from gasr_tpu_torch.ops.cuda import (flash_mhsa, fused_decode, lstm_scan,
-                                     rnn_scan, stem, topk)
+from gasr_tpu_torch.ops.cuda import (_lib, exchange_probe, flash_mhsa,
+                                     fused_decode, lstm_scan, rnn_scan, stem,
+                                     topk)
 from gasr_tpu_torch.ops.linear import matmul
 
 pytestmark = pytest.mark.cuda
@@ -573,3 +577,230 @@ def test_conformer_forward_launches_and_matches_cpu(dev):
         f0 = flash_mhsa.launches
         model_apply(cfg, on_card, x.to(dev))        # float32: never the kernel
         assert flash_mhsa.launches == f0
+
+
+@pytest.mark.parametrize("which", ["rnn_scan", "lstm_scan", "lstm_scan_bidir"])
+def test_recurrence_kernels_raise_under_autograd(dev, which):
+    # JAX's jax.grad through rnn_scan_pallas_raw / lstm_scan_pallas_raw
+    # fails; the kernels' wrappers raise rather than leave the graph
+    xw, w, h0, c0 = _lstm_inputs(dev, 2, 8, 16, 0)
+    w = w.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        if which == "rnn_scan":
+            rnn_scan.rnn_scan(xw[..., :16], w[:, :16], h0)
+        elif which == "lstm_scan":
+            lstm_scan.lstm_scan(xw, w, h0, c0)
+        else:
+            lstm_scan.lstm_scan_bidir(xw, xw, w, w, h0, c0)
+    with torch.no_grad():                      # no graph: the kernel runs
+        n0 = lstm_scan.launches
+        lstm_scan.lstm_scan(xw, w, h0, c0)
+        assert lstm_scan.launches == n0 + 2
+
+
+def _tp_state(dev, B, V, W, frames, blank, seed):
+    """A mid-decode packed state and the next frame's log-probs."""
+    rng = np.random.default_rng(seed)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal(
+        (frames + 1, B, V)))).to(dev)
+    beam, _ = fused_decode.fused_prefix_decode_plain(
+        lp[:frames], tbs._init_beam(B, W, dev), blank)
+    return fused_decode.pack_state(beam), lp[frames]
+
+
+@pytest.mark.parametrize("B,V,W,n,blank", [
+    (3, 47, 1, 4, 0),          # W = 1
+    (4, 13, 9, 13, 5),         # n = V: one-id windows
+    (2, 256, 64, 2, 255),      # V = 256, windows of 128, blank last
+    (5, 300, 128, 3, 0),       # V > 256 (the frame kernel has no V bound)
+    (1, 40, 16, 8, 17),        # most windows without the blank
+])
+def test_tp_frame_kernel_equals_plain(dev, B, V, W, n, blank):
+    st, f = _tp_state(dev, B, V, W, 4, blank, B * V + W)
+    last = st[fused_decode.FIELDS.index("last")].long().clamp(0, V - 1)
+    f_last, f_blank = torch.gather(f, 1, last), f[:, blank].contiguous()
+    for lo, hi in fused_decode.shard_bounds(V, n):
+        n0 = fused_decode.tp_frame_launches
+        got = fused_decode.tp_frame(f[:, lo:hi], f_last, f_blank, st, lo, hi,
+                                    V, blank)
+        want = fused_decode.tp_frame_plain(f[:, lo:hi], f_last, f_blank, st,
+                                           lo, hi, V, blank)
+        assert fused_decode.tp_frame_launches == n0 + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (lo, hi)
+
+
+def _resident(lib_name, capacity_fn, *args):
+    """How many blocks of a cooperative kernel the card holds at once."""
+    import ctypes
+    cap = ctypes.c_int(0)
+    lib = _lib.load(lib_name)
+    _lib.check(getattr(lib, capacity_fn)(*args, ctypes.byref(cap)),
+               capacity_fn)
+    return cap.value
+
+
+# B=None: one utterance more than the persistent grid holds a shard, so
+# some blocks walk two
+@pytest.mark.parametrize("T,B,V,W,n", [
+    (12, 3, 47, 1, 4),         # W = 1
+    (9, 4, 13, 9, 13),         # n = V
+    (6, 3, 256, 64, 2),        # V = 256
+    (6, 2, 256, 64, 8),
+    (6, None, 29, 6, 3),       # B not a multiple of the grid
+    (3, None, 40, 100, 1),     # n = 1: no exchange
+])
+def test_tp_scan_kernel_equals_plain_and_single_card(dev, T, B, V, W, n):
+    if B is None:
+        B = _resident("decode_tp", "tp_scan_capacity", W, V, n) // n + 1
+    rng = np.random.default_rng(T * B + V)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((T, B, V)))).to(
+        dev)
+    init = fused_decode.pack_state(tbs._init_beam(B, W, dev))
+    n0 = fused_decode.tp_scan_launches
+    fins, ys = fused_decode.tp_scan(lp, init, [dev] * n, 0)
+    assert fused_decode.tp_scan_launches == n0 + 1
+    fp, yp = fused_decode.tp_scan_plain(lp, init, n, 0)
+    assert torch.equal(ys, yp) and torch.equal(fins, fp)
+    beam, ys1 = fused_decode.fused_prefix_decode(
+        lp, tbs._init_beam(B, W, dev))
+    assert torch.equal(ys, ys1)
+    for s in range(n):                         # equal on every shard
+        assert torch.equal(fins[s], fused_decode.pack_state(beam))
+
+
+# Bt=None: one row more than the persistent grid holds a shard
+@pytest.mark.parametrize("n,Bt", [(2, 5), (4, 9), (8, None)])
+def test_toy_exchange_kernel_equals_oracle(dev, n, Bt):
+    if Bt is None:
+        Bt = _resident("exchange_probe", "toy_exchange_capacity") // n + 1
+    rng = np.random.default_rng(n * Bt)
+    keys = np.sort(rng.integers(-50, 50, (n, 7, Bt, 128)),
+                   axis=-1)[..., ::-1].astype(np.int32).copy()
+    n0 = exchange_probe.toy_exchange_launches
+    got = exchange_probe.toy_exchange_scan(torch.from_numpy(keys).to(dev),
+                                           n).cpu().numpy()
+    assert exchange_probe.toy_exchange_launches == n0 + 1
+    want = exchange_probe.toy_exchange_oracle(keys)
+    for s in range(n):
+        np.testing.assert_array_equal(got[s], want)
+
+
+# the cooperative launches themselves refuse a grid the card cannot hold
+# at once (the wrappers size the grid to fit): an error code, nothing runs
+_NOT_RESIDENT = r"""
+import ctypes, sys, torch
+from gasr_tpu_torch.decoder import beam_search as tbs
+from gasr_tpu_torch.ops.cuda import _lib, fused_decode as fd
+dev = torch.device("cuda")
+tbl = lambda ts: torch.tensor([t.data_ptr() for t in ts], dtype=torch.int64,
+                              device=dev)
+cap = ctypes.c_int(0)
+lib = _lib.load("decode_tp")
+_lib.check(lib.tp_scan_capacity(8, 16, 4, ctypes.byref(cap)), "capacity")
+G = cap.value                                  # 4 shards x G blocks
+lp = torch.zeros(3, 2, 16, device=dev).log_softmax(-1)
+init = fd.pack_state(tbs._init_beam(2, 8, dev))
+box = torch.empty(4, 2, G, 8, dtype=torch.int64, device=dev)
+flags = torch.zeros(4, G, dtype=torch.int32, device=dev)
+shards = torch.arange(4, dtype=torch.int32, device=dev)
+ys = torch.empty(3, 2, 8, dtype=torch.int32, device=dev)
+fin = torch.empty(4, 9, 2, 8, dtype=torch.int32, device=dev)
+err = lib.tp_scan_launch(_lib.ptr(lp), _lib.ptr(init), 3, 2, 8, 16, 0, 4,
+                         _lib.ptr(shards), 4, G, _lib.ptr(tbl(box)),
+                         _lib.ptr(tbl(flags)), _lib.ptr(ys), _lib.ptr(fin),
+                         _lib.stream(dev))
+torch.cuda.synchronize()
+print("tp_scan: launch error", err)
+if err == 0:
+    sys.exit("the oversized tp_scan launch ran")
+lib = _lib.load("exchange_probe")
+_lib.check(lib.toy_exchange_capacity(ctypes.byref(cap)), "capacity")
+G = cap.value                                  # 2 shards x G blocks
+keys = torch.zeros(2, 1, G, 128, dtype=torch.int32, device=dev)
+box = torch.empty(2, 2, G, 128, dtype=torch.int64, device=dev)
+flags = torch.zeros(2, G, dtype=torch.int32, device=dev)
+out = torch.empty_like(keys)
+err = lib.toy_exchange_launch(_lib.ptr(keys), 1, G, 2, G, _lib.ptr(tbl(box)),
+                              _lib.ptr(tbl(flags)), _lib.ptr(out),
+                              _lib.stream(dev))
+torch.cuda.synchronize()
+print("toy_exchange: launch error", err)
+sys.exit(0 if err != 0 else "the oversized toy_exchange launch ran")
+"""
+
+
+def test_tp_grid_that_cannot_be_resident_raises_not_hangs(dev):
+    # in a subprocess under a timeout: a grid of blocks that wait on each
+    # other must be refused, never started (a started one could spin
+    # forever on a peer that never becomes resident)
+    import os
+    import subprocess
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    r = subprocess.run([sys.executable, "-c", _NOT_RESIDENT], cwd=root,
+                       capture_output=True, text=True, timeout=180,
+                       env=dict(os.environ, PYTHONPATH=root))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.count("launch error") == 2
+
+
+@pytest.mark.parametrize("impl", ["auto", "fused", "fused_frame", "xla"])
+def test_tp_decode_and_stream_on_one_card_equal_single_card(dev, impl):
+    from gasr_tpu_torch.parallel import decode_tp, make_mesh
+    T, B, V, W, L = 12, 3, 29, 16, 32
+    rng = np.random.default_rng(29)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((T, B, V)))).to(
+        dev)
+    mesh = make_mesh({"data": 2, "model": 3}, devices=[dev] * 6)
+    single = tbs.ctc_beam_search(lp, beam_width=W, max_len=L)
+    counts = (fused_decode.tp_frame_launches, fused_decode.tp_scan_launches)
+    got = decode_tp.ctc_beam_search_tp(lp, beam_width=W, mesh=mesh,
+                                       max_len=L, tp_impl=impl)
+    frames = {"auto": T * 3, "fused_frame": T * 3}.get(impl, 0)
+    assert (fused_decode.tp_frame_launches - counts[0],
+            fused_decode.tp_scan_launches - counts[1]) == (
+        frames, int(impl == "fused"))
+    for f in single._fields:
+        a, b = getattr(got, f), getattr(single, f)
+        if f == "scores":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+    st = tbs.streaming_init(B, W, max_len=L, device=dev)
+    n0 = fused_decode.overlay_launches
+    for lo, hi in ((0, 5), (5, 6), (6, 12)):
+        st, snap = decode_tp.streaming_step_tp(st, lp[lo:hi], mesh=mesh,
+                                               tp_impl=impl)
+    assert fused_decode.overlay_launches - n0 == (0 if impl == "xla" else 3)
+    for f in single._fields:
+        assert torch.equal(getattr(snap, f), getattr(got, f)), f
+
+
+def test_tp_scan_and_decode_with_shards_on_several_cards(dev):
+    # the outboxes and flags of shards on another card are reached through
+    # peer pointers; one cooperative launch per card
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from gasr_tpu_torch.parallel import decode_tp, make_mesh
+    T, B, V, W = 14, 5, 29, 12
+    rng = np.random.default_rng(7)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((T, B, V)))).to(
+        dev)
+    init = tbs._init_beam(B, W, dev)
+    beam, ys1 = fused_decode.fused_prefix_decode(lp, init)
+    single = tbs.ctc_beam_search(lp, beam_width=W, max_len=16)
+    cards = [torch.device("cuda", i) for i in range(2)]
+    for devices in (cards, [cards[0], cards[1], cards[0], cards[1]]):
+        n0 = fused_decode.tp_scan_launches
+        fins, ys = fused_decode.tp_scan(lp, fused_decode.pack_state(init),
+                                        devices)
+        assert fused_decode.tp_scan_launches == n0 + 2   # one per card
+        assert torch.equal(ys, ys1)
+        for s in range(len(devices)):
+            assert torch.equal(fins[s], fused_decode.pack_state(beam))
+        mesh = make_mesh({"model": len(devices)}, devices=devices)
+        for impl in ("fused", "fused_frame"):
+            got = decode_tp.ctc_beam_search_tp(lp, beam_width=W, mesh=mesh,
+                                               max_len=16, tp_impl=impl)
+            for f in single._fields:
+                assert torch.equal(getattr(got, f), getattr(single, f)), f

@@ -222,13 +222,17 @@ for node in ast.walk(tree):
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "gasr_tpu" or m.startswith("gasr_tpu."))
-# the audio front end, the native library, evaluation and the LM tables
+# the audio front end, the native library, evaluation and the LM tables;
+# the meshes, the vocab-sharded decode and the exchange probe
 missing = sorted({"gasr_tpu_torch.data", "gasr_tpu_torch.data.dataset",
                   "gasr_tpu_torch.data.features", "gasr_tpu_torch.native",
-                  "gasr_tpu_torch.eval", "gasr_tpu_torch.decoder.lm"}
+                  "gasr_tpu_torch.eval", "gasr_tpu_torch.decoder.lm",
+                  "gasr_tpu_torch.parallel", "gasr_tpu_torch.parallel.mesh",
+                  "gasr_tpu_torch.parallel.decode_tp",
+                  "gasr_tpu_torch.ops.cuda.exchange_probe"}
                  - set(names))
 print(len(names), "modules;", "bad:", bad, "missing:", missing)
-sys.exit(1 if bad or missing or len(names) < 21 else 0)
+sys.exit(1 if bad or missing or len(names) < 37 else 0)
 """
 
 
