@@ -644,7 +644,10 @@ def main() -> int:
         return (float(torch.where(rows, (g - w).abs(), 0.0).max()),
                 float(torch.where(rows, w.abs(), 0.0).max()))
 
-    def flash_inputs(B_, H_, T_, dh_, seed, ragged):
+    def flash_inputs(B_, H_, T_, dh_, seed, ragged, views=False):
+        """views=True: q, k, v as mhsa_rel passes them, permuted bf16 views
+        of one [T, B, 3D] qkv product; ragged="zero" also sets one length
+        to 0."""
         f_rng = np.random.default_rng(seed)
 
         def t(*shape, sc=1.0):
@@ -652,40 +655,57 @@ def main() -> int:
                                      ).astype(np.float32)).to(dev)
         D_ = H_ * dh_
         lens = f_rng.integers(1, T_ + 1, B_) if ragged else np.full(B_, T_)
-        return (t(B_, H_, T_, dh_).to(bf), t(B_, H_, T_, dh_).to(bf),
-                t(B_, H_, T_, dh_).to(bf), t(D_, D_, sc=D_ ** -0.5),
-                t(H_, dh_, sc=0.1), t(H_, dh_, sc=0.1),
+        if ragged == "zero":
+            lens[B_ // 2] = 0
+        if views:
+            qkv = t(T_, B_, 3 * D_).to(bf)
+            qkv_v = [qkv[:, :, i * D_:(i + 1) * D_].reshape(T_, B_, H_, dh_)
+                     .permute(1, 2, 0, 3) for i in range(3)]
+        else:
+            qkv_v = [t(B_, H_, T_, dh_).to(bf) for _ in range(3)]
+        return (*qkv_v, t(D_, D_, sc=D_ ** -0.5), t(H_, dh_, sc=0.1),
+                t(H_, dh_, sc=0.1),
                 torch.from_numpy(lens.astype(np.int32)).to(dev))
 
     # 8a. flash attention kernel against its plain version: conformer_l's
-    # shape full and ragged, conformer_s's (dh = 36), T = 1024 and T = 2
+    # shape full, ragged, ragged with a length of 0 and as mhsa_rel passes
+    # q, k, v (strided views of the qkv product), conformer_s's (dh = 36)
+    # contiguous and as views, T = 1024 at D = 512 and D = 4096, T = 2
     flash_err = 0.0
-    for B_, H_, T_, dh_, ragged in ((64, 8, 300, 64, False),
-                                    (64, 8, 300, 64, True),
-                                    (32, 4, 150, 36, True),
-                                    (4, 8, 1024, 64, True),
-                                    (8, 8, 2, 64, False)):
-        ins = flash_inputs(B_, H_, T_, dh_, T_ + dh_ + ragged, ragged)
+    fl_ins = {}                 # conformer_l's full batch: views, contiguous
+    for B_, H_, T_, dh_, ragged, views in (
+            (64, 8, 300, 64, False, False), (64, 8, 300, 64, False, True),
+            (64, 8, 300, 64, True, False), (64, 8, 300, 64, "zero", True),
+            (32, 4, 150, 36, True, False), (32, 4, 150, 36, True, True),
+            (4, 8, 1024, 64, True, False), (1, 32, 1024, 128, True, False),
+            (8, 8, 2, 64, False, False)):
+        ins = flash_inputs(B_, H_, T_, dh_, T_ + dh_ + bool(ragged), ragged,
+                           views)
+        what = (f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] ragged={ragged} "
+                f"views={views}")
         for out_f32 in (False, True):
             got = flash_mhsa.flash_mhsa_rel(*ins, out_f32=out_f32)
             want = flash_mhsa.flash_mhsa_rel_plain(*ins, out_f32=out_f32)
             torch.cuda.synchronize()
-            err, scale = masked_err(got, want, ins[-1])
+            # valid query rows; a length of 0 averages v on every row
+            err, scale = masked_err(got, want, torch.where(
+                ins[-1] > 0, ins[-1], T_))
             tol = KERNEL_REL_TOL * max(1.0, scale)
             check(got.dtype == want.dtype and bool(torch.isfinite(got).all()),
-                  f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] output")
-            check(err <= tol, f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] "
-                  f"ragged={ragged} out_f32={out_f32}: {err} > {tol}")
+                  f"{what} output")
+            check(err <= tol, f"{what} out_f32={out_f32}: {err} > {tol}")
             flash_err = max(flash_err, err)
-            print(f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] ragged={ragged} "
-                  f"out_f32={out_f32}: max |kernel - plain| {err} "
+            print(f"{what} out_f32={out_f32}: max |kernel - plain| {err} "
                   f"(tolerance {tol}, max |plain| {scale})", flush=True)
         if (T_, ragged) == (300, False):
-            fl_ins = ins
-    # time at conformer_l's shape; the yardstick is SDPA with the position
-    # term precomputed as a [B, H, T, T] additive bf16 mask (SDPA takes a
-    # float mask only in the query's dtype), not timed
-    q8, k8, v8, wr8, u8, vb8, len8 = fl_ins
+            fl_ins[views] = ins
+        del ins, got, want
+    # time at conformer_l's shape, as mhsa_rel calls it (q, k, v strided
+    # views) and on contiguous inputs; the yardstick is SDPA with the
+    # position term precomputed as a [B, H, T, T] additive bf16 mask (SDPA
+    # takes a float mask only in the query's dtype), not timed
+    fl_views, fl_cont = fl_ins[True], fl_ins[False]
+    q8, k8, v8, wr8, u8, vb8, len8 = fl_cont
     B_, H_, T_, dh_ = q8.shape
     D_ = H_ * dh_
     with torch.no_grad():
@@ -695,20 +715,33 @@ def main() -> int:
         mask8 = (bd8 / dh_ ** 0.5).to(bf)
         qu8 = (q8.float() + u8[None, :, None]).to(bf)
     del r8, bd8
-    fl_flops = 2 * B_ * H_ * (2 * T_ * T_ * dh_ + T_ * dh_ * D_
-                              + T_ * T_ * D_)
+    # the work the function needs: qu.k, qv.R at every (t, s) and p.v,
+    # and the R product; q, k, v and the output at bf16, wr at float32
+    fl_flops = 2 * B_ * H_ * 3 * T_ * T_ * dh_ + 2 * (2 * T_ - 1) * D_ * D_
     fl_bytes = 4 * q8.numel() * 2 + wr8.numel() * 4 + 2 * u8.numel() * 4
     b_ms, b_by = bound(fl_bytes, fl_flops, BF16_TENSOR_FLOPS)
+    # the count of the factorized form (the kernel's earlier design)
+    old_ms, old_by = bound(fl_bytes, 2 * B_ * H_ * (
+        2 * T_ * T_ * dh_ + T_ * dh_ * D_ + T_ * T_ * D_), BF16_TENSOR_FLOPS)
+    fl_ms_cont = cuda_ms(lambda: flash_mhsa.flash_mhsa_rel(*fl_cont))
     report["flash_mhsa_rel"] = dict(
-        ms=cuda_ms(lambda: flash_mhsa.flash_mhsa_rel(*fl_ins)),
-        plain_ms=cuda_ms(lambda: flash_mhsa.flash_mhsa_rel_plain(*fl_ins),
+        ms=cuda_ms(lambda: flash_mhsa.flash_mhsa_rel(*fl_views)),
+        ms_contiguous=fl_ms_cont,
+        plain_ms=cuda_ms(lambda: flash_mhsa.flash_mhsa_rel_plain(*fl_cont),
                          iters=3, warmup=1),
         library_ms=cuda_ms(lambda: F8.scaled_dot_product_attention(
             qu8, k8, v8, attn_mask=mask8)),
         library_call="scaled_dot_product_attention(q+u, k, v, attn_mask="
                      "bd/sqrt(dh) precomputed [B,H,T,T] bf16)",
         max_abs_err=flash_err, bound_ms=b_ms, bound_by=b_by)
-    del qu8, mask8
+    r = report["flash_mhsa_rel"]
+    print(f"flash_mhsa_rel [{B_}, {H_}, {T_}, {dh_}] on {card}: "
+          f"{r['ms']:.4f} ms as mhsa_rel calls it (q, k, v views), "
+          f"{fl_ms_cont:.4f} ms on contiguous inputs; bound {b_ms:.4f} ms "
+          f"({b_by}: {fl_bytes / 1e6:.1f} MB, {fl_flops / 1e9:.2f} GFLOP; "
+          f"the factorized form's count {old_ms:.4f} ms, {old_by}); SDPA "
+          f"{r['library_ms']:.4f} ms", flush=True)
+    del qu8, mask8, fl_ins, fl_views, fl_cont
 
     # 8b. the fused stem against its plain version on conformer_l's
     # weights: T = 1200 -> T/4 = 300, and T = 1000 (T/4 = 250, a ragged

@@ -6,8 +6,11 @@ Time-major [T, B, D] like the rest of the stack. Two routes compute it:
     against the sinusoid embeddings of every offset T-1 .. -(T-1), moved
     into place by the pad-and-reshape Transformer-XL shift;
   - the fused kernel (`ops/cuda/flash_mhsa.py`, the JAX package's
-    "pallas" path), which factorizes the position bias instead and keeps
-    every O(T^2) tensor out of device memory.
+    "pallas" path), which reads the same position scores from a band of
+    the projected embeddings in shared memory and keeps every O(T^2)
+    tensor out of device memory. It takes q, k and v as strided views of
+    the qkv product and returns a view that reshapes to [T, B, D] without
+    a copy.
 `impl` keeps the JAX package's names ("xla" | "pallas" | "auto") so
 configs carry across; `use_flash_kernel` is JAX's dispatch rule with "on
 the accelerator" read as "on a CUDA tensor".

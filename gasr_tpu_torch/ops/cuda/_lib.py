@@ -7,9 +7,10 @@ source or any `csrc/*.cuh` header is newer than it. `build_all` starts
 one `nvcc` per stale source, all at once.
 
 Pointers and the current stream go across as `c_void_p`, sizes as
-`c_int`. Every C entry returns `cudaGetLastError()` after its launches;
-`check` raises when that is not 0 (a refused launch never runs, and
-`torch.cuda.synchronize()` would not report it).
+`c_int`, strides as `c_longlong`. Every C entry returns
+`cudaGetLastError()` after its launches; `check` raises when that is not
+0 (a refused launch never runs, and `torch.cuda.synchronize()` would not
+report it).
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # do no float arithmetic.)
 _EXTRA_FLAGS = {"fused_decode": ["-fmad=false"], "decode_tp": ["-fmad=false"]}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures (argtypes) of each library's entry points
 SIGNATURES: Dict[str, Dict[str, List]] = {
-    "flash_mhsa": {"flash_mhsa_rel_launch": [_P] * 10 + [_I] * 7
-                   + [_F, _I, _P, _P]},
+    "flash_mhsa": {"flash_mhsa_rel_launch": [_P] * 8 + [_I] * 4 + [_L] * 9
+                   + [_F, _I, _I, _P]},
     "stem": {"fused_stem_launch": [_P] * 5 + [_I] * 6 + [_P, _P]},
     "topk": {"topk_launch": [_P, _I, _I, _I, _P, _P, _P]},
     "fused_decode": {

@@ -1,30 +1,39 @@
 """Rel-pos multi-head self-attention with no O(T^2) tensor in device memory.
 
 Replaces `gasr_tpu/ops/pallas/flash_mhsa.py::flash_mhsa_rel` (kernel body
-`_kernel`). Per (batch, head) it computes Transformer-XL attention with
-the sinusoid position bias factorized by angle addition, which removes
-the rel-shift:
+`_kernel`). Per (batch, head) it computes Transformer-XL attention:
 
-    bd[t, s] = cos(w s) . A(t) + sin(w s) . B(t)
-    A(t) = us(t) sin(w t) + uc(t) cos(w t)
-    B(t) = uc(t) sin(w t) - us(t) cos(w t)
+    scores[t, s] = ((q + u)_t . k_s + bd[t, s]) / sqrt(dh)
+    bd[t, s] = (q + vb)_t . R_h[(T-1) - (t - s)],  R = sinusoid(T, D) @ wr
 
-with us = (q + vb) @ ws_h and uc = (q + vb) @ wc_h, ws / wc the rows of
-`wr` that weight the sin / cos halves of the sinusoid basis, per head.
-The scores (q + u) k^T + bd are scaled by 1/sqrt(dh), keys at or past
-lengths[b] are masked, the float32 softmax is rounded to bf16 and
+keys at or past lengths[b] are masked, and the float32 softmax is
 multiplied by v.
 
-Rounding points (those of the JAX package's `flash_ref`): q, k, v, wr,
-u and vb are bf16; q + u and q + vb are bf16 sums; every product is
-summed in float32; us and uc are rounded to bf16, every elementwise
-product and sum forming A and B is rounded to bf16; the normalized
-attention is rounded to bf16 before its product with v.
+Two forms of the same function:
+  - `flash_mhsa_rel_plain`, the port of the JAX package's `flash_ref`,
+    factorizes bd by angle addition, which removes the rel-shift:
+        bd[t, s] = cos(w s) . A(t) + sin(w s) . B(t)
+        A(t) = us(t) sin(w t) + uc(t) cos(w t)
+        B(t) = uc(t) sin(w t) - us(t) cos(w t)
+    with us = (q + vb) @ ws_h and uc = (q + vb) @ wc_h, ws / wc the rows
+    of `wr` that weight the sin / cos halves of the sinusoid basis. Its
+    rounding points are flash_ref's: q, k, v, wr, u and vb are bf16; q + u
+    and q + vb are bf16 sums; every product is summed in float32; us and
+    uc are rounded to bf16, every elementwise product and sum forming A
+    and B is rounded to bf16; the normalized attention is rounded to bf16
+    before its product with v.
+  - the CUDA kernel (`csrc/flash_mhsa.cu`) reads bd from a band of R:
+    R = bf16(sinusoid @ wr) is one tensor-core product here on bf16
+    operands (the JAX package's XLA route computes the same product in
+    float32; flash_ref rounds wr and its sinusoid tables to bf16), and
+    the kernel's key-tile loop multiplies qv by a window of R rows and
+    reads the product at the skewed offset. Its online softmax rounds
+    the unnormalized probabilities to bf16 before the product with v.
 
-`flash_mhsa_rel` launches the CUDA kernel (`csrc/flash_mhsa.cu`) for CUDA
-tensors and runs `flash_mhsa_rel_plain` for CPU tensors. It is forward
-only: inputs that require grad raise (the backward comes with training,
-ROADMAP.md Queue 1 item 12).
+`flash_mhsa_rel` launches the kernel for CUDA tensors and runs
+`flash_mhsa_rel_plain` for CPU tensors. It is forward only: inputs that
+require grad raise (the backward comes with training, ROADMAP.md Queue 1
+item 12).
 
 lengths: a length of 0 masks every key; then the kernel and the plain
 version both average v over the T keys, as `flash_ref` does (the JAX
@@ -34,11 +43,10 @@ as T.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
 
 import torch
-import torch.nn.functional as F
 
 from gasr_tpu_torch.ops.cuda import _lib
 
@@ -107,15 +115,31 @@ def flash_mhsa_rel_plain(q, k, v, wr, u, vb, lengths,
     return out if out_f32 else out.to(bf)
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+@functools.lru_cache(maxsize=8)
+def _pos_table(T: int, D: int, device) -> torch.Tensor:
+    """The sinusoid embeddings of offsets T-1 .. -(T-1), [2T-1, D] bf16
+    (`ops/attention.py::_sinusoid_pos`, rounded as `flash_ref` rounds its
+    cos / sin tables), kept per (T, D, device)."""
+    from gasr_tpu_torch.ops.attention import _sinusoid_pos
+    return _sinusoid_pos(T, D, device).to(torch.bfloat16)
+
+
+def _copy_width(dh: int, tensors) -> int:
+    """The widest copy, in bf16 values (8, 4, 2 or 1), that divides dh,
+    every stride and every pointer of `tensors`: the kernel stages its
+    tiles by asynchronous copies of that many values."""
+    g = math.gcd(dh, *(st for t in tensors for st in t.stride()[:-1]),
+                 *(t.data_ptr() // 2 for t in tensors))
+    return next(vec for vec in (8, 4, 2, 1) if g % vec == 0)
 
 
 def flash_mhsa_rel(q, k, v, wr, u, vb, lengths,
                    out_f32: bool = False) -> torch.Tensor:
-    """q, k, v: [B, H, T, dh] (any float dtype; bf16 inside), wr: [D, D]
-    (D = H * dh), u, vb: [H, dh], lengths: [B] valid key counts. Returns
-    [B, H, T, dh], float32 when out_f32 else bf16."""
+    """q, k, v: [B, H, T, dh] (any float dtype, any strides; bf16 inside),
+    wr: [D, D] (D = H * dh), u, vb: [H, dh], lengths: [B] valid key counts.
+    Returns [B, H, T, dh], float32 when out_f32 else bf16; from the kernel
+    it is a view of a [T, B, H, dh] tensor, so that the time-major
+    [T, B, D] caller reshapes it without a copy."""
     if any(t.requires_grad for t in (q, k, v, wr, u, vb)):
         raise NotImplementedError(
             "flash_mhsa_rel is forward only (the backward comes with "
@@ -142,43 +166,37 @@ def flash_mhsa_rel(q, k, v, wr, u, vb, lengths,
         if t.device != q.device:
             raise ValueError("flash_mhsa_rel: all tensors must be on one "
                              "device")
+    out = torch.empty((T, B, H, dh), device=q.device,
+                      dtype=torch.float32 if out_f32 else torch.bfloat16)
     if B == 0 or H == 0:
-        return torch.empty(q.shape, device=q.device,
-                           dtype=torch.float32 if out_f32 else torch.bfloat16)
-    # zero padding: T to a multiple of 16 (padded keys are left out of the
-    # softmax, padded queries dropped), dh and D/2 to multiples of 16 (zero
-    # terms in every sum)
-    half = D // 2
-    Tp, dhp, halfp = _round_up(T, 16), _round_up(dh, 16), _round_up(half, 16)
+        return out.permute(1, 2, 0, 3)
     bf = torch.bfloat16
 
-    def pad_qkv(a):
-        return F.pad(a.to(bf), (0, dhp - dh, 0, Tp - T)).contiguous()
+    def operand(a):
+        # q, k, v are read through their strides: no copy for bf16 views
+        a = a if a.dtype == bf else a.to(bf)
+        return a if a.stride(-1) == 1 else a.contiguous()
 
-    qp, kp, vp = pad_qkv(q), pad_qkv(k), pad_qkv(v)
-    ws, wc = _head_weights(wr, H, dh)
-    wpad = (0, halfp - half, 0, dhp - dh)
-    ws = F.pad(ws, wpad).contiguous()
-    wc = F.pad(wc, wpad).contiguous()
-    cs, sn = _tables(Tp, D, q.device)
-    cs = F.pad(cs, (0, halfp - half)).contiguous()
-    sn = F.pad(sn, (0, halfp - half)).contiguous()
-    up = F.pad(u.to(bf), (0, dhp - dh)).contiguous()
-    vbp = F.pad(vb.to(bf), (0, dhp - dh)).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty((B, H, T, dh), device=q.device,
-                      dtype=torch.float32 if out_f32 else bf)
+    def f32(a):
+        a = a if a.dtype == torch.float32 else a.float()
+        return a if a.is_contiguous() else a.contiguous()
+
+    qb, kb, vbf = operand(q), operand(k), operand(v)
+    # R = bf16(bf16(sinusoid) @ bf16(wr)): [2T-1, D], head h in columns
+    # h*dh.., one tensor-core product (flash_ref's operand roundings)
+    r = torch.matmul(_pos_table(T, D, q.device),
+                     wr if wr.dtype == bf else wr.to(bf))
+    u32, vb32 = f32(u), f32(vb)
+    lens = lengths if lengths.dtype == torch.int32 and \
+        lengths.is_contiguous() else lengths.to(torch.int32).contiguous()
     lib = _lib.load("flash_mhsa")
     err = lib.flash_mhsa_rel_launch(
-        _lib.ptr(qp), _lib.ptr(kp), _lib.ptr(vp), _lib.ptr(ws), _lib.ptr(wc),
-        _lib.ptr(cs), _lib.ptr(sn), _lib.ptr(up), _lib.ptr(vbp),
-        _lib.ptr(lens), B, H, T, dh, Tp, dhp, halfp,
-        ctypes.c_float(1.0 / math.sqrt(dh)), int(out_f32), _lib.ptr(out),
-        _lib.stream(q.device))
-    # the launcher picks the query tile whose shared memory fits a block
-    # and refuses (cudaErrorInvalidValue, 1) when none does: T near 1024
-    # with D above ~4000
+        qb.data_ptr(), kb.data_ptr(), vbf.data_ptr(), r.data_ptr(),
+        u32.data_ptr(), vb32.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        B, H, T, dh, *qb.stride()[:3], *kb.stride()[:3], *vbf.stride()[:3],
+        1.0 / math.sqrt(dh), int(out_f32), _copy_width(dh, (qb, kb, vbf, r)),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _lib.check(err, "flash_mhsa_rel")
     global launches
     launches += 1
-    return out
+    return out.permute(1, 2, 0, 3)

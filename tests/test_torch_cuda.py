@@ -441,7 +441,10 @@ def test_lstm_models_on_card_launch_and_match_cpu(dev, preset):
 KERNEL_REL = 0.02
 
 
-def _flash_inputs(dev, B, H, T, dh, seed, ragged):
+def _flash_inputs(dev, B, H, T, dh, seed, ragged, views=False):
+    """q, k, v, wr, u, vb, lengths; views=True gives q, k and v as
+    mhsa_rel passes them: permuted bf16 views of one [T, B, 3D] qkv
+    product; ragged="zero" also sets one length to 0."""
     rng = np.random.default_rng(seed)
     D = H * dh
 
@@ -449,23 +452,37 @@ def _flash_inputs(dev, B, H, T, dh, seed, ragged):
         return torch.from_numpy((rng.standard_normal(shape) * s).astype(
             np.float32)).to(dev)
     lens = rng.integers(1, T + 1, B) if ragged else np.full(B, T)
-    return (t(B, H, T, dh), t(B, H, T, dh), t(B, H, T, dh),
-            t(D, D, s=D ** -0.5), t(H, dh, s=0.1), t(H, dh, s=0.1),
+    if ragged == "zero":
+        lens[B // 2] = 0
+    if views:
+        qkv = t(T, B, 3 * D).to(torch.bfloat16)
+        q, k, v = (qkv[:, :, i * D:(i + 1) * D].reshape(T, B, H, dh)
+                   .permute(1, 2, 0, 3) for i in range(3))
+    else:
+        q, k, v = t(B, H, T, dh), t(B, H, T, dh), t(B, H, T, dh)
+    return (q, k, v, t(D, D, s=D ** -0.5), t(H, dh, s=0.1), t(H, dh, s=0.1),
             torch.from_numpy(lens.astype(np.int32)).to(dev))
 
 
-@pytest.mark.parametrize("B,H,T,dh,ragged", [
-    (64, 8, 300, 64, True),        # conformer_l, ragged lengths
-    (32, 4, 150, 36, True),        # conformer_s: dh padded to 48
-    (2, 8, 1024, 64, True),        # the longest eligible T (query tile 32)
-    (3, 8, 2, 64, False),          # the shortest
-    (2, 3, 17, 10, True),          # D/2 = 15, T not a multiple of 16
-    (2, 16, 77, 128, True),        # dh = 128, D = 2048
-    (1, 2, 1024, 128, False),      # query tile 32 at D = 256
+@pytest.mark.parametrize("B,H,T,dh,ragged,views", [
+    (64, 8, 300, 64, True, False),     # conformer_l, ragged lengths
+    (64, 8, 300, 64, True, True),      # as mhsa_rel passes q, k, v
+    (64, 8, 300, 64, "zero", False),   # a ragged batch with a length of 0
+    (32, 4, 150, 36, True, False),     # conformer_s: dh padded to 48
+    (32, 4, 150, 36, True, True),      # its views: 8-byte copies
+    (2, 8, 1024, 64, True, False),     # the longest eligible T
+    (3, 8, 2, 64, False, False),       # the shortest
+    (2, 3, 17, 10, True, False),       # D/2 = 15, T not a multiple of 16
+    (2, 3, 17, 10, True, True),        # views: 4-byte copies
+    (2, 2, 9, 5, "zero", True),        # odd dh: synchronous copies
+    (2, 16, 77, 128, True, False),     # dh = 128, D = 2048
+    (1, 2, 1024, 128, False, False),   # T = 1024 at dh = 128
+    (1, 32, 1024, 128, True, False),   # T = 1024 at D = 4096
 ])
 @pytest.mark.parametrize("out_f32", [False, True])
-def test_flash_mhsa_kernel_close_to_plain(dev, B, H, T, dh, ragged, out_f32):
-    ins = _flash_inputs(dev, B, H, T, dh, B * T + dh, ragged)
+def test_flash_mhsa_kernel_close_to_plain(dev, B, H, T, dh, ragged, views,
+                                          out_f32):
+    ins = _flash_inputs(dev, B, H, T, dh, B * T + dh, ragged, views)
     n0 = flash_mhsa.launches
     got = flash_mhsa.flash_mhsa_rel(*ins, out_f32=out_f32)
     want = flash_mhsa.flash_mhsa_rel_plain(*ins, out_f32=out_f32)
@@ -474,7 +491,9 @@ def test_flash_mhsa_kernel_close_to_plain(dev, B, H, T, dh, ragged, out_f32):
     assert got.dtype == want.dtype and got.shape == want.shape
     lens = ins[-1].cpu()
     for b in range(B):
-        g, w = got[b, :, :lens[b]].float(), want[b, :, :lens[b]].float()
+        # valid query rows; a length of 0 averages v on every row
+        n = int(lens[b]) or T
+        g, w = got[b, :, :n].float(), want[b, :, :n].float()
         assert float((g - w).abs().max()) <= KERNEL_REL * max(
             1.0, float(w.abs().max()))
 
