@@ -744,8 +744,10 @@ def main() -> int:
     del qu8, mask8, fl_ins, fl_views, fl_cont
 
     # 8b. the fused stem against its plain version on conformer_l's
-    # weights: T = 1200 -> T/4 = 300, and T = 1000 (T/4 = 250, a ragged
-    # tile of 16 rows)
+    # weights: T = 1200 -> T/4 = 300, T = 1000 (T/4 = 250: the last row
+    # tile of a b holds 8 of 128 rows), x as a strided view (its
+    # transpose's transpose, read through its strides), a batch of 0; and
+    # on random weights F/4 = 3 (d = 512), T = F = 8 (d = dout = 128)
     cfg_c = dataclasses.replace(PRESETS["conformer_l"], mesh_shape={})
     params_c = model_init(cfg_c, torch.Generator().manual_seed(0))
     feats_c = rng.uniform(size=(cfg_c.batch_size, cfg_c.seg_len,
@@ -754,22 +756,66 @@ def main() -> int:
     sw = (params_c["sub1"]["w"], params_c["sub1"]["b"], params_c["sub2"]["w"],
           params_c["sub2"]["b"], params_c["sub_proj"]["w"],
           params_c["sub_proj"]["b"])
+
+    def stem_weights(F_, d_, dout_, seed):
+        s_rng = np.random.default_rng(seed)
+        return tuple(torch.from_numpy((s_rng.standard_normal(shape) * sc)
+                                      .astype(np.float32)).to(dev)
+                     for shape, sc in (((3, 3, 1, d_), 0.2), ((d_,), 0.1),
+                                       ((3, 3, d_, d_), (9 * d_) ** -0.5),
+                                       ((d_,), 0.1),
+                                       ((F_ // 4 * d_, dout_),
+                                        2 * (F_ // 4 * d_) ** -0.5),
+                                       ((dout_,), 0.1)))
+    x_t = x_c[:4].transpose(1, 2).contiguous().transpose(1, 2)
+    stem_cases = [
+        ("conformer_l", x_c, sw), ("ragged tile", x_c[:8, :1000], sw),
+        ("strided x", x_t, sw), ("B = 0", x_c[:0], sw),
+        ("F/4 = 3", x_c[:4, :400, :12], stem_weights(12, 512, 512, 3)),
+        ("T = F = 8", x_c[:2, :8, :8], stem_weights(8, 128, 128, 4))]
+    check(not x_t.is_contiguous(), "the strided stem case is contiguous")
     stem_err = 0.0
-    for xs in (x_c, x_c[:8, :1000]):
-        got = stem.fused_stem(xs, *sw)
-        want = stem.fused_stem_plain(xs, *sw)
+    for what, xs, ws_ in stem_cases:
+        n0 = stem.launches
+        got = stem.fused_stem(xs, *ws_)
+        want = stem.fused_stem_plain(xs, *ws_)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        tol = KERNEL_REL_TOL * max(1.0, scale)
-        check(tuple(got.shape) == (xs.shape[0], xs.shape[1] // 4, 512)
+        check(stem.launches == n0 + (xs.shape[0] > 0),
+              f"fused_stem {what}: launches {stem.launches - n0}")
+        check(tuple(got.shape) == tuple(want.shape) ==
+              (xs.shape[0], xs.shape[1] // 4, ws_[4].shape[1])
               and bool(torch.isfinite(got).all()),
-              f"fused_stem {tuple(xs.shape)} output")
-        check(err <= tol, f"fused_stem {tuple(xs.shape)}: {err} > {tol}")
+              f"fused_stem {what} output {tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max()) \
+            if got.numel() else 0.0
+        scale = float(want.float().abs().max()) if want.numel() else 0.0
+        tol = KERNEL_REL_TOL * max(1.0, scale)
+        check(err <= tol, f"fused_stem {what}: {err} > {tol}")
         stem_err = max(stem_err, err)
-        print(f"fused_stem {list(xs.shape)} -> {list(got.shape)}: max "
-              f"|kernel - plain| {err} (tolerance {tol}, max |plain| {scale})",
-              flush=True)
+        print(f"fused_stem {what} {list(xs.shape)} (strides {xs.stride()}) "
+              f"-> {list(got.shape)}: max |kernel - plain| {err} (tolerance "
+              f"{tol}, max |plain| {scale})", flush=True)
+    del x_t, stem_cases
+    # the device kernels of one call: the port's two, no library conv or
+    # GEMM (torch.profiler)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stem.fused_stem(x_c, *sw)
+        torch.cuda.synchronize()
+    dev_kernels = sorted({e.name for e in prof.events()
+                          if e.device_type.name == "CUDA"})
+    n_stem_kernels = sum(e.device_type.name == "CUDA" and (
+        "stem_conv_kernel" in e.name or "stem_proj_kernel" in e.name)
+        for e in prof.events())
+    lib_kernels = [k for k in dev_kernels if "stem_" not in k and any(
+        w in k.lower() for w in ("cudnn", "cublas", "gemm", "xmma", "cutlass",
+                                 "conv", "sm90_", "sm80_"))]
+    check(n_stem_kernels == 2 and not lib_kernels,
+          f"fused_stem device kernels {dev_kernels}")
+    print(f"fused_stem kernel launches per call: {n_stem_kernels} "
+          f"(stem_conv_kernel, stem_proj_kernel); no library convolution or "
+          f"GEMM among the call's device kernels ({len(dev_kernels)} names: "
+          f"the rest cast and lay out the weights)", flush=True)
     Bc, Tc, Fc = x_c.shape
     dc = sw[2].shape[-1]
     st_flops = 2 * Bc * (Tc // 2) * (Fc // 2) * dc * 9 \
@@ -777,8 +823,6 @@ def main() -> int:
     st_bytes = x_c.numel() * 4 + sum(w.numel() * 4 for w in sw) \
         + Bc * (Tc // 4) * dc * 2
     b_ms, b_by = bound(st_bytes, st_flops, BF16_TENSOR_FLOPS)
-    conv1_ms = cuda_ms(lambda: conv2d({"w": sw[0], "b": sw[1]}, x_c[..., None],
-                                      (2, 2), compute_dtype=bf), iters=3)
     stem_plain_ms = cuda_ms(lambda: stem.fused_stem_plain(x_c, *sw),
                             iters=3, warmup=1)
     report["fused_stem"] = dict(
@@ -786,9 +830,12 @@ def main() -> int:
         plain_ms=stem_plain_ms, library_ms=stem_plain_ms,
         library_call="the plain version: cuDNN conv1 and conv2 at bf16 + "
                      "clip, cuBLAS sub_proj",
+        kernel_launches_per_call=n_stem_kernels,
         max_abs_err=stem_err, bound_ms=b_ms, bound_by=b_by)
-    print(f"fused_stem times include conv1 (cuDNN, bf16): conv1 alone "
-          f"{conv1_ms:.4f} ms on {card}", flush=True)
+    print(f"fused_stem [{Bc}, {Tc}, {Fc}] on {card}: "
+          f"{report['fused_stem']['ms']:.4f} ms (conv1 inside, {n_stem_kernels}"
+          f" kernel launches), plain {stem_plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
 
     # 8c. the forward and decode as bench.py drives them
     def c_forward(**kw):
@@ -857,7 +904,11 @@ def main() -> int:
     del lp_cs, lp_cx
 
     c_e2e_ms = host_ms(lambda: decode_to_lists(c_decode(c_forward())))
+    c_e2e_s_ms = host_ms(lambda: decode_to_lists(c_decode(c_forward(
+        stem_impl="pallas"))))
     c_fwd_ms = cuda_ms(c_forward, iters=3, warmup=1)
+    c_fwd_s_ms = cuda_ms(lambda: c_forward(stem_impl="pallas"), iters=3,
+                         warmup=1)
     c_fwd_x_ms = cuda_ms(lambda: c_forward(attn_impl="xla"), iters=3,
                          warmup=1)
     c_dec_ms = cuda_ms(lambda: c_decode(lp_c), iters=5, warmup=1)
@@ -870,6 +921,12 @@ def main() -> int:
           f"{c_fwd_ms:.3f} ms, forward with attn_impl='xla' {c_fwd_x_ms:.3f} "
           f"ms, decode {c_dec_ms:.3f} ms (CUDA events, means of 3 / 3 / 5); "
           f"mean transcript length {mean_len_c:.1f}", flush=True)
+    print(f"conformer_l with stem_impl='pallas' (the fused stem kernel) on "
+          f"{card}: forward + decode + decode_to_lists {c_e2e_s_ms:.3f} ms = "
+          f"{c_audio_s / (c_e2e_s_ms / 1e3):.1f} audio-seconds/s, forward "
+          f"{c_fwd_s_ms:.3f} ms; the default (stem_impl='auto': the plain "
+          f"stem) {c_e2e_ms:.3f} / {c_fwd_ms:.3f} ms (reported, not gated: "
+          f"the transcripts differ by bf16 flips)", flush=True)
     del params_c, x_c           # lp_c and res_c: phase 11e decodes them
 
     # ---- 9. the LSTM paths: deepspeech2 and bilstm_2x256
@@ -1776,8 +1833,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if name in inside:
             entry["inside"] = inside[name]
-        for extra in ("library_call", "ms_bidir", "lm", "ms_by_shards",
-                      "exchange_bytes"):
+        for extra in ("library_call", "kernel_launches_per_call", "ms_bidir",
+                      "lm", "ms_by_shards", "exchange_bytes"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

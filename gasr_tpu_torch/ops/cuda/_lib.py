@@ -42,7 +42,11 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_mhsa": {"flash_mhsa_rel_launch": [_P] * 8 + [_I] * 4 + [_L] * 9
                    + [_F, _I, _I, _P]},
-    "stem": {"fused_stem_launch": [_P] * 5 + [_I] * 6 + [_P, _P]},
+    "stem": {
+        "stem_conv_launch": [_P, _L, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
+        "stem_proj_launch": [_P] * 3 + [_I] * 4 + [_P, _P],
+        "stem_conv_smem": [_I] * 3,
+    },
     "topk": {"topk_launch": [_P, _I, _I, _I, _P, _P, _P]},
     "fused_decode": {
         "fused_prefix_decode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P,

@@ -506,14 +506,21 @@ def test_flash_mhsa_kernel_zero_length_averages_v(dev):
     assert float((got - want).abs().max()) <= KERNEL_REL
 
 
-@pytest.mark.parametrize("B,T,F,d,dout,out", [
-    (64, 1200, 80, 512, 512, torch.bfloat16),   # conformer_l
-    (3, 1000, 80, 512, 512, torch.float32),     # T/4 = 250: a ragged tile
-    (2, 16, 8, 128, 256, torch.float32),        # F/4 = 2: a ragged f group
-    (2, 40, 12, 256, 1024, torch.bfloat16),     # dout = 1024
-    (1, 24, 16, 1024, 128, torch.float32),      # d = 1024
+@pytest.mark.parametrize("B,T,F,d,dout,out,x_view", [
+    (64, 1200, 80, 512, 512, torch.bfloat16, False),   # conformer_l
+    (3, 1000, 80, 512, 512, torch.float32, False),     # T/4 = 250: the last
+                                                       # row tile of a b holds
+                                                       # 8 of 128 rows
+    (2, 16, 8, 128, 256, torch.float32, False),        # F/4 = 2
+    (2, 40, 12, 256, 1024, torch.bfloat16, False),     # F/4 = 3, dout = 1024
+    (1, 24, 16, 1024, 128, torch.float32, False),      # d = 1024
+    (3, 44, 12, 512, 512, torch.float32, False),       # F/4 = 3 at d = 512,
+                                                       # 33 rows a b
+    (2, 8, 8, 128, 128, torch.bfloat16, False),        # T = F = 8
+    (4, 400, 80, 512, 512, torch.bfloat16, True),      # x a strided view
+    (0, 1200, 80, 512, 512, torch.bfloat16, False),    # B = 0
 ])
-def test_fused_stem_kernel_close_to_plain(dev, B, T, F, d, dout, out):
+def test_fused_stem_kernel_close_to_plain(dev, B, T, F, d, dout, out, x_view):
     rng = np.random.default_rng(T + d)
 
     def t(*shape, s):
@@ -521,6 +528,9 @@ def test_fused_stem_kernel_close_to_plain(dev, B, T, F, d, dout, out):
             np.float32)).to(dev)
     x = torch.from_numpy(rng.uniform(size=(B, T, F)).astype(np.float32)).to(
         dev)
+    if x_view:                   # read through its strides, not copied
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not x.is_contiguous()
     w = (t(3, 3, 1, d, s=0.2), t(d, s=0.1), t(3, 3, d, d, s=(9 * d) ** -0.5),
          t(d, s=0.1), t(F // 4 * d, dout, s=(F // 4 * d) ** -0.5 * 2),
          t(dout, s=0.1))
@@ -528,10 +538,11 @@ def test_fused_stem_kernel_close_to_plain(dev, B, T, F, d, dout, out):
     got = stem.fused_stem(x, *w, out_dtype=out)
     want = stem.fused_stem_plain(x, *w, out_dtype=out)
     torch.cuda.synchronize()
-    assert stem.launches == n0 + 1
+    assert stem.launches == n0 + (B > 0)
     assert got.dtype == out and got.shape == (B, T // 4, dout)
-    assert float((got.float() - want.float()).abs().max()) <= KERNEL_REL * \
-        max(1.0, float(want.float().abs().max()))
+    if B:
+        assert float((got.float() - want.float()).abs().max()) <= \
+            KERNEL_REL * max(1.0, float(want.float().abs().max()))
 
 
 def test_kernel_wrappers_refuse(dev):
@@ -555,6 +566,16 @@ def test_kernel_wrappers_refuse(dev):
     with pytest.raises(NotImplementedError, match="forward only"):
         stem.fused_stem(torch.zeros(1, 16, 8, device=dev,
                                     requires_grad=True), *w)
+    # a frequency axis whose h1 rows overflow the conv kernel's shared
+    # memory (stem_conv_smem) is refused before any launch
+    wide = [torch.zeros(s, device=dev) for s in
+            ((3, 3, 1, 512), (512,), (3, 3, 512, 512), (512,),
+             (40 * 512, 128), (128,))]
+    lib = _lib.load("stem")
+    assert lib.stem_conv_smem(1200, 80, 512) <= stem.SMEM_MAX
+    assert lib.stem_conv_smem(64, 160, 512) > stem.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        stem.fused_stem(torch.zeros(1, 64, 160, device=dev), *wide)
 
 
 def test_bf16_matmul_on_card_close_to_cpu(dev):
