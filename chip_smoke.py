@@ -21,11 +21,12 @@ stem_impl="pallas", the fused stem kernel (phase 8); and the two LSTM
 presets through `Pipeline.transcribe` with rnn_impl="pallas" at full
 size, `deepspeech2` (B=32, T=600 -> 300, F=160, two convs, 5 BiLSTM
 layers of H=512, W=32) and `bilstm_2x256` (B=16, T=400, F=80, 2 BiLSTM
-layers of H=256, W=10), with the LSTM recurrence kernel (one launch per
-step for both directions: 1500 and 800), after the kernel is held to its
-plain version at both shapes, and small forwards of both, card against
-CPU (phase 9); and audio in, text out with bigram shallow fusion (phase
-10): the decode kernel's LM variant against its plain version at the
+layers of H=256, W=10), with the LSTM recurrence kernel (one persistent
+launch a layer, both directions in it: 5 and 2), after the kernel is
+held to its plain version at both shapes, and small forwards of both,
+card against CPU (phase 9); and audio in, text out with bigram shallow
+fusion (phase 10): the decode kernel's LM variant against its plain
+version at the
 flagship shape (two tables, two kinds of log-probs) and at the envelope's
 edges (V=129 W=64, V=255 W=64; V=256 takes the matched scan), the LM
 stream of 10 x 20 frames against the batch LM decode,
@@ -375,15 +376,36 @@ def main() -> int:
         for t in range(T):
             h = torch.tanh(xw[t] + torch.matmul(h, w_bf)).to(torch.bfloat16)
 
+    # the kernel and its library yardstick in turns, 5 rounds of one call
+    # each after a warm-up; medians
+    def run_kernel():
+        rnn_scan.rnn_scan(xw, w_hh, h0)
+
+    rounds = {"kernel": [], "library": []}
+    for _ in range(5):
+        rounds["kernel"].append(cuda_ms(run_kernel, iters=1, warmup=1))
+        rounds["library"].append(cuda_ms(library_rnn, iters=1, warmup=1))
+    n0 = rnn_scan.launches
+    run_kernel()
+    per_call = rnn_scan.launches - n0
+    check(per_call == 1, f"rnn_scan launched {per_call} kernels a call")
     b_ms, b_by = bound(2 * T * B * H * 4 + H * H * 2 + B * H * 4,
                        2 * T * B * H * H, BF16_TENSOR_FLOPS)
     report["rnn_scan"] = dict(
-        ms=cuda_ms(lambda: rnn_scan.rnn_scan(xw, w_hh, h0), iters=5),
+        ms=float(np.median(rounds["kernel"])),
         plain_ms=cuda_ms(lambda: rnn_scan.rnn_scan_plain(xw, w_hh, h0),
                          iters=3, warmup=1),
-        library_ms=cuda_ms(library_rnn, iters=3, warmup=1),
+        library_ms=float(np.median(rounds["library"])),
+        ms_rounds=rounds["kernel"], library_ms_rounds=rounds["library"],
+        kernel_launches_per_call=per_call,
         max_abs_err=max(step_err, rnn_err, rev_err), bound_ms=b_ms,
         bound_by=b_by)
+    print(f"rnn_scan T={T} B={B} H={H} on {card}: kernel "
+          f"{report['rnn_scan']['ms']:.4f} ms, bf16 matmul + tanh loop "
+          f"{report['rnn_scan']['library_ms']:.4f} ms (medians of 5 rounds "
+          f"in turns: kernel {[round(x, 4) for x in rounds['kernel']]}, "
+          f"loop {[round(x, 4) for x in rounds['library']]}); 1 launch a "
+          f"call", flush=True)
 
     # ---- 4. golden fixtures through the port on the card: the prefix
     # ones through the kernels, reference_small through the sort merge
@@ -457,6 +479,9 @@ def main() -> int:
     for name in ("fused_prefix_decode", "traceback", "rnn_scan"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
+    # one persistent launch for the one recurrent layer
+    check(launches["rnn_scan"] == cfg.rnn_num_layers,
+          f"transcribe launched rnn_scan {launches['rnn_scan']} times")
     for name in ("traceback_overlay", "flash_mhsa_rel", "fused_stem",
                  "lstm_scan"):
         check(launches[name] == 0, f"transcribe launched {name}")
@@ -971,8 +996,11 @@ def main() -> int:
                   f"{errs[0][1]}; reverse max {errs[1][0]}, mean "
                   f"{errs[1][1]} (tolerance {LSTM_SCAN_TOL})", flush=True)
     # B off the 16-row tile, and H padded inside the wrapper (200 -> 208):
-    # the padded units stay exactly 0 and change no real unit's output
-    for B_, H_ in ((24, 512), (24, 200)):
+    # the padded units stay exactly 0 and change no real unit's output;
+    # B = 264 at deepspeech2's width: three batch groups, more than the
+    # card holds at once for two directions (the bidir call's blocks walk
+    # several, parking c between steps)
+    for B_, H_ in ((24, 512), (24, 200), (264, 512)):
         xw_, w_, h_, c_ = lstm_inputs(50, B_, H_, B_ + H_)
         xb_, wb_, _, _ = lstm_inputs(50, B_, H_, B_ + H_ + 1)
         got_f = lstm_scan.lstm_scan(xw_, w_, h_, c_)
@@ -1022,7 +1050,13 @@ def main() -> int:
     b_ms, b_by = bound(T_ * B_ * 4 * H_ * 4 + T_ * B_ * H_ * 4
                        + H_ * 4 * H_ * 2 + 2 * B_ * H_ * 4,
                        2 * T_ * B_ * H_ * 4 * H_, BF16_TENSOR_FLOPS)
+    n0 = lstm_scan.launches
+    lstm_scan.lstm_scan_bidir(xw_, xb_, w_, wb_, z, z)
+    per_call = lstm_scan.launches - n0
+    check(per_call == 1, f"lstm_scan_bidir launched {per_call} kernels a "
+          f"call")
     report["lstm_scan"] = dict(
+        kernel_launches_per_call=per_call,
         ms=cuda_ms(lambda: lstm_scan.lstm_scan(xw_, w_, z, z), iters=5),
         ms_bidir=cuda_ms(lambda: lstm_scan.lstm_scan_bidir(
             xw_, xb_, w_, wb_, z, z), iters=5),
@@ -1033,9 +1067,9 @@ def main() -> int:
                      "(cuDNN; includes its input projection)",
         max_abs_err=lstm_err, bound_ms=b_ms, bound_by=b_by)
     print(f"lstm_scan deepspeech2 layer (T=300, B=32, H=512) on {card}: one "
-          f"direction {report['lstm_scan']['ms']:.4f} ms (300 launches), both "
+          f"direction {report['lstm_scan']['ms']:.4f} ms (1 launch), both "
           f"directions in one call {report['lstm_scan']['ms_bidir']:.4f} ms "
-          f"(300 launches), plain {report['lstm_scan']['plain_ms']:.4f} ms, "
+          f"(1 launch), plain {report['lstm_scan']['plain_ms']:.4f} ms, "
           f"torch.nn.LSTM bf16 {lib_ms:.4f} ms, bound per direction "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     del xw_, xb_, w_, wb_, x_lib, nn_lstm
@@ -1061,14 +1095,14 @@ def main() -> int:
         lp_l = pipe_l.log_probs(x_l)
         T_out = lp_l.shape[0]
         want = {name: 0 for name in counters}
-        want.update(lstm_scan=cfg_l.rnn_num_layers * T_out,
+        want.update(lstm_scan=cfg_l.rnn_num_layers,
                     fused_prefix_decode=1, traceback=1)
         for name, n in want.items():
             check(got[name] == n, f"{preset} launches of {name}: "
                   f"{got[name]}, expected {n}")
         print(f"{preset} path launches per transcribe: {got} (lstm_scan = "
-              f"{cfg_l.rnn_num_layers} layers x {T_out} steps, both "
-              f"directions per launch)", flush=True)
+              f"{cfg_l.rnn_num_layers} layers, one launch a layer for both "
+              f"directions and all {T_out} steps)", flush=True)
         check(tuple(lp_l.shape) == (T_out, cfg_l.batch_size,
                                     cfg_l.output_size),
               f"{preset} log_probs shape {tuple(lp_l.shape)}")
@@ -1173,7 +1207,7 @@ def main() -> int:
                                   generator=torch.Generator().manual_seed(
                                       seed)).log_probs(f_small)
                 n_k = lstm_scan.launches - n0
-                check(n_k == (2 * lp_gpu.shape[0] if impl == "pallas" else 0),
+                check(n_k == (c.rnn_num_layers if impl == "pallas" else 0),
                       f"small {preset} rnn_impl={impl}: {n_k} lstm_scan "
                       f"launches")
                 errs[impl] = float((lp_gpu.cpu() - lp_cpu).abs().max())
@@ -1407,7 +1441,8 @@ def main() -> int:
         x_a, lens_a = pipe_a.audio_features(waves)
         T_pad = x_a.shape[1]
         want = {name: 0 for name in counters}
-        want.update(rnn_scan=T_pad, fused_prefix_decode=1, traceback=1)
+        want.update(rnn_scan=cfg.rnn_num_layers, fused_prefix_decode=1,
+                    traceback=1)
         for name, n in want.items():
             check(got[name] == n, f"transcribe_audio (cmvn={cmvn}) launches "
                   f"of {name}: {got[name]}, expected {n}")
@@ -1834,7 +1869,8 @@ def main() -> int:
         if name in inside:
             entry["inside"] = inside[name]
         for extra in ("library_call", "kernel_launches_per_call", "ms_bidir",
-                      "lm", "ms_by_shards", "exchange_bytes"):
+                      "lm", "ms_by_shards", "exchange_bytes", "ms_rounds",
+                      "library_ms_rounds"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -1,175 +1,432 @@
 // Elman recurrence: out[t] = tanh(xw[t] + bf16(h_{t-1}) @ W_hh_bf16),
-// float32 accumulation, forward or reverse in time.
+// float32 accumulation, forward or reverse in time, in one persistent
+// launch a call.
 //
 // Replaces gasr_tpu/ops/pallas/rnn_scan.py::rnn_scan_pallas_raw (`_kernel`)
-// with its cast pattern: h rounded to bf16, W_hh held in bf16, products
-// summed in float32, the float32 sum with xw through tanh.
+// with its cast pattern: h carried in float32 and rounded to bf16 only as
+// the product's operand, W_hh held in bf16, products summed in float32,
+// the float32 sum with xw through tanh. The output keeps xw's time index.
 //
 // Bound on the card: operations. At T=200, B=256, H=2048 the recurrence
 // is 2*T*B*H^2 = 0.43 TFLOP of bf16 products, 0.43 ms at the tensor cores'
 // 989 TFLOP/s; its bytes (xw in, out out: 0.84 GB with W_hh's 8 MB) take
 // 0.25 ms at 3.35 TB/s. The steps are serial: step t needs all of h_{t-1}.
-// Design (simple and right first): one launch per time step of a fused
-// GEMM + tanh kernel. Each 256-thread block computes a 64 x 64 tile of
-// h_t with WMMA bf16 tensor-core products (16x16x16 fragments, float32
-// accumulators; 8 warps of 16 x 32 each). It walks the reduction in
-// 64-wide slices through two shared-memory buffers: while the warps
-// multiply one slice, each thread already holds the next slice of h_{t-1}
-// (rounded to bf16 on the way in) and W_hh in registers, loaded with
-// 16-byte accesses. The epilogue adds xw[t] and applies tanh. Rows past B
-// and columns past H are masked, so every B is taken; H must be a multiple
-// of 8 (16-byte rows), which the wrapper ensures by zero padding. W_hh
-// (8 MB) stays in the 50 MB L2 across steps but is re-read every step.
-// Redesign for later: a persistent grid-synchronised kernel that keeps
-// W_hh resident in the SMs' shared memory (8 MB over 132 SMs is ~62 KB
-// each) and h in L2, with wgmma and TMA, removing the per-step launches.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+//
+// Design: one cooperative launch walks every step. Clusters of kCluster =
+// 8 blocks, one block an SM, 512 threads each.
+//   - W_hh resident. Cluster c owns the units [c NU, (c + 1) NU); its block
+//     of rank r owns the K rows [r Kb, (r + 1) Kb) of them, Kb = Hp / 8
+//     (Hp: H rounded up to 128). The block rounds that W_hh slice to bf16
+//     once, into shared memory as W^T (units x K, k contiguous), and keeps
+//     it for the whole call. At H = 2048: 15 clusters of NU = 144 units
+//     (120 blocks: the card holds 15 clusters of 8 such blocks at once),
+//     74 KB of W_hh a block.
+//   - The operand, shared by splitting K (why not the other way): a block
+//     multiplies only its K rows, so it reads only h_{t-1}[:, r Kb ..
+//     (r + 1) Kb) from L2, 128 KB a step at B = 256 and 15 MB a step over
+//     the card. Blocks that each took all of K for fewer units would read
+//     all of h (1 MB) each, 120 MB a step; sharing those reads by multicast
+//     inside a cluster would still push 1 MB a step into every SM's shared
+//     memory. The price of the K split is a sum over the cluster's 8
+//     partial products: each block writes its float32 partial tile to its
+//     own shared memory, the cluster meets at a cluster barrier, and block
+//     r sums its MB / 8 rows of the tile from the 8 blocks (distributed
+//     shared memory), in rank order, so every run sums alike.
+//   - A step, per chunk of MB = 128 batch rows (64 where 128 do not fit):
+//     the chunk's K slice of bf16 h_{t-1} (cp.async.cg: from L2, never a
+//     stale L1 line) lands in shared memory at once; 16 warps, MB / 32
+//     (32 rows) by the rest (a share of the units), multiply it by mma.sync
+//     m16n8k16 (A from the staged h, B from the resident W^T, both by
+//     ldmatrix; the next k16 step's fragments load while the current one
+//     multiplies) into float32 accumulators. The kernel is built for 2, 4,
+//     6 and 8 n8 tiles a warp and launched with the fewest that hold NU.
+//     The partial tile goes to the block's buffer P once every peer has
+//     summed the previous chunk's (a split cluster barrier: a block arrives
+//     when its sum is done and waits only before it overwrites P), then the
+//     cluster meets and the next chunk's h starts loading during the sum.
+//     The sum adds xw[t] (moved into L2 by prefetch during step t - 1,
+//     read as the products end), applies tanh, and writes out[t] (float32)
+//     and the bf16 copy of h_t into the other slot of a two-slot ping-pong
+//     buffer hbf [2, B, Hp], which the next step reads.
+//   - The step barrier (recurrence.cuh: one counter in the call's own
+//     scratch, a release add a block, acquired by every block) over all
+//     blocks sits between steps. A block arrives once its copies of slot
+//     t % 2 have landed and been multiplied and its sums are written; a
+//     block writes slot t % 2 again at step t + 1, after every block has
+//     passed step t's barrier.
+// Where the time goes (scripts/torch_recurrence_probe.py, PERF.md): at
+// B = 256, H = 2048 a step is ~24 us, a third of it the products (mma.sync
+// at ~30% of the tensor cores' rate); reading the peers' partial tiles
+// over distributed shared memory (~130 KB a block a step) costs ~4 us and
+// the cluster barriers about a sixth; the float32 stores of out hide.
+// Rows past B are zero-filled and never summed; units and K rows past H
+// have zero weights and zero xw, so their h stays tanh(0) = 0 and adds
+// nothing (hbf's padded columns are written as zeros). Every B is taken;
+// H is limited by shared memory (rnn_scan_smem; the wrapper raises past
+// it): W^T, the staged chunk and the partial tile must fit in 227 KB.
+#include "recurrence.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace nvcuda;
+using namespace gasr::rec;
 
-constexpr int BM = 64;          // batch rows per block
-constexpr int BN = 64;          // hidden columns per block
-constexpr int BK = 64;          // reduction slice per stage
-constexpr int kThreads = 256;   // 8 warps, each 16 x 32
-constexpr int A_LD = BK + 8;    // padded leading dims: multiples of 8 for
-constexpr int B_LD = BN + 8;    // bf16 WMMA loads, of 4 for float stores,
-constexpr int C_LD = BN + 4;    // and 16-byte aligned rows
-constexpr int A_TILE = BM * A_LD;   // bf16 elements per buffer
-constexpr int B_TILE = BK * B_LD;
-constexpr int A_VEC = BM * BK / 4 / kThreads;   // float4 of h per thread
-constexpr int B_VEC = BK * BN / 8 / kThreads;   // 8 x bf16 of W per thread
-constexpr size_t kLoopBytes = 2 * (A_TILE + B_TILE) * sizeof(__nv_bfloat16);
-constexpr size_t kEpiBytes = BM * C_LD * sizeof(float);
-constexpr size_t kSmemBytes = kLoopBytes > kEpiBytes ? kLoopBytes : kEpiBytes;
+constexpr int kThreads = 512;   // 16 warps: MB / 32 (rows) x the rest (units)
+constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;     // blocks of a cluster: the K split
+constexpr int NU_MAX = 192;     // units a cluster: 15 clusters hold
+                                // H = 2880, past the shared memory
+constexpr int NTW_MAX = 6;      // n8 tiles a warp: NU_MAX / 8 / 4; the
+                                // kernel is built for NTW = 2, 4, 6
+constexpr int kXPer = 2;        // unit quads a thread sums, per chunk
 
-struct Slice {
-  float4 a[A_VEC];
-  uint4 b[B_VEC];
+struct Args {
+  const float* xw;     // [T, B, H]
+  const float* w;      // [H, H] float32, rounded to bf16 on the way in
+  const float* h0;     // [B, H]
+  float* out;          // [T, B, H]
+  bf16* hbf;           // [2, B, Hp] scratch
+  unsigned long long* bar;     // barrier words, one a block (scratch)
+  unsigned long long* clocks;   // probe builds only
+  int T, B, H, Hp, Kb, NU, MB, reverse, vec;
 };
 
-__device__ __forceinline__ void load_slice(Slice& s, const float* h_prev,
-                                           const __nv_bfloat16* w, int B,
-                                           int H, int m0, int n0, int k0) {
-  for (int q = 0; q < A_VEC; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
-    s.a[q] = (m0 + r < B && k0 + c < H)
-                 ? *reinterpret_cast<const float4*>(
-                       h_prev + (size_t)(m0 + r) * H + k0 + c)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  for (int q = 0; q < B_VEC; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    s.b[q] = (k0 + r < H && n0 + c < H)
-                 ? *reinterpret_cast<const uint4*>(
-                       w + (size_t)(k0 + r) * H + n0 + c)
-                 : make_uint4(0u, 0u, 0u, 0u);
+__host__ __device__ inline size_t smem_w(int NU, int Kb) {
+  return (size_t)NU * (Kb + 8) * sizeof(bf16);
+}
+__host__ __device__ inline size_t smem_h(int Kb, int MB) {
+  return (size_t)MB * (Kb + 8) * sizeof(bf16);
+}
+__host__ __device__ inline size_t smem_bytes(int NU, int Kb, int MB) {
+  return smem_w(NU, Kb) + smem_h(Kb, MB) +
+         (size_t)MB * (NU + 4) * sizeof(float);
+}
+
+__device__ __forceinline__ float4 load_x(const Args& a, int t, int b,
+                                         int u) {
+  const float* p = a.xw + ((size_t)t * a.B + b) * a.H + u;
+  if (a.vec && u < a.H) return __ldg(reinterpret_cast<const float4*>(p));
+  float v[4];
+  for (int e = 0; e < 4; ++e) v[e] = u + e < a.H ? __ldg(p + e) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The fragments of one k16 step: A, this warp's 32 rows of the staged h
+// (two m16 tiles); B, its nt_w n8 tiles of the resident W^T from tile j0
+// (both with row stride ld).
+template <int NTW>
+__device__ __forceinline__ void load_frags(uint32_t (&af)[2][4],
+                                           uint32_t (&bf)[NTW][2],
+                                           const bf16* hs, const bf16* ws,
+                                           int ld, int wm, int j0, int nt_w,
+                                           int lane, int k16) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+    ldsm_x4(af[m],
+            hs + (wm * 32 + m * 16 + a_row(lane)) * ld + k16 + a_col(lane));
+#pragma unroll
+  for (int i = 0; i < NTW; i += 2) {
+    if (i + 1 < nt_w) {
+      uint32_t q[4];
+      ldsm_x4(q, ws + ((j0 + i) * 8 + b_row(lane)) * ld + k16 + b_col(lane));
+      bf[i][0] = q[0];
+      bf[i][1] = q[1];
+      bf[i + 1][0] = q[2];
+      bf[i + 1][1] = q[3];
+    } else if (i < nt_w) {
+      ldsm_x2(bf[i], ws + ((j0 + i) * 8 + (lane & 7)) * ld + k16 +
+                         b_col(lane));
+    }
   }
 }
 
-__device__ __forceinline__ void store_slice(const Slice& s,
-                                            __nv_bfloat16* As,
-                                            __nv_bfloat16* Bs) {
-  for (int q = 0; q < A_VEC; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(As + r * A_LD + c);
-    dst[0] = __floats2bfloat162_rn(s.a[q].x, s.a[q].y);
-    dst[1] = __floats2bfloat162_rn(s.a[q].z, s.a[q].w);
+// NTW: the most n8 tiles a warp holds (its accumulators and fragments)
+template <int NTW>
+__global__ void __launch_bounds__(kThreads, 1) rnn_scan_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n0 = (blockIdx.x / kCluster) * a.NU;   // the cluster's units
+  const int nu = min(a.NU, a.Hp - n0);             // a multiple of 8
+  const int k0 = rank * a.Kb;                      // this block's K rows
+  const int MB = a.MB, RR = MB / kCluster;         // rows a block sums
+  const int LDW = a.Kb + 8;
+  const int LDP = a.NU + 4;
+  bf16* Ws = reinterpret_cast<bf16*>(smem);              // [NU][Kb + 8]
+  bf16* hs = reinterpret_cast<bf16*>(smem + smem_w(a.NU, a.Kb));  // [MB][Kb+8]
+  float* P = reinterpret_cast<float*>(smem + smem_w(a.NU, a.Kb) +
+                                      smem_h(a.Kb, MB));  // [MB][NU + 4]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nwn = kWarps / (MB / 32);              // warps along the units
+  const int wm = warp / nwn, wn = warp % nwn;
+  const int ntiles = nu / 8;
+  const int nt_w = ntiles / nwn + (wn < ntiles % nwn);
+  const int j0 = wn * (ntiles / nwn) + min(wn, ntiles % nwn);  // first tile
+  const int nch = (a.B + MB - 1) / MB;
+  const int nq = nu / 4;                           // unit quads summed
+  Clock clk;
+  clk.start();
+
+  // W_hh's slice, rounded to bf16, transposed: read along units
+  for (int i = tid; i < a.NU * a.Kb; i += kThreads) {
+    const int u = i % a.NU, k = i / a.NU;
+    const int gu = n0 + u, gk = k0 + k;
+    const float v = gu < a.H && gk < a.H ? a.w[(size_t)gk * a.H + gu] : 0.f;
+    Ws[u * LDW + k] = __float2bfloat16_rn(v);
   }
-  for (int q = 0; q < B_VEC; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    *reinterpret_cast<uint4*>(Bs + r * B_LD + c) = s.b[q];
-  }
-}
+  // h0 into slot 0: the elements this block sums (rows RR rank .. + RR of
+  // every chunk, the cluster's units), zeros past H
+  for (int c = 0; c < nch; ++c)
+    for (int i = tid; i < RR * nu; i += kThreads) {
+      const int b = c * MB + rank * RR + i / nu, u = n0 + i % nu;
+      if (b < a.B)
+        a.hbf[(size_t)b * a.Hp + u] =
+            __float2bfloat16_rn(u < a.H ? a.h0[(size_t)b * a.H + u] : 0.f);
+    }
 
-__global__ void __launch_bounds__(kThreads)
-rnn_step_kernel(const float* __restrict__ xw_t,
-                const __nv_bfloat16* __restrict__ w,
-                const float* __restrict__ h_prev, int B, int H,
-                float* __restrict__ out_t) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][A_TILE]
-  __nv_bfloat16* Bs = As + 2 * A_TILE;                          // [2][B_TILE]
-  float* Cs = reinterpret_cast<float*>(smem);   // epilogue, after the loop
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 16;
-  const int wn = (warp % 2) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-
-  Slice s;
-  load_slice(s, h_prev, w, B, H, m0, n0, 0);
-  store_slice(s, As, Bs);
-  __syncthreads();
-  const int nk = (H + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load_slice(s, h_prev, w, B, H, m0, n0, (kt + 1) * BK);
-    const __nv_bfloat16* a_s = As + cur * A_TILE;
-    const __nv_bfloat16* b_s = Bs + cur * B_TILE;
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_s + wm * A_LD + kk, A_LD);
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, b_s + kk * B_LD + wn + 16 * j, B_LD);
-        wmma::mma_sync(acc[j], a, bf, acc[j]);
+  // this thread's sums in a chunk: element e = tid + j kThreads, j <
+  // kXPer, is row rank RR + e / nq of the chunk and units n0 + 4 (e % nq)
+  auto elem = [&](int j, int c, int& b, int& u) {
+    const int e = tid + j * kThreads;
+    b = c * MB + rank * RR + e / nq;
+    u = n0 + 4 * (e % nq);
+    return e < RR * nq && b < a.B;
+  };
+  // xw of step s into L2, ahead of the step that reads it: a prefetch has
+  // no result, so no fence or barrier waits for it
+  auto prefetch_l2 = [&](int s) {
+    const int t = a.reverse ? a.T - 1 - s : s;
+    for (int c = 0; c < nch; ++c)
+#pragma unroll
+      for (int j = 0; j < kXPer; ++j) {
+        int b, u;
+        if (elem(j, c, b, u) && u < a.H)
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(
+              a.xw + ((size_t)t * a.B + b) * a.H + u));
       }
-    }
-    if (kt + 1 < nk)
-      store_slice(s, As + (cur ^ 1) * A_TILE, Bs + (cur ^ 1) * B_TILE);
-    __syncthreads();
-  }
+  };
+  prefetch_l2(0);
+  clk.lap(kLoads);   // the prologue: W_hh and h0
+  prologue_barrier(a.bar, gridDim.x);
+  clk.lap(kWait);
 
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Cs + wm * C_LD + wn + 16 * j, acc[j], C_LD,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * BN / 4; i += kThreads) {
-    const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
-    if (m0 + r < B && n0 + c < H) {
-      const size_t o = (size_t)(m0 + r) * H + n0 + c;
-      const float4 x = *reinterpret_cast<const float4*>(xw_t + o);
-      const float* cs = Cs + r * C_LD + c;
-      *reinterpret_cast<float4*>(out_t + o) =
-          make_float4(tanhf(x.x + cs[0]), tanhf(x.y + cs[1]),
-                      tanhf(x.z + cs[2]), tanhf(x.w + cs[3]));
+  float acc[2][NTW][4];
+  for (int s = 0; s < a.T; ++s) {
+    const int t = a.reverse ? a.T - 1 - s : s;
+    const bf16* h_r = a.hbf + (size_t)(s & 1) * a.B * a.Hp;
+    bf16* h_w = a.hbf + (size_t)((s + 1) & 1) * a.B * a.Hp;
+
+    // chunk c's rows of bf16 h_{t-1}, this block's K slice, into hs
+    auto load_h = [&](int c) {
+      const bf16* src = h_r + (size_t)c * MB * a.Hp + k0;
+      for (int i = tid; i < MB * (a.Kb / 8); i += kThreads) {
+        const int r = i / (a.Kb / 8), cc = (i % (a.Kb / 8)) * 8;
+        const bool ok = c * MB + r < a.B;
+#ifndef GASR_PROBE_NO_LOADS
+        cp_async16(hs + r * LDW + cc, ok ? src + (size_t)r * a.Hp + cc : src,
+                   ok);
+#endif
+      }
+      cp_async_commit();
+    };
+    load_h(0);
+    if (s + 1 < a.T) prefetch_l2(s + 1);
+
+    for (int c = 0; c < nch; ++c) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < NTW; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
+      cp_async_wait<0>();   // the chunk has landed ...
+      __syncthreads();      // ... for every thread
+      clk.lap(kLoads);
+      if (c * MB + wm * 32 < a.B) {   // this warp has a real row
+        // fragments of k16 step k + 1 load while step k multiplies
+        uint32_t af[2][2][4], bf[2][NTW][2];
+        const int n16 = a.Kb / 16;
+        load_frags(af[0], bf[0], hs, Ws, LDW, wm, j0, nt_w, lane, 0);
+        for (int k = 0; k < n16; k += 2) {
+#pragma unroll
+          for (int cur = 0; cur < 2; ++cur) {
+            if (k + cur >= n16) break;
+            if (k + cur + 1 < n16)
+              load_frags(af[cur ^ 1], bf[cur ^ 1], hs, Ws, LDW, wm, j0, nt_w,
+                         lane, 16 * (k + cur + 1));
+#pragma unroll
+            for (int i = 0; i < NTW; ++i)
+              if (i < nt_w)
+#pragma unroll
+                for (int m = 0; m < 2; ++m)
+                  mma16816(acc[m][i], af[cur][m], bf[cur][i][0],
+                           bf[cur][i][1]);
+          }
+        }
+      }
+      clk.lap(kProducts);
+      // this chunk's xw (in L2 since the step before), read while the
+      // cluster meets
+      float4 x[kXPer];
+#pragma unroll
+      for (int j = 0; j < kXPer; ++j) {
+        int b, u;
+        x[j] = elem(j, c, b, u) ? load_x(a, t, b, u)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+
+      // the partial tile into P, once every peer has summed the previous
+      // chunk's (each arrived when it had, before its products); then the
+      // cluster's sum
+      if (c > 0) cluster_wait();
+      const int g = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < NTW; ++i)
+          if (i < nt_w) {
+            float* p = P + (wm * 32 + m * 16 + g) * LDP + (j0 + i) * 8 + c2;
+            *reinterpret_cast<float2*>(p) =
+                make_float2(acc[m][i][0], acc[m][i][1]);
+            *reinterpret_cast<float2*>(p + 8 * LDP) =
+                make_float2(acc[m][i][2], acc[m][i][3]);
+          }
+      cluster.sync();   // the partial tiles are written; hs is free
+      if (c + 1 < nch) load_h(c + 1);   // lands during the sum
+      clk.lap(kClusterSync);
+#ifndef GASR_PROBE_NO_EPILOGUE
+      // every partial this thread sums, all loads issued before any use
+      float4 part[kXPer][kCluster];
+#pragma unroll
+      for (int j = 0; j < kXPer; ++j) {
+        int b, u;
+        const bool ok = elem(j, c, b, u);
+        const float* mine = P + (b - c * MB) * LDP + (u - n0);
+#pragma unroll
+        for (int src = 0; src < kCluster; ++src)
+#ifndef GASR_PROBE_NO_SUM
+          part[j][src] = ok ? *reinterpret_cast<const float4*>(
+                                  cluster.map_shared_rank(mine, src))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+#else   // the block's own partials in place of its peers' (time only)
+          part[j][src] = ok ? *reinterpret_cast<const float4*>(mine)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+#endif
+      }
+#pragma unroll
+      for (int j = 0; j < kXPer; ++j) {
+        int b, u;
+        if (!elem(j, c, b, u)) continue;
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int src = 0; src < kCluster; ++src) {   // in rank order
+          sum.x += part[j][src].x;
+          sum.y += part[j][src].y;
+          sum.z += part[j][src].z;
+          sum.w += part[j][src].w;
+        }
+        const float h[4] = {tanhf(x[j].x + sum.x), tanhf(x[j].y + sum.y),
+                            tanhf(x[j].z + sum.z), tanhf(x[j].w + sum.w)};
+#ifndef GASR_PROBE_NO_OUT
+        float* o = a.out + ((size_t)t * a.B + b) * a.H + u;
+        if (a.vec && u < a.H) {
+          *reinterpret_cast<float4*>(o) = make_float4(h[0], h[1], h[2], h[3]);
+        } else {
+          for (int e2 = 0; e2 < 4; ++e2)
+            if (u + e2 < a.H) o[e2] = h[e2];
+        }
+#endif
+        store_bf16x4(h_w + (size_t)b * a.Hp + u, h);
+      }
+#endif
+      if (c + 1 < nch) cluster_arrive();   // done with the peers' P
+      clk.lap(kEpilogue);
+    }
+    if (s + 1 < a.T) {
+      step_barrier(a.bar, gridDim.x, blockIdx.x, s + 1);
+      clk.lap(kWait);
     }
   }
+  cluster.sync();   // no block leaves while a peer may read its P
+  clk.flush(a.clocks);
+}
+
+// The instantiation that holds NU units a cluster in chunks of MB rows:
+// the fewest n8 tiles a warp that cover NU / 8 tiles over the warps along
+// the units (nullptr past NTW_MAX).
+typedef void (*Kernel)(Args);
+Kernel pick(int NU, int MB) {
+  const int nwn = kWarps / (MB / 32);
+  const int ntw = (NU / 8 + nwn - 1) / nwn;
+  return ntw <= 2   ? rnn_scan_kernel<2>
+         : ntw <= 4 ? rnn_scan_kernel<4>
+         : ntw <= 6 ? rnn_scan_kernel<6>
+                    : nullptr;
 }
 
 }  // namespace
 
-// H must be a multiple of 8 and every pointer 16-byte aligned.
-extern "C" int rnn_scan_launch(const float* xw, const __nv_bfloat16* w,
-                               const float* h0, int T, int B, int H,
-                               int reverse, float* out, cudaStream_t stream) {
-  if (H % 8 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((H + BN - 1) / BN, (B + BM - 1) / BM);
-  const size_t step = (size_t)B * H;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const float* h_prev =
-        s == 0 ? h0 : out + (size_t)(reverse ? t + 1 : t - 1) * step;
-    rnn_step_kernel<<<grid, kThreads, 0, stream>>>(xw + t * step, w, h_prev,
-                                                   B, H, out + t * step);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+extern "C" {
+
+// Shared memory of one block for a cluster of NU units, K slices of Kb and
+// chunks of MB rows.
+int rnn_scan_smem(int NU, int Kb, int MB) {
+  return (int)smem_bytes(NU, Kb, MB);
 }
+
+// How many clusters of kCluster blocks with smem bytes each, of the
+// instantiation for NU units a cluster and MB-row chunks, the current card
+// holds at once (0 when it cannot hold one).
+int rnn_scan_max_clusters(int NU, int MB, int smem) {
+  if (smem > kSmemMax || (MB != 64 && MB != 128)) return 0;
+  const Kernel kernel = pick(NU, MB);
+  if (kernel == nullptr ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+// One launch for the whole recurrence on G clusters of NU units (Hp: H
+// rounded up to 128; Kb = Hp / 8; chunks of MB = 64 or 128 rows). hbf
+// [2, B, Hp] bf16 and bar (G kCluster 64-bit words, recurrence.cuh) are
+// scratch. vec: H % 4 == 0 and xw, out 16-byte aligned.
+int rnn_scan_launch(const float* xw, const float* w, const float* h0, int T,
+                    int B, int H, int Hp, int NU, int G, int MB, int reverse,
+                    int vec, float* out, bf16* hbf,
+                    unsigned long long* bar, unsigned long long* clocks,
+                    cudaStream_t stream) {
+  if (Hp % 128 != 0 || Hp < H || NU % 8 != 0 || NU > NU_MAX ||
+      (size_t)G * NU < (size_t)Hp || (MB != 64 && MB != 128) || T < 1 ||
+      B < 1 || G * kCluster > kThreads)
+    return (int)cudaErrorInvalidValue;
+  Args a{xw, w, h0, out, hbf, bar, clocks, T, B, H, Hp,
+         Hp / kCluster, NU, MB, reverse, vec};
+  const Kernel kernel = pick(NU, MB);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_cooperative(kernel, dim3(G * kCluster), kThreads,
+                                 smem_bytes(NU, a.Kb, MB), kCluster, stream,
+                                 a);
+}
+
+}  // extern "C"

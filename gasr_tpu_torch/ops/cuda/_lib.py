@@ -65,8 +65,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "toy_exchange_capacity": [_IP],
         "toy_exchange_launch": [_P] + [_I] * 4 + [_P] * 4,
     },
-    "rnn_scan": {"rnn_scan_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P]},
-    "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 5 + [_P, _P]},
+    "rnn_scan": {"rnn_scan_launch": [_P] * 3 + [_I] * 9 + [_P] * 5,
+                 "rnn_scan_smem": [_I] * 3,
+                 "rnn_scan_max_clusters": [_I] * 3},
+    "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 8 + [_P] * 6,
+                  "lstm_scan_smem": [_I],
+                  "lstm_scan_max_blocks": [_I]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -77,7 +81,9 @@ def scan_supported(B: int, H: int) -> bool:
     (`gasr_tpu/ops/pallas/rnn_scan.py:96-115`, `lstm_scan.py:83-97`):
     `rnn_forward` / `lstm_forward` with impl="pallas" take the rnn_scan /
     lstm_scan kernel at these (batch, hidden) shapes and the float32 loop
-    at any other. The wrappers themselves take every shape."""
+    at any other. The wrappers themselves take every B, and H up to
+    their resident limits (`rnn_scan.max_hidden`,
+    `lstm_scan.max_hidden`)."""
     return H % 128 == 0 and B % 8 == 0
 
 

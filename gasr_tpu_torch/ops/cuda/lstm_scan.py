@@ -8,11 +8,17 @@ accumulates in float32 and the gates are float32. Forward or reverse in
 time; the output keeps xw's time index.
 
 `lstm_scan` (one direction) and `lstm_scan_bidir` (a forward and a
-reverse direction, both in each step's launch) launch the CUDA kernel
-(`csrc/lstm_scan.cu`, one launch per step) for CUDA tensors and run
-`lstm_scan_plain` for CPU tensors. Every (B, H) goes through the kernel;
-other devices raise. `ops/lstm.py::lstm_forward` takes it only where
-`_lib.scan_supported` (the JAX package's shape rule) holds.
+reverse direction in the same launch) launch the CUDA kernel
+(`csrc/lstm_scan.cu`: one persistent cooperative launch a call, W_hh
+resident in shared memory, c in registers, a step barrier per direction)
+for CUDA tensors and run `lstm_scan_plain` for CPU tensors. Every B goes
+through the kernel in one launch (past the batch groups the card holds
+at once, a block walks several); H up to the resident limit
+(`max_hidden`: a unit tile's blocks, each holding 4 x 16 columns of
+W_hh, must fit on the card at once for every direction), past which it
+raises `ValueError`; other devices raise.
+`ops/lstm.py::lstm_forward` takes it only where `_lib.scan_supported`
+(the JAX package's shape rule) holds.
 """
 
 from __future__ import annotations
@@ -20,15 +26,57 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
 from gasr_tpu_torch.ops.cuda import _lib
 
-# kernel launches made by lstm_scan / lstm_scan_bidir (one per time step,
+# kernel launches made by lstm_scan / lstm_scan_bidir (one per call,
 # whatever the number of directions)
 launches = 0
 
-_H_ALIGN = 16     # the kernel's unit tile
+# the kernel's decomposition (csrc/lstm_scan.cu)
+UNITS = 16            # hidden units a block (its 4 x 16 gate columns)
+ROWS = 32             # batch rows a chunk
+GROUP_MAX = 128       # batch rows a block at most (4 chunks of c in registers)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def plan(B: int, H: int):
+    """The kernel's grid at (B, H): (Hp, RB, groups), H padded to a
+    multiple of 16 and the batch cut into `groups` groups of RB rows (a
+    multiple of 32, at most 128); a direction has Hp / 16 unit tiles, and
+    each unit tile as many blocks as there are groups, or as the card
+    holds at once (`_resident_groups`)."""
+    Hp = _round_up(H, UNITS)
+    RB = _round_up(-(-B // -(-B // GROUP_MAX)), ROWS)
+    return Hp, RB, -(-B // RB)
+
+
+_fit: dict = {}
+
+
+def _resident_groups(D: int, H: int) -> int:
+    """How many batch groups a unit tile the card holds at once for D
+    directions at width H (its blocks: D x Hp / 16 x groups); 0 past the
+    resident limit."""
+    Hp = _round_up(H, UNITS)
+    key = (torch.cuda.current_device(), D, Hp)
+    if key not in _fit:
+        lib = _lib.load("lstm_scan")
+        _fit[key] = (lib.lstm_scan_max_blocks(lib.lstm_scan_smem(Hp))
+                     // (D * Hp // UNITS))
+    return _fit[key]
+
+
+def max_hidden(D: int) -> int:
+    """The largest H (a multiple of 16) the kernel takes on this card for
+    D directions, at any B."""
+    H = 0
+    while _resident_groups(D, H + UNITS) > 0:
+        H += UNITS
+    return H
 
 
 def lstm_scan_plain(xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
@@ -95,45 +143,39 @@ def _launch(xws: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     D = len(xws)
     T, B, H4 = xws[0].shape
     H = H4 // 4
+    dev = h0.device
     if T * B * H == 0:
         return xws[0].new_empty(T, B, D * H)
-    # The kernel's unit tile is 16 wide, so H goes up to a multiple of 16
-    # with zeros in every gate: zero xw and zero W_hh rows and columns keep
-    # a padded unit's c and h at 0 and out of every real unit's sum.
-    pad = -H % _H_ALIGN
-    Hp = H + pad
-
-    def gates(x):                       # [T, B, 4H] -> [T, B, 4Hp]
-        if pad:
-            x = F.pad(x.reshape(T, B, 4, H), (0, pad)).reshape(T, B, 4 * Hp)
-        return x.contiguous()
-
-    def weight(w):                      # [H, 4H] -> bf16 [Hp, 4Hp]
-        w = w.to(torch.bfloat16)
-        if pad:
-            w = F.pad(w.reshape(H, 4, H), (0, pad, 0, 0, 0, pad)).reshape(
-                Hp, 4 * Hp)
-        return w.contiguous()
-
-    xs = [gates(x) for x in xws]
-    wb = [weight(w) for w in ws]
-    h = F.pad(h0.float(), (0, pad))
-    hbf = torch.empty(D, 2, B, Hp, dtype=torch.bfloat16, device=h.device)
-    hbf[:, 0] = h.to(torch.bfloat16)
-    c = F.pad(c0.float(), (0, pad)).expand(D, B, Hp).contiguous()
-    out = torch.empty(T, B, D * Hp, dtype=torch.float32, device=h.device)
+    resident = _resident_groups(D, H)
+    if resident == 0:
+        raise ValueError(
+            f"lstm_scan: H={H} with {D} direction(s) is past the kernel's "
+            f"resident limit H <= {max_hidden(D)} on this card (W_hh stays "
+            f"in shared memory, 4H^2 x 2 x D bytes over blocks that must "
+            f"all be resident at once)")
+    Hp, RB, groups = plan(B, H)
+    GY = min(groups, resident)
+    # the kernel reads float32 W_hh and rounds it to bf16 itself, and takes
+    # any H: units past H read as zeros in every gate
+    xs = [x.contiguous() for x in xws]
+    wf = [(w if w.dtype == torch.float32 else w.float()).contiguous()
+          for w in ws]
+    h, c = h0.float().contiguous(), c0.float().contiguous()
+    out = torch.empty(T, B, D * H, dtype=torch.float32, device=dev)
+    hbf = torch.empty(D, 2, B, Hp, dtype=torch.bfloat16, device=dev)
+    # c of the groups a block leaves, where it walks several
+    cbuf = torch.empty(D, B, Hp, device=dev) if GY < groups else None
+    bar = torch.empty(D * Hp // UNITS * GY, dtype=torch.int64, device=dev)
     rev_mask = sum(1 << d for d, r in enumerate(reverse) if r)
-    lib = _lib.load("lstm_scan")
-    err = lib.lstm_scan_launch(_lib.ptr(xs[0]), _lib.ptr(xs[-1]),
-                               _lib.ptr(wb[0]), _lib.ptr(wb[-1]),
-                               _lib.ptr(hbf), _lib.ptr(c), D, T, B, Hp,
-                               rev_mask, _lib.ptr(out),
-                               _lib.stream(h.device))
+    err = _lib.load("lstm_scan").lstm_scan_launch(
+        _lib.ptr(xs[0]), _lib.ptr(xs[-1]), _lib.ptr(wf[0]), _lib.ptr(wf[-1]),
+        _lib.ptr(h), _lib.ptr(c), D, T, B, H, Hp, RB, GY, rev_mask,
+        _lib.ptr(out), _lib.ptr(hbf),
+        None if cbuf is None else _lib.ptr(cbuf), _lib.ptr(bar), None,
+        _lib.stream(dev))
     _lib.check(err, "lstm_scan")
     global launches
-    launches += T
-    if pad:
-        out = out.view(T, B, D, Hp)[..., :H].reshape(T, B, D * H)
+    launches += 1
     return out
 
 
@@ -155,7 +197,7 @@ def lstm_scan_bidir(xw_f: torch.Tensor, xw_b: torch.Tensor,
     (xw_f, w_f), the reverse one on (xw_b, w_b), both from (h0, c0).
     Returns [T, B, 2H], the same as concatenating `lstm_scan(xw_f, w_f,
     h0, c0)` and `lstm_scan(xw_b, w_b, h0, c0, reverse=True)`; on the card
-    each step's launch covers both directions."""
+    one launch runs both directions, each on blocks of its own."""
     _forward_only(xw_f, xw_b, w_f, w_b, h0, c0)
     if xw_f.device.type == "cpu":
         return torch.cat(

@@ -320,7 +320,11 @@ def test_transcribe_audio_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("T,B,H,reverse", [(4, 3, 100, False),
                                            (3, 70, 130, True),
-                                           (2, 1, 1, False)])
+                                           (2, 1, 1, False),
+                                           # 4 n8 tiles a warp
+                                           (3, 130, 1024, False),
+                                           # chunks of 64 rows, 2 of them
+                                           (3, 70, 2560, True)])
 def test_rnn_scan_kernel_close_to_plain(dev, T, B, H, reverse):
     rng = np.random.default_rng(B * H)
     xw = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
@@ -333,6 +337,97 @@ def test_rnn_scan_kernel_close_to_plain(dev, T, B, H, reverse):
     want = rnn_scan.rnn_scan_plain(xw, w, h0, reverse=reverse)
     # a few steps: float32 sum order, and the rare bf16 rounding flip of h
     assert float((got - want).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("T,B,H,reverse", [(5, 1, 2048, False),
+                                           (4, 1, 512, True)])
+def test_rnn_scan_kernel_batch_of_one(dev, T, B, H, reverse):
+    rng = np.random.default_rng(H + T)
+    xw = torch.from_numpy((rng.standard_normal((T, B, H)) * 0.5).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((rng.uniform(-1, 1, (H, H)) / H ** 0.5).astype(
+        np.float32)).to(dev)
+    h0 = torch.tanh(torch.from_numpy(rng.standard_normal((B, H)).astype(
+        np.float32))).to(dev)
+    n0 = rnn_scan.launches
+    got = rnn_scan.rnn_scan(xw, w, h0, reverse=reverse)
+    assert rnn_scan.launches == n0 + 1          # one persistent launch
+    want = rnn_scan.rnn_scan_plain(xw, w, h0, reverse=reverse)
+    # a few steps: float32 sum order, and the rare bf16 rounding flip of h
+    assert float((got - want).abs().max()) < 1e-3
+
+
+def test_recurrence_kernels_back_to_back_on_one_stream(dev):
+    # the second call on the stream starts from the first one's last h
+    # (and c), with barrier words of its own: the two halves give what one
+    # call over the whole sequence gives
+    rng = np.random.default_rng(5)
+    T, B, H = 12, 64, 256
+    xw = torch.from_numpy((rng.standard_normal((T, B, H)) * 0.5).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((rng.uniform(-1, 1, (H, H)) / H ** 0.5).astype(
+        np.float32)).to(dev)
+    h0 = torch.zeros(B, H, device=dev)
+    first = rnn_scan.rnn_scan(xw[:5], w, h0)
+    second = rnn_scan.rnn_scan(xw[5:], w, first[-1])
+    whole = rnn_scan.rnn_scan(xw, w, h0)
+    assert torch.equal(torch.cat([first, second]), whole)
+    xl, wl, hl, cl = _lstm_inputs(dev, T, 24, 128, 6)
+    one = lstm_scan.lstm_scan(xl[:7], wl, hl, cl)
+    # c after 7 steps, from the plain version on the same inputs
+    c7 = cl.clone()
+    wb = wl.to(torch.bfloat16).float()
+    h = hl.clone()
+    for t in range(7):
+        pre = xl[t] + torch.matmul(h.to(torch.bfloat16).float(), wb)
+        i, f, g, o = pre.split(128, dim=1)
+        c7 = torch.sigmoid(f) * c7 + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c7)
+    two = lstm_scan.lstm_scan(xl[7:], wl, one[-1], c7)
+    want = lstm_scan.lstm_scan_plain(xl, wl, hl, cl)
+    assert float((torch.cat([one, two]) - want).abs().max()) < 1e-3
+
+
+def test_recurrence_kernels_past_the_resident_limit_raise(dev):
+    # W_hh stays in shared memory: past the limit each wrapper raises a
+    # ValueError that names it, and launches nothing
+    H = rnn_scan.max_hidden(dev) + 128
+    n0 = rnn_scan.launches
+    with pytest.raises(ValueError, match="resident limit"):
+        rnn_scan.rnn_scan(torch.zeros(1, 2, H, device=dev),
+                          torch.zeros(H, H, device=dev),
+                          torch.zeros(2, H, device=dev))
+    assert rnn_scan.launches == n0
+    B = 4
+    H = lstm_scan.max_hidden(2) + lstm_scan.UNITS
+    n0 = lstm_scan.launches
+    with pytest.raises(ValueError, match="resident limit"):
+        lstm_scan.lstm_scan_bidir(
+            torch.zeros(1, B, 4 * H, device=dev),
+            torch.zeros(1, B, 4 * H, device=dev),
+            torch.zeros(H, 4 * H, device=dev),
+            torch.zeros(H, 4 * H, device=dev),
+            torch.zeros(B, H, device=dev), torch.zeros(B, H, device=dev))
+    assert lstm_scan.launches == n0
+
+
+def test_recurrence_kernels_are_one_device_kernel_a_call(dev):
+    # torch.profiler sees one device kernel for a call of each, and no
+    # cuBLAS or cuDNN
+    xw, w, h0, c0 = _lstm_inputs(dev, 4, 32, 512, 9)
+    xr, wr = xw[..., :512].contiguous(), w[:, :512].contiguous()
+    for fn in (lambda: rnn_scan.rnn_scan(xr, wr, h0),
+               lambda: lstm_scan.lstm_scan(xw, w, h0, c0),
+               lambda: lstm_scan.lstm_scan_bidir(xw, xw, w, w, h0, c0)):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and "scan_kernel" in names[0], names
 
 
 def test_rnn_scan_kernel_rejects_float32_weights(dev):
@@ -367,23 +462,47 @@ def test_lstm_scan_kernel_close_to_plain(dev, T, B, H, reverse):
     got = lstm_scan.lstm_scan(xw, w, h0, c0, reverse=reverse)
     want = lstm_scan.lstm_scan_plain(xw, w, h0, c0, reverse=reverse)
     torch.cuda.synchronize()
-    assert lstm_scan.launches == n0 + T
+    assert lstm_scan.launches == n0 + 1          # one persistent launch
     assert got.shape == want.shape == (T, B, H)
     # a few steps: float32 sum order, and the rare bf16 rounding flip of h
     assert float((got - want).abs().max()) < 1e-3
 
 
-@pytest.mark.parametrize("B,H", [(16, 256), (5, 40)])
+@pytest.mark.parametrize("B,H", [(16, 256), (5, 40), (70, 512),
+                                 (150, 96)])
 def test_lstm_scan_bidir_kernel_equals_two_single_calls(dev, B, H):
+    # B off the 32-row chunk (5, 70), and past a block's 128 rows (150: two
+    # batch groups)
     xw_f, w_f, h0, c0 = _lstm_inputs(dev, 6, B, H, 1)
     xw_b, w_b, _, _ = _lstm_inputs(dev, 6, B, H, 2)
     n0 = lstm_scan.launches
     got = lstm_scan.lstm_scan_bidir(xw_f, xw_b, w_f, w_b, h0, c0)
-    assert lstm_scan.launches == n0 + 6         # both directions per launch
+    assert lstm_scan.launches == n0 + 1         # both directions, one launch
     want = torch.cat([lstm_scan.lstm_scan(xw_f, w_f, h0, c0),
                       lstm_scan.lstm_scan(xw_b, w_b, h0, c0, reverse=True)],
                      dim=-1)
     assert torch.equal(got, want)              # the same blocks, bit for bit
+
+
+@pytest.mark.parametrize("D,B", [(2, 264), (2, 512), (1, 640)])
+def test_lstm_scan_kernel_past_the_resident_batch_groups(dev, D, B):
+    # more batch groups than the card holds at once at deepspeech2's width
+    # (a block walks several, parking c between steps): still one launch
+    T, H = 4, 512
+    xw_f, w_f, h0, c0 = _lstm_inputs(dev, T, B, H, B + D)
+    xw_b, w_b, _, _ = _lstm_inputs(dev, T, B, H, B + D + 1)
+    n0 = lstm_scan.launches
+    if D == 2:
+        got = lstm_scan.lstm_scan_bidir(xw_f, xw_b, w_f, w_b, h0, c0)
+        want = torch.cat([
+            lstm_scan.lstm_scan_plain(xw_f, w_f, h0, c0),
+            lstm_scan.lstm_scan_plain(xw_b, w_b, h0, c0, reverse=True)], -1)
+    else:
+        got = lstm_scan.lstm_scan(xw_f, w_f, h0, c0)
+        want = lstm_scan.lstm_scan_plain(xw_f, w_f, h0, c0)
+    assert lstm_scan.launches == n0 + 1
+    # a few steps: float32 sum order, and the rare bf16 rounding flip of h
+    assert float((got - want).abs().max()) < 1e-3
 
 
 def test_lstm_scan_kernel_padded_units_stay_zero(dev):
@@ -431,8 +550,9 @@ def test_lstm_models_on_card_launch_and_match_cpu(dev, preset):
             n0 = lstm_scan.launches
             got = model_apply(cfg, on_card, x.to(dev), rnn_impl=impl)
             want = model_apply(cfg, params, x, rnn_impl=impl)
-            T = got.shape[0]
-            assert lstm_scan.launches - n0 == (2 * T if n is None else n)
+            # one launch a layer (both directions, every step)
+            assert lstm_scan.launches - n0 == (cfg.rnn_num_layers
+                                               if n is None else n)
             assert float((got.cpu() - want).abs().max()) <= tol
 
 
@@ -635,7 +755,7 @@ def test_recurrence_kernels_raise_under_autograd(dev, which):
     with torch.no_grad():                      # no graph: the kernel runs
         n0 = lstm_scan.launches
         lstm_scan.lstm_scan(xw, w, h0, c0)
-        assert lstm_scan.launches == n0 + 2
+        assert lstm_scan.launches == n0 + 1
 
 
 def _tp_state(dev, B, V, W, frames, blank, seed):
