@@ -57,6 +57,7 @@ JSON line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -186,6 +187,8 @@ def main() -> int:
     from gasr_tpu_torch.ops.linear import linear
     from gasr_tpu_torch.ops.lstm import _input_projection
     from gasr_tpu_torch.parallel import decode_tp, make_mesh
+    from scripts.torch_decode_probe import (frame_counts, load_build,
+                                            start_count_build)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -196,7 +199,13 @@ def main() -> int:
           "torch.backends.cudnn.allow_tf32 = False")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    # beside the kernels: a copy of the decode kernel that counts its block
+    # barriers and the filter's survivors (scripts/torch_decode_probe.py)
+    count_so, count_proc = start_count_build(_lib.BUILD / "probe_dec")
     t_build = _lib.build_all()
+    count_log, _ = count_proc.communicate()
+    check(count_proc.returncode == 0,
+          f"the counting build of fused_decode.cu failed:\n{count_log}")
     print(f"kernel build: {t_build:.1f} s ({', '.join(_lib.SIGNATURES)})",
           flush=True)
     t0 = time.perf_counter()
@@ -283,11 +292,17 @@ def main() -> int:
     lp_rand = log_softmax_np(rng.standard_normal((T, B, V)))
     logits = np.round(rng.standard_normal((T, B, V)) * 2) / 2
     lp_ties = np.maximum(logits, 0.0).astype(np.float32)  # compat_final_relu
+    lp_unif = np.full((T, B, V), -np.log(V), np.float32)  # every slot's ties
+    # the envelope's W = 128, V = 128 corner (16,384 candidates a frame)
+    lp_edge = log_softmax_np(rng.standard_normal((40, B, 128)))
     decode_err = 0.0
     tb_err = 0
-    for tag, lp_np in (("random", lp_rand), ("tie-heavy relu", lp_ties)):
+    for tag, lp_np, W_ in (("random", lp_rand, W),
+                           ("tie-heavy relu", lp_ties, W),
+                           ("uniform", lp_unif, W),
+                           ("W=128 V=128 T=40 random", lp_edge, 128)):
         lp = torch.from_numpy(lp_np).to(dev)
-        init = _init_beam(B, W, dev)
+        init = _init_beam(B, W_, dev)
         fin_k, ys_k = fused_decode.fused_prefix_decode(lp, init)
         fin_p, ys_p = fused_decode.fused_prefix_decode_plain(lp, init)
         torch.cuda.synchronize()
@@ -313,7 +328,50 @@ def main() -> int:
               f"state, tokens, timesteps, start_parent; scores err "
               f"{decode_err})", flush=True)
         if tag == "random":
-            init_r, ys_r, len_r, lp_r = init, ys_k, fin_k.length, lp
+            init_r, ys_r, fin_r, lp_r = init, ys_k, fin_k, lp
+            len_r = fin_k.length
+    del lp_unif, lp_edge
+
+    # the decode kernel's launch at the main paths' shapes: blocks an SM
+    # (the occupancy query), registers (cudaFuncGetAttributes), the dynamic
+    # shared memory a block that the launch requests
+    dec_lib = _lib.load("fused_decode")
+    occupancy = {}
+    for tag_, (W_, V_, lm_) in {"reference_large W=100 V=47": (100, 47, 0),
+                                "conformer_l W=16 V=129": (16, 129, 0),
+                                "LM W=64 V=129": (64, 129, 1)}.items():
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        _lib.check(dec_lib.fused_prefix_decode_info(
+            W_, V_, lm_, *[ctypes.byref(v_) for v_ in vals]),
+            "fused_prefix_decode_info")
+        occupancy[tag_] = dict(zip(("blocks_per_sm", "registers",
+                                    "smem_requested_bytes"),
+                                   [v_.value for v_ in vals]))
+    check(occupancy["reference_large W=100 V=47"]["blocks_per_sm"] >= 2,
+          f"the decode kernel holds fewer than 2 blocks an SM: {occupancy}")
+    print(f"decode kernel launch (blocks an SM, registers a thread, dynamic "
+          f"shared bytes requested a block): {occupancy}", flush=True)
+    # block barriers and survivors a frame, counted by the counting copy on
+    # the random log-probs (its result must be the kernel's, bit for bit)
+    count_lib = load_build(count_so)
+    _lib.check(count_lib.gasr_probe_reset(), "probe reset")
+    _lib._loaded["fused_decode"] = count_lib
+    try:
+        fin_c, ys_c = fused_decode.fused_prefix_decode(lp_r, init_r)
+        torch.cuda.synchronize()
+    finally:
+        _lib._loaded["fused_decode"] = dec_lib
+    check(torch.equal(ys_c, ys_r) and torch.equal(
+        fused_decode.pack_state(fin_c), fused_decode.pack_state(fin_r)),
+        "the counting copy of the decode kernel differs from the kernel")
+    bars, survivors = frame_counts(count_lib, T * B)
+    frame_counted = {"barriers_per_frame": bars,
+                     "survivors_per_frame": survivors,
+                     "candidates_per_frame": W * V}
+    print(f"decode kernel, counted over one call at T={T}, B={B}, W={W}, "
+          f"V={V} (the prologue's barriers included): {bars:.3f} block "
+          f"barriers a frame, {survivors:.1f} of {W * V} candidates a frame "
+          f"kept by the filter", flush=True)
 
     nb = (T * B * V * 4 + 2 * 9 * B * W * 4 + T * B * W * 4)
     b_ms, b_by = bound(nb, T * B * (2 * W * V + 30 * W), F32_FLOPS)
@@ -324,7 +382,7 @@ def main() -> int:
             lambda: fused_decode.fused_prefix_decode_plain(lp_r, init_r),
             iters=1, warmup=1),
         library_ms=None, max_abs_err=decode_err, bound_ms=b_ms,
-        bound_by=b_by)
+        bound_by=b_by, occupancy=occupancy, frame_counted=frame_counted)
     nb = T * B * W * 4 + 2 * B * W * 4 + 2 * B * W * L * 4
     b_ms, b_by = bound(nb, T * B * W * 5, F32_FLOPS)
     report["traceback"] = dict(
@@ -471,10 +529,11 @@ def main() -> int:
     out = pipe.transcribe(x)
     torch.cuda.synchronize()
     launches = read_counts()
-    # The main path runs the block top-W of topk.cuh as a device function
-    # inside each fused_prefix_decode launch, never as the standalone topk
-    # kernel; what shows it ran is the decode kernel's launch and its
-    # bit-equality with the plain decoder (which sorts on the same keys).
+    # The main path runs topk.cuh's filtered top-W as device functions
+    # inside each fused_prefix_decode launch, never the standalone topk
+    # kernel (the same functions in a launch of their own); what shows it
+    # ran is the decode kernel's launch and its bit-equality with the plain
+    # decoder (which sorts on the same keys).
     inside = {"topk": "fused_prefix_decode"}
     for name in ("fused_prefix_decode", "traceback", "rnn_scan"):
         check(launches[name] > 0,
@@ -1870,7 +1929,7 @@ def main() -> int:
             entry["inside"] = inside[name]
         for extra in ("library_call", "kernel_launches_per_call", "ms_bidir",
                       "lm", "ms_by_shards", "exchange_bytes", "ms_rounds",
-                      "library_ms_rounds"):
+                      "library_ms_rounds", "occupancy", "frame_counted"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -27,8 +27,8 @@ What runs here (ROADMAP.md "Queue 1" lists the rest):
     several cards of one host.
 
 Kernels (`csrc/*.cu`, wrappers in `ops/cuda/`): the fused whole-scan
-prefix decode with its stable block top-W (with and without the bigram
-table), the backpointer traceback,
+prefix decode with its exact threshold-filtered top-W (with and without
+the bigram table), the backpointer traceback,
 the streaming chunk's traceback with the base overlay, the Elman and
 LSTM recurrences, the rel-pos flash attention, the fused conformer stem
 (conv2 + sub_proj), the vocab-sharded local frame and whole scan with

@@ -62,6 +62,7 @@ using gasr::xchg::Exchange;
 
 constexpr unsigned long long kSignBit = 1ull << 63;
 
+template <int R>
 __global__ void __launch_bounds__(kThreads, 2)
 tp_frame_kernel(const float* __restrict__ f_loc, int ld,
                 const float* __restrict__ f_last,
@@ -70,27 +71,35 @@ tp_frame_kernel(const float* __restrict__ f_loc, int ld,
                 int hi, int blank, int* __restrict__ ys,
                 unsigned long long* __restrict__ keys,
                 int* __restrict__ fin) {
-  extern __shared__ unsigned long long smem[];
+  extern __shared__ __align__(16) unsigned long long smem[];
   const Window win{lo, hi};
   const int Vw = win.len();
   const Smem s = carve(smem, W, Vw);
+  const Beam be = s.beam[0];
+  const float* row = s.frow[0];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
 
   for (int i = tid; i < NF * W; i += blockDim.x) {
     const int f = i / W, w = i - f * W;
-    s.st[i] = state[((size_t)f * B + b) * W + w];
+    be.st[i] = state[((size_t)f * B + b) * W + w];
   }
   for (int i = tid; i < W * Vw; i += blockDim.x) s.excl[i] = 0;
   for (int j = tid; j < Vw; j += blockDim.x)
-    s.frow[j] = f_loc[(size_t)b * ld + j];
+    s.frow[0][j] = f_loc[(size_t)b * ld + j];
   __syncthreads();
-  slot_prep(s, V, lo, f_last + (size_t)b * W);
-  match_stay(s, V, blank, f_blank[b], win);
-  window_top<false, false>(s, V, blank, win, lo, nullptr);
+  prep(be, row, V, lo, f_last + (size_t)b * W);
+  __syncthreads();
+  match_seed<false, false>(s, be, row, V, blank, f_blank[b], win, lo,
+                           nullptr);
+  __syncthreads();
+  window_walk<false, false, R>(s, be, row, V, blank, win, lo, nullptr);
+  __syncthreads();
+  window_rank<R>(s, [&](int k, unsigned long long key) { s.top[k] = key; });
+  __syncthreads();
   if (tid < W) {
-    const unsigned long long key = s.lists[tid];
-    const Slot n = update<false>(s, key, V, blank, lo, nullptr);
+    const unsigned long long key = s.top[tid];
+    const Slot n = update<false>(s, be, row, key, V, blank, lo, nullptr);
     const size_t o = (size_t)b * W + tid;
     ys[o] = n.ys;
     keys[o] = key ^ kSignBit;
@@ -100,12 +109,13 @@ tp_frame_kernel(const float* __restrict__ f_loc, int ld,
   }
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads, 2)
 tp_scan_kernel(const float* __restrict__ lp, const int* __restrict__ init,
                int T, int B, int W, int V, int blank,
                const int* __restrict__ shards, Exchange x,
                int* __restrict__ ys, int* __restrict__ fin) {
-  extern __shared__ unsigned long long smem[];
+  extern __shared__ __align__(16) unsigned long long smem[];
   const Smem s = carve(smem, W, V);
   const int local = blockIdx.x / x.G;
   const int g = blockIdx.x - local * x.G;
@@ -118,37 +128,68 @@ tp_scan_kernel(const float* __restrict__ lp, const int* __restrict__ init,
   for (int i = tid; i < W * win.len(); i += blockDim.x) s.excl[i] = 0;
   unsigned step = 0;
   for (int b = g; b < B; b += x.G) {
+    const float* lpb = lp + (size_t)b * V;   // frame t's row at t * B * V
     for (int i = tid; i < NF * W; i += blockDim.x) {
       const int f = i / W, w = i - f * W;
-      s.st[i] = init[((size_t)f * B + b) * W + w];
+      s.beam[0].st[i] = init[((size_t)f * B + b) * W + w];
     }
+    for (int v = tid; v < V; v += blockDim.x) s.frow[0][v] = lpb[v];
+    __syncthreads();
+    prep(s.beam[0], s.frow[0], V, 0, nullptr);
+    __syncthreads();
     for (int t = 0; t < T; ++t) {
       ++step;
-      const float* f = lp + ((size_t)t * B + b) * V;
-      for (int v = tid; v < V; v += blockDim.x) s.frow[v] = f[v];
+      const bool odd = t & 1;   // selects, not indexing: no local memory
+      const Beam cur = odd ? s.beam[1] : s.beam[0];
+      const Beam nxt = odd ? s.beam[0] : s.beam[1];
+      const float* row = odd ? s.frow[1] : s.frow[0];
+      float* next_row = odd ? s.frow[0] : s.frow[1];
+      if (t + 1 < T) cp_async_row(next_row, lpb + (size_t)(t + 1) * B * V, V);
+      const int my_excl =
+          match_seed<false, false>(s, cur, row, V, blank, row[blank], win, 0,
+                                   nullptr);
       __syncthreads();
-      slot_prep(s, V, 0, nullptr);
-      const int my_excl = match_stay(s, V, blank, s.frow[blank], win);
-      window_top<false, false>(s, V, blank, win, 0, nullptr);
+      window_walk<false, false, R>(s, cur, row, V, blank, win, 0, nullptr);
+      cp_async_wait();
+      __syncthreads();
+      window_rank<R>(s, [&](int k, unsigned long long key) { s.top[k] = key; });
+      if (my_excl >= 0) s.excl[my_excl] = 0;   // no reader until next frame
+      __syncthreads();
       if (x.n > 1) {
-        gasr::xchg::publish_and_wait(x, sh, g, step, s.lists);
-        gasr::xchg::merge(x, sh, g, step, s.lists);
+        gasr::xchg::publish_and_wait(x, sh, g, step, s.top);
+        gasr::xchg::merge(x, sh, g, step, s.top);
       }
-      Slot n{};   // zero past W, as in fused_decode.cu
       if (tid < W) {
-        n = update<false>(s, s.lists[tid], V, blank, 0, nullptr);
+        const Slot n = update<false>(s, cur, row, s.top[tid], V, blank, 0,
+                                     nullptr);
         if (writes_ys) ys[((size_t)t * B + b) * W + tid] = n.ys;
-        if (my_excl >= 0) s.excl[my_excl] = 0;   // no reader until next frame
+        commit(nxt, n, tid, next_row, V);
       }
-      __syncthreads();
-      if (tid < W) commit(s, n, tid);
       __syncthreads();
     }
+    const Beam last = (T & 1) ? s.beam[1] : s.beam[0];
     for (int i = tid; i < NF * W; i += blockDim.x) {
       const int f = i / W, w = i - f * W;
-      fin[(((size_t)local * NF + f) * B + b) * W + w] = s.st[i];
+      fin[(((size_t)local * NF + f) * B + b) * W + w] = last.st[i];
     }
-    __syncthreads();   // the next utterance's state overwrites st
+    __syncthreads();   // the next utterance's state overwrites beam[0]
+  }
+}
+
+// The instantiations for W: the lists hold list_regs(W) keys a lane.
+const void* pick_frame(int W) {
+  switch (list_regs(W)) {
+    case 1: return (const void*)tp_frame_kernel<1>;
+    case 2: return (const void*)tp_frame_kernel<2>;
+    default: return (const void*)tp_frame_kernel<4>;
+  }
+}
+
+const void* pick_scan(int W) {
+  switch (list_regs(W)) {
+    case 1: return (const void*)tp_scan_kernel<1>;
+    case 2: return (const void*)tp_scan_kernel<2>;
+    default: return (const void*)tp_scan_kernel<4>;
   }
 }
 
@@ -175,11 +216,13 @@ extern "C" int tp_frame_launch(const float* f_loc, int ld, const float* f_last,
   if (W < 1 || W > gasr::kListLen || hi <= lo || lo < 0 || hi > V)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(W, hi - lo, hi - lo);
-  cudaError_t err = set_smem((const void*)tp_frame_kernel, smem);
+  const void* k = pick_frame(W);
+  cudaError_t err = set_smem(k, smem);
   if (err != cudaSuccess) return (int)err;
-  tp_frame_kernel<<<B, kThreads, smem, stream>>>(
-      f_loc, ld, f_last, f_blank, state, B, W, V, lo, hi, blank, ys, keys,
-      fin);
+  void* args[] = {&f_loc, &ld,  &f_last, &f_blank, &state, &B,   &W,
+                  &V,     &lo,  &hi,     &blank,   &ys,    &keys, &fin};
+  err = cudaLaunchKernel(k, dim3(B), dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -187,10 +230,10 @@ extern "C" int tp_frame_launch(const float* f_loc, int ld, const float* f_last,
 // model shards.
 extern "C" int tp_scan_capacity(int W, int V, int n, int* blocks) {
   const size_t smem = scan_smem(W, V, n);
-  cudaError_t err = set_smem((const void*)tp_scan_kernel, smem);
+  const void* k = pick_scan(W);
+  cudaError_t err = set_smem(k, smem);
   if (err == cudaSuccess)
-    err = gasr::xchg::resident_blocks((const void*)tp_scan_kernel, kThreads,
-                                      smem, blocks);
+    err = gasr::xchg::resident_blocks(k, kThreads, smem, blocks);
   return (int)err;
 }
 
@@ -209,11 +252,12 @@ extern "C" int tp_scan_launch(const float* lp, const int* init, int T, int B,
   if (W < 1 || W > gasr::kListLen || n < 1 || n > V || G < 1 || n_local < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = scan_smem(W, V, n);
-  cudaError_t err = set_smem((const void*)tp_scan_kernel, smem);
+  const void* k = pick_scan(W);
+  cudaError_t err = set_smem(k, smem);
   if (err != cudaSuccess) return (int)err;
   Exchange x{outbox, flags, n, G, W};
   void* args[] = {&lp, &init, &T, &B, &W, &V, &blank, &shards, &x, &ys, &fin};
-  err = cudaLaunchCooperativeKernel((const void*)tp_scan_kernel,
+  err = cudaLaunchCooperativeKernel(k,
                                     dim3(n_local * G), dim3(kThreads), args,
                                     smem, stream);
   if (err != cudaSuccess) return (int)err;

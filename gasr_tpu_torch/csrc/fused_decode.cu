@@ -13,37 +13,44 @@
 // Decode. Bound on the card: the data are small (log_probs in, 9.6 MB at
 // T=200, B=256, V=47; ys out, 20.5 MB) and the arithmetic per frame is
 // ~W*V adds and compares, so neither bytes nor operations bound it; what
-// does is the serial chain per utterance: T frames, each a few
-// block-wide phases separated by __syncthreads. Design: one thread block
-// per utterance runs the whole T loop; the beam state (h1, h2, hp1, hp2,
-// last, length, live, s1, s2) lives in shared memory across all frames
-// and is never written to device memory until the end; the candidate grid
-// is never stored at all: the block top-W of topk.cuh builds each
-// candidate's key in registers as it sorts (about 9 barriers per frame in
-// all); B blocks run side by side to fill the SMs. Per frame (the phases
-// of decode_frame.cuh, which the vocab-sharded kernels of decode_tp.cu
-// share, on the whole vocab here):
-//   1. the frame's log-probs row into shared memory; per slot the total
-//      score, f[last] and the folded match key k2 = 31*h2 + length;
-//   2. per stay slot w', the first live w with h1[w] == hp1[w'] and
-//      k2[w] == 31*hp2[w'] + length[w'] - 1 (W x W compare), the stay
-//      candidate's scores, and a flag on the extend (w, last[w']) that
-//      the stay absorbs (its prefix is already in the beam: DEAD);
-//   3. the block top-W of the W x V candidates;
-//   4. gathers, hash updates and the packed backpointer
-//      parent | char<<15 | appended<<30 into ys[t, b, :].
-// Redesign for later: the W x W match through a shared hash table, and
-// fewer block phases per frame.
+// does is the serial chain per utterance (T frames, each a few block-wide
+// phases separated by __syncthreads) and the instructions the block
+// issues on each. Design: one thread block per utterance runs the whole T
+// loop; the beam state lives in shared memory across all frames (twice,
+// by frame parity: decode_frame.cuh's Beam) and is never written to
+// device memory until the end; the candidate grid is never stored at all:
+// each candidate's key is built in registers where it is compared; B
+// blocks run side by side, 2 an SM, one wave at B = 256. Per frame, three
+// block barriers (the phases of decode_frame.cuh, which the vocab-sharded
+// kernels of decode_tp.cu share, on the whole vocab here):
+//   0. the next frame's log-probs row is fetched into the other row
+//      buffer with cp.async (waited for before the second barrier), and
+//      the previous frame's packed backpointers go out from shared memory
+//      in one coalesced row;
+//   1. per stay slot w', its parent: a warp tests 32 candidate parents a
+//      ballot; the stay candidate's scores; the absorbed extend's flag;
+//      beside it, the seed of the selection's threshold;      | barrier
+//   2. the filtered walk of the W x V candidates (topk.cuh): a key below
+//      the threshold is dropped with one compare; the rest are merged into
+//      each warp's sorted list;                                | barrier
+//   3. every list key's rank; the thread that finds rank k < W builds slot
+//      k's new state from the winner's key into the other Beam, with its
+//      total, f[last] (from the fetched row) and k2 for the next frame,
+//      and its packed backpointer parent | char<<15 | appended<<30.
+//                                                              | barrier
+// The lists hold R = list_regs(W) keys a lane (1, 2 or 4): at W = 16 and
+// W = 64 the smaller lists are faster than R = 4 (PERF.md, row 2).
 //
 // Shallow fusion (kLM = true; fused_decode.py's `lm_q` variant). The
 // table lm [V+1, V] (float32, already bf16-quantized by the caller) adds
-// lm[last[w] + 1][v] to every extend candidate's score, in exactly the two
-// places where the extend score is formed: the candidate key of phase 3
-// and the new p_nonblank of phase 4 (the same float additions in the same
-// order, so the two stay bit-equal); never to the absorbed extend's
-// contribution to a stay. The TPU kernel reads the table through one-hot
-// MXU contractions over lane- or row-split copies (a Mosaic workaround);
-// here it is one __ldg per candidate. The table is 9 KB at V=47, 65 KB at
+// lm[last[w] + 1][v] to every extend candidate's score, in exactly the
+// places where the extend score is formed: the seed's score of phase 1,
+// the candidate key of phase 2 and the new p_nonblank of phase 3 (the same
+// float additions in the same order, so they stay bit-equal); never to the
+// absorbed extend's contribution to a stay. The TPU kernel reads the table
+// through one-hot MXU contractions over lane- or row-split copies (a
+// Mosaic workaround); here it is one __ldg per candidate in the seed and
+// one in the walk. The table is 9 KB at V=47, 65 KB at
 // V=129 and 261 KB at V=255, so it stays in L1/L2 after the first frames.
 // The kLM = false instantiation is the kernel without the table.
 //
@@ -77,52 +84,66 @@ namespace {
 
 using namespace gasr::frame;
 
-template <bool kLM>
+template <bool kLM, int R>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_prefix_decode_kernel(const float* __restrict__ lp,
                            const int* __restrict__ init,
                            const float* __restrict__ lm, int T, int B, int W,
                            int V, int blank, int* __restrict__ ys,
                            int* __restrict__ fin) {
-  extern __shared__ unsigned long long smem[];
+  extern __shared__ __align__(16) unsigned long long smem[];
   const Smem s = carve(smem, W, V);
   const Window all{0, V};
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const float* lpb = lp + (size_t)b * V;   // frame t's row at t * B * V
+  int* ysb = ys + (size_t)b * W;           // frame t's row at t * B * W
 
   for (int i = tid; i < NF * W; i += blockDim.x) {
     const int f = i / W, w = i - f * W;
-    s.st[i] = init[((size_t)f * B + b) * W + w];
+    s.beam[0].st[i] = init[((size_t)f * B + b) * W + w];
   }
   for (int i = tid; i < W * V; i += blockDim.x) s.excl[i] = 0;
+  for (int v = tid; v < V; v += blockDim.x) s.frow[0][v] = lpb[v];
+  __syncthreads();
+  prep(s.beam[0], s.frow[0], V, 0, nullptr);
+  __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    // ---- 1. frame row; per-slot totals and match keys
-    const float* f = lp + ((size_t)t * B + b) * V;
-    for (int v = tid; v < V; v += blockDim.x) s.frow[v] = f[v];
+    const bool odd = t & 1;   // selects, not indexing: no local memory
+    const Beam cur = odd ? s.beam[1] : s.beam[0];
+    const Beam nxt = odd ? s.beam[0] : s.beam[1];
+    const float* row = odd ? s.frow[1] : s.frow[0];
+    float* next_row = odd ? s.frow[0] : s.frow[1];
+    // ---- 0. prefetch row t+1; store ys of frame t-1
+    if (t + 1 < T) cp_async_row(next_row, lpb + (size_t)(t + 1) * B * V, V);
+    if (t > 0 && tid < W) ysb[(size_t)(t - 1) * B * W + tid] = s.ys[tid];
+    // ---- 1. parent match, stays; seed of the threshold
+    const int my_excl =
+        match_seed<kLM, true>(s, cur, row, V, blank, row[blank], all, 0, lm);
     __syncthreads();
-    slot_prep(s, V, 0, nullptr);
-    // ---- 2. parent match and stay candidates
-    const int my_excl = match_stay(s, V, blank, s.frow[blank], all);
-    // ---- 3. stable top-W of the W x V candidate grid
-    window_top<kLM, true>(s, V, blank, all, 0, lm);
-    // ---- 4. state update for slot k = tid
-    // zero past W, not undefined: left undefined, it raises the kernel's
-    // register count and its time
-    Slot n{};
-    if (tid < W) {
-      n = update<kLM>(s, s.lists[tid], V, blank, 0, lm);
-      ys[((size_t)t * B + b) * W + tid] = n.ys;
-      if (my_excl >= 0) s.excl[my_excl] = 0;   // no reader until next frame
-    }
+    // ---- 2. filtered walk over the candidate grid
+    window_walk<kLM, true, R>(s, cur, row, V, blank, all, 0, lm);
+    cp_async_wait();
     __syncthreads();
-    if (tid < W) commit(s, n, tid);
+    // ---- 3. rank, update the winners into the other Beam
+    window_rank<R>(s, [&](int k, unsigned long long key) {
+        // -- update
+        const Slot n = update<kLM>(s, cur, row, key, V, blank, 0, lm);
+        s.ys[k] = n.ys;
+        commit(nxt, n, k, next_row, V);
+        // -- rank
+    });
+    if (my_excl >= 0) s.excl[my_excl] = 0;   // no reader until next frame
     __syncthreads();
   }
 
+  // ---- epilogue
+  if (T > 0 && tid < W) ysb[(size_t)(T - 1) * B * W + tid] = s.ys[tid];
+  const Beam last = (T & 1) ? s.beam[1] : s.beam[0];
   for (int i = tid; i < NF * W; i += blockDim.x) {
     const int f = i / W, w = i - f * W;
-    fin[((size_t)f * B + b) * W + w] = s.st[i];
+    fin[((size_t)f * B + b) * W + w] = last.st[i];
   }
 }
 
@@ -222,18 +243,22 @@ __global__ void traceback_overlay_kernel(
 
 }  // namespace
 
-template <bool kLM>
-static int launch_decode(const float* lp, const int* init, const float* lm,
-                         int T, int B, int W, int V, int blank, int* ys,
-                         int* fin, cudaStream_t stream) {
-  const size_t smem = smem_bytes(W, V, V);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_prefix_decode_kernel<kLM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_prefix_decode_kernel<kLM><<<B, kThreads, smem, stream>>>(
-      lp, init, lm, T, B, W, V, blank, ys, fin);
-  return (int)cudaGetLastError();
+// The instantiation for (lm, W): the lists hold list_regs(W) keys a lane.
+static const void* pick_kernel(bool lm, int W) {
+  switch (list_regs(W)) {
+    case 1: return lm ? (const void*)fused_prefix_decode_kernel<true, 1>
+                      : (const void*)fused_prefix_decode_kernel<false, 1>;
+    case 2: return lm ? (const void*)fused_prefix_decode_kernel<true, 2>
+                      : (const void*)fused_prefix_decode_kernel<false, 2>;
+    default: return lm ? (const void*)fused_prefix_decode_kernel<true, 4>
+                       : (const void*)fused_prefix_decode_kernel<false, 4>;
+  }
+}
+
+static cudaError_t prepare(const void* k, int W, int V, size_t* smem) {
+  *smem = smem_bytes(W, V, V);
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
 }
 
 // lm: the [V+1, V] float32 table, or NULL for the decode without an LM
@@ -241,10 +266,35 @@ extern "C" int fused_prefix_decode_launch(const float* lp, const int* init,
                                           const float* lm, int T, int B,
                                           int W, int V, int blank, int* ys,
                                           int* fin, cudaStream_t stream) {
-  return lm ? launch_decode<true>(lp, init, lm, T, B, W, V, blank, ys, fin,
-                                  stream)
-            : launch_decode<false>(lp, init, lm, T, B, W, V, blank, ys, fin,
-                                   stream);
+  if (W < 1 || W > gasr::kListLen) return (int)cudaErrorInvalidValue;
+  const void* k = pick_kernel(lm != nullptr, W);
+  size_t smem = 0;
+  cudaError_t err = prepare(k, W, V, &smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&lp, &init, &lm, &T, &B, &W, &V, &blank, &ys, &fin};
+  err = cudaLaunchKernel(k, dim3(B), dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// What the launch at (W, V, lm) gets: blocks an SM (the occupancy query),
+// registers a thread (cudaFuncGetAttributes) and the dynamic shared memory
+// a block that the launch requests.
+extern "C" int fused_prefix_decode_info(int W, int V, int lm, int* blocks,
+                                        int* regs, int* smem_requested) {
+  if (W < 1 || W > gasr::kListLen) return (int)cudaErrorInvalidValue;
+  const void* k = pick_kernel(lm != 0, W);
+  size_t smem = 0;
+  cudaError_t err = prepare(k, W, V, &smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads,
+                                                        smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *smem_requested = (int)smem;
+  return 0;
 }
 
 extern "C" int traceback_launch(const int* ys, const int* lengths, int T,

@@ -51,6 +51,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "fused_decode": {
         "fused_prefix_decode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P,
                                        _P, _P],
+        "fused_prefix_decode_info": [_I, _I, _I, _IP, _IP, _IP],
         "traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "traceback_overlay_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                      _P, _P, _P],

@@ -4,8 +4,11 @@
 `gasr_tpu/ops/pallas/fused_decode.py::fused_prefix_decode` (`_kernel`,
 `_frame_math`): all T frames of the log-domain matched-merge prefix
 search in one launch, one thread block per utterance, the beam state
-resident in shared memory, the per-frame top-W taken by the block
-top-W of `csrc/topk.cuh`. It writes the packed backpointers ys
+resident in shared memory, the per-frame top-W taken by the
+threshold-filtered top-W of `csrc/topk.cuh` (exact: a candidate below a
+threshold that W real candidates reach is dropped with one compare, the
+rest are merged in per-warp sorted lists and ranked), three block
+barriers a frame. It writes the packed backpointers ys
 [T, B, W] and the final beam state. With `lm_q` (the quantized [V+1, V]
 bigram table) it launches the kernel's shallow-fusion instantiation,
 which adds lm_q[last + 1, v] to every extend (JAX's `lm_q` variant).
@@ -93,8 +96,9 @@ def traceback_overlay_plain(packed_ys, final_lengths, base_tokens,
 
 def in_envelope(W: int, V: int, has_lm: bool = False) -> bool:
     """JAX `_use_pallas`'s shape rule, which the decode kernel takes
-    (the block top-W keeps at most 128 keys; W*V <= 16384 absorbed-extend
-    flags sit in shared memory); with an LM, V <= 255 as well."""
+    (the lists of the top-W keep at most 128 keys; W*V <= 16384
+    absorbed-extend flags sit in shared memory); with an LM, V <= 255 as
+    well."""
     return W >= 1 and V >= 1 and ((W <= 128 and V <= 128)
                                   or (W <= 64 and V <= 256)) \
         and not (has_lm and V > 255)

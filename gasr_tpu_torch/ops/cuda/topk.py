@@ -8,11 +8,11 @@ float32 to uint32 so that unsigned order is float order with
 -0.0 < +0.0. Neither `torch.topk` (no tie order) nor a stable
 `torch.sort` of the floats (+0.0 and -0.0 compare equal) gives it.
 
-The CUDA side (`csrc/topk.cuh`) is a block-level device function that
-the fused decode kernel calls for its per-frame top-W (k <= 128: sorted
-runs of 128 keys in each warp's registers, merged into a top-128 list);
-`csrc/topk.cu` wraps it as the standalone `topk` kernel used by the
-chip check.
+The CUDA side (`csrc/topk.cuh`) is one block-level selection on one
+64-bit key per candidate, exact and threshold-filtered (`select_seed`,
+`select_walk`, `select_rank`; k <= 128): the decode kernels run it each
+frame, and `csrc/topk.cu` wraps it as the standalone `topk` kernel, one
+block a row, which the chip check holds against `topk_plain`.
 `topk` launches that kernel for CUDA tensors and runs `topk_plain` for
 CPU tensors.
 """
@@ -29,7 +29,7 @@ from gasr_tpu_torch.ops.cuda import _lib
 # the same device function inside its own launch and is not counted here
 launches = 0
 
-MAX_K = 128              # the block top-W keeps a 128-key list
+MAX_K = 128              # a warp's list holds 128 keys
 _IDX_BITS = 31
 
 

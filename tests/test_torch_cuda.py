@@ -61,6 +61,25 @@ def test_topk_kernel_equals_plain(dev, B, N, k):
     assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
 
 
+@pytest.mark.parametrize("kind", ["uniform", "signed_zeros", "few_values"])
+def test_topk_kernel_equals_plain_on_tied_rows(dev, kind):
+    """Rows where the threshold meets many equal scores: the order among
+    them is the index order, and -0.0 ranks below +0.0."""
+    rng = np.random.default_rng(len(kind))
+    B, N, k = 4, 4700, 100
+    if kind == "uniform":
+        x = np.full((B, N), -np.log(47.0), np.float32)
+    elif kind == "signed_zeros":
+        x = np.where(rng.random((B, N)) < 0.5, 0.0, -0.0).astype(np.float32)
+    else:
+        x = rng.integers(0, 3, (B, N)).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    kv, ki = topk.topk(xt, k)
+    pv, pi = topk.topk_plain(xt, k)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
 def test_topk_kernel_rejects_out_of_range(dev):
     with pytest.raises(ValueError):
         topk.topk(torch.zeros(2, 300, device=dev), 129)
@@ -94,6 +113,68 @@ def test_decode_and_traceback_kernels_equal_plain(dev, W, V, T, B, blank,
         for a, b in zip(fused_decode.traceback(ys_k, fin_k.length, L),
                         fused_decode.traceback_plain(ys_k, fin_k.length, L)):
             assert torch.equal(a, b)
+
+
+def _tie_log_probs(kind, T, B, V, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return np.full((T, B, V), -np.log(V), np.float32)
+    if kind == "all ties":                 # every candidate of a slot equal
+        return np.zeros((T, B, V), np.float32)
+    # +0.0 and -0.0 (lax.top_k ranks +0.0 above -0.0), a few -1.0
+    z = np.where(rng.random((T, B, V)) < 0.5, 0.0, -0.0)
+    return np.where(rng.random((T, B, V)) < 0.1, -1.0, z).astype(np.float32)
+
+
+def _decode_equal_plain(lp, W, blank=0, lm_q=None):
+    init = tbs._init_beam(lp.shape[1], W, lp.device)
+    fin_k, ys_k = fused_decode.fused_prefix_decode(lp, init, blank, lm_q)
+    fin_p, ys_p = fused_decode.fused_prefix_decode_plain(lp, init, blank,
+                                                         lm_q)
+    assert torch.equal(ys_k, ys_p)
+    assert torch.equal(fused_decode.pack_state(fin_k),
+                       fused_decode.pack_state(fin_p))
+    return ys_k
+
+
+@pytest.mark.parametrize("W,V,T,B,lm", [
+    (1, 8, 12, 3, False),
+    (128, 128, 5, 2, False),   # the envelope's corners
+    (64, 256, 5, 2, False),
+    (64, 255, 4, 2, True),     # the LM variant at JAX's ceiling
+    (100, 47, 9, 1, False),    # one utterance
+    (100, 47, 4, 300, False),  # past one wave (264 blocks on an H100)
+])
+@pytest.mark.parametrize("kind", ["uniform", "all ties", "signed zeros"])
+def test_decode_kernel_equals_plain_on_tie_grids(dev, W, V, T, B, lm, kind):
+    """The filtered top-W (csrc/topk.cuh) keeps lax.top_k's order where
+    every candidate ties: score descending, index ascending, +0.0 above
+    -0.0; frame 0 holds fewer live candidates than W."""
+    lp = torch.from_numpy(_tie_log_probs(kind, T, B, V, W + V)).to(dev)
+    _decode_equal_plain(lp, W, lm_q=_lm_table(dev, V, W) if lm else None)
+
+
+def test_decode_kernel_back_to_back_on_one_stream(dev):
+    """Calls of every instantiation (1, 2 and 4 keys a lane, with and
+    without an LM) queued on one stream with no synchronisation between
+    them, each equal to its plain version."""
+    rng = np.random.default_rng(17)
+    runs = []
+    for W, V, T, B, lm in ((16, 129, 30, 64, False), (100, 47, 40, 256, False),
+                           (64, 129, 20, 32, True), (100, 47, 40, 256, True),
+                           (32, 29, 25, 8, False)):
+        lp = torch.from_numpy(_log_softmax(
+            rng.standard_normal((T, B, V)))).to(dev)
+        lm_q = _lm_table(dev, V, W) if lm else None
+        init = tbs._init_beam(B, W, dev)
+        runs.append((lp, init, lm_q,
+                     fused_decode.fused_prefix_decode(lp, init, lm_q=lm_q)))
+    for lp, init, lm_q, (fin_k, ys_k) in runs:
+        fin_p, ys_p = fused_decode.fused_prefix_decode_plain(lp, init,
+                                                             lm_q=lm_q)
+        assert torch.equal(ys_k, ys_p)
+        assert torch.equal(fused_decode.pack_state(fin_k),
+                           fused_decode.pack_state(fin_p))
 
 
 @pytest.mark.parametrize("W,V", [(128, 129), (32, 500)])
