@@ -900,6 +900,16 @@ def main() -> int:
           f"(stem_conv_kernel, stem_proj_kernel); no library convolution or "
           f"GEMM among the call's device kernels ({len(dev_kernels)} names: "
           f"the rest cast and lay out the weights)", flush=True)
+    # a traceback call (phase 2's inputs) is its kernel alone: it writes
+    # the -1 cells itself, no memset before it
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_decode.traceback(ys_r, len_r, L)
+        torch.cuda.synchronize()
+    tb_dev = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    check(len(tb_dev) == 1 and "traceback_kernel" in tb_dev[0],
+          f"a traceback call's device activity: {tb_dev}")
+    print(f"traceback call's device activity: {tb_dev} (no memset)",
+          flush=True)
     Bc, Tc, Fc = x_c.shape
     dc = sw[2].shape[-1]
     st_flops = 2 * Bc * (Tc // 2) * (Fc // 2) * dc * 9 \
@@ -1847,6 +1857,211 @@ def main() -> int:
               f"{host_ms(lambda: tp_stream(impl)):.3f} ms (host clock, median "
               f"of 5)", flush=True)
 
+    # ---- 12. the shapes past the earlier kernels' limits, as JAX's
+    # dispatch sends them
+    # 12a. rnn_forward(impl="pallas") past the resident limit (the streamed
+    # design): T=200, one direction, each (B, H) one launch; one step and
+    # 200 steps against rnn_scan_plain; kernel and bf16 loop in turns
+    from gasr_tpu_torch.ops.rnn import (_input_projection as rnn_proj,
+                                        rnn_forward, rnn_init)
+    streamed = {}
+    rs_launches = {name: 0 for name in counters}
+    for B_, H_ in ((8, 2816), (32, 5120), (256, 4480)):
+        tag_ = f"B={B_} H={H_}"
+        params_r = rnn_init(torch.Generator().manual_seed(H_), 64, H_,
+                            device=dev)
+        x_r = torch.from_numpy(np.random.default_rng(B_).standard_normal(
+            (T, B_, 64)).astype(np.float32)).to(dev)
+        design = rnn_scan.design(dev, B_, H_)
+        check(design == "streamed", f"rnn_scan {tag_}: design {design}")
+        with torch.no_grad():
+            rnn_forward(params_r, x_r, impl="pallas")       # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            s0 = rnn_scan.streamed_launches
+            out_r = rnn_forward(params_r, x_r, impl="pallas")
+            torch.cuda.synchronize()
+            got_ = read_counts()
+            n_str = rnn_scan.streamed_launches - s0
+            check(got_["rnn_scan"] == 1 and n_str == 1,
+                  f"rnn_forward {tag_}: launches {got_}, streamed {n_str}")
+            rs_launches = {k: v + got_[k] for k, v in rs_launches.items()}
+            cell = params_r["layers"][0]
+            xw_r = rnn_proj(cell, x_r)
+            h0_r = torch.zeros(B_, H_, device=dev)
+            want_r = rnn_scan.rnn_scan_plain(xw_r, cell["w_hh"], h0_r)
+            check(bool(torch.isfinite(out_r).all())
+                  and tuple(out_r.shape) == (T, B_, H_),
+                  f"rnn_forward {tag_} output")
+            e_scan = float((out_r - want_r).abs().max())
+            h_r = torch.tanh(torch.from_numpy(np.random.default_rng(
+                H_).standard_normal((B_, H_)).astype(np.float32)).to(dev))
+            e_step = float((rnn_scan.rnn_scan(xw_r[:1], cell["w_hh"], h_r)
+                            - rnn_scan.rnn_scan_plain(xw_r[:1], cell["w_hh"],
+                                                      h_r)).abs().max())
+        check(e_step <= RNN_STEP_TOL, f"rnn_scan {tag_}: step {e_step}")
+        check(e_scan <= RNN_SCAN_TOL, f"rnn_scan {tag_}: T=200 {e_scan}")
+        w_bf_r = cell["w_hh"].to(torch.bfloat16)
+
+        def loop_r():
+            h = h0_r.to(torch.bfloat16)
+            for t in range(T):
+                h = torch.tanh(xw_r[t] + torch.matmul(h, w_bf_r)).to(
+                    torch.bfloat16)
+        rounds_r = {"kernel": [], "library": []}
+        for _ in range(5):
+            rounds_r["kernel"].append(cuda_ms(lambda: rnn_scan.rnn_scan(
+                xw_r, cell["w_hh"], h0_r), iters=1, warmup=1))
+            rounds_r["library"].append(cuda_ms(loop_r, iters=1, warmup=1))
+        b_ms, b_by = bound(2 * T * B_ * H_ * 4 + H_ * H_ * 4 + B_ * H_ * 4,
+                           2 * T * B_ * H_ * H_, BF16_TENSOR_FLOPS)
+        streamed[tag_] = dict(
+            design=design, plan=list(rnn_scan._card_design(dev, B_, H_)[1]),
+            ms=float(np.median(rounds_r["kernel"])),
+            library_ms=float(np.median(rounds_r["library"])),
+            plain_ms=cuda_ms(lambda: rnn_scan.rnn_scan_plain(
+                xw_r, cell["w_hh"], h0_r), iters=1, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=max(e_step, e_scan),
+            step_err=e_step, launches=got_["rnn_scan"],
+            ms_rounds=rounds_r["kernel"],
+            library_ms_rounds=rounds_r["library"])
+        r = streamed[tag_]
+        print(f"rnn_forward(impl='pallas') T={T} {tag_} on {card}: design "
+              f"{design} (plan (Hp, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S) "
+              f"{r['plan']}), {got_['rnn_scan']} launch; one step max "
+              f"|kernel - plain| {e_step} (tolerance {RNN_STEP_TOL}), T=200 "
+              f"{e_scan} (tolerance {RNN_SCAN_TOL}); kernel {r['ms']:.4f} ms, "
+              f"bf16 matmul + tanh loop {r['library_ms']:.4f} ms (medians of "
+              f"5 rounds in turns: kernel "
+              f"{[round(v_, 4) for v_ in rounds_r['kernel']]}, loop "
+              f"{[round(v_, 4) for v_ in rounds_r['library']]}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        del params_r, x_r, out_r, xw_r, want_r, w_bf_r
+    report["rnn_scan"]["streamed"] = streamed
+
+    # 12b. the fused stem at F = 128, 160, 512 (f2 windows; the conv kernel's
+    # shared memory is the same at every F) against its plain version, and
+    # conformer_apply(stem_impl="pallas") at F = 128 on conformer_l's widths
+    # (depth cut to 2 blocks)
+    smem_d = _lib.load("stem").stem_conv_smem(512)
+    wide = {}
+    for F_, B_, T_ in ((128, 64, 1200), (160, 16, 1200), (512, 4, 1200)):
+        ws_ = stem_weights(F_, 512, 512, F_)
+        xs_ = torch.from_numpy(np.random.default_rng(F_).uniform(
+            size=(B_, T_, F_)).astype(np.float32)).to(dev)
+        n0 = stem.launches
+        got_s = stem.fused_stem(xs_, *ws_)
+        want_s = stem.fused_stem_plain(xs_, *ws_)
+        torch.cuda.synchronize()
+        check(stem.launches == n0 + 1, f"fused_stem F={F_}: launches")
+        err = float((got_s.float() - want_s.float()).abs().max())
+        scale = float(want_s.float().abs().max())
+        tol = KERNEL_REL_TOL * max(1.0, scale)
+        check(tuple(got_s.shape) == (B_, T_ // 4, 512)
+              and bool(torch.isfinite(got_s).all()) and err <= tol,
+              f"fused_stem F={F_}: {err} > {tol}")
+        st_flops = 2 * B_ * (T_ // 2) * (F_ // 2) * 512 * 9 \
+            + 2 * B_ * (T_ // 4) * (F_ // 4) * 512 * (9 * 512 + 512)
+        st_bytes = xs_.numel() * 4 + sum(w.numel() * 4 for w in ws_) \
+            + B_ * (T_ // 4) * 512 * 2
+        b_ms, b_by = bound(st_bytes, st_flops, BF16_TENSOR_FLOPS)
+        wide[f"F={F_}"] = dict(
+            B=B_, T=T_, windows=stem.f2_windows(F_ // 4),
+            ms=cuda_ms(lambda: stem.fused_stem(xs_, *ws_), iters=3,
+                       warmup=1),
+            plain_ms=cuda_ms(lambda: stem.fused_stem_plain(xs_, *ws_),
+                             iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        stem_err = max(stem_err, err)
+        r = wide[f"F={F_}"]
+        print(f"fused_stem [{B_}, {T_}, {F_}] d=512 ({r['windows']} f2 "
+              f"windows, {smem_d} bytes of shared memory a conv block at "
+              f"every F) on {card}: max |kernel - plain| {err} (tolerance "
+              f"{tol}); {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del ws_, xs_, got_s, want_s
+    report["fused_stem"]["wide_f"] = wide
+    report["fused_stem"]["max_abs_err"] = stem_err
+    cfg_w = dataclasses.replace(PRESETS["conformer_l"], mesh_shape={},
+                                input_size=128, num_blocks=2, batch_size=16)
+    params_w = model_init(cfg_w, torch.Generator().manual_seed(1))
+    x_w = torch.from_numpy(np.random.default_rng(128).uniform(
+        size=(cfg_w.batch_size, cfg_w.seg_len, 128)).astype(np.float32)).to(
+        dev)
+    with torch.no_grad():
+        model_apply(cfg_w, params_w, x_w, compute_dtype="bfloat16",
+                    stem_impl="pallas")                      # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        lp_w = model_apply(cfg_w, params_w, x_w, compute_dtype="bfloat16",
+                           stem_impl="pallas")
+        torch.cuda.synchronize()
+        cw_launches = read_counts()
+        lp_wa = model_apply(cfg_w, params_w, x_w, compute_dtype="bfloat16")
+    check(cw_launches["fused_stem"] == 1
+          and cw_launches["flash_mhsa_rel"] == cfg_w.num_blocks,
+          f"conformer F=128 stem_impl='pallas' launches {cw_launches}")
+    check(tuple(lp_w.shape) == (cfg_w.seg_len // 4, cfg_w.batch_size,
+                                cfg_w.output_size)
+          and bool(torch.isfinite(lp_w).all())
+          and float((lp_w.exp().sum(-1) - 1).abs().max()) < 1e-4,
+          "conformer F=128 log-probs")
+    print(f"conformer_apply(stem_impl='pallas') at F=128 (conformer_l "
+          f"widths, 2 blocks, B={cfg_w.batch_size}, T={cfg_w.seg_len}): "
+          f"launches {cw_launches}; log-probs finite and normalised; max "
+          f"|lp - lp with the plain stem| {float((lp_w - lp_wa).abs().max())}"
+          f" (not gated: bf16 flips)", flush=True)
+    del params_w, x_w, lp_w, lp_wa
+
+    # 12c. the traceback at conformer_l's decode shape (T=300, B=64, W=16)
+    # and the LM edges' (T=200, B=256, W=64) on real decodes, and at edge
+    # shapes on random backpointers, against its plain version; no memset
+    # and one device kernel a call (torch.profiler)
+    tb_more = {}
+    for tag_, (T_, B_, V_, W_) in {"conformer_l": (300, 64, 129, 16),
+                                   "LM W=64": (200, 256, 129, 64)}.items():
+        lp_t = torch.from_numpy(log_softmax_np(rng.standard_normal(
+            (T_, B_, V_)))).to(dev)
+        fin_t, ys_t = fused_decode.fused_prefix_decode(
+            lp_t, _init_beam(B_, W_, dev))
+        len_t = fin_t.length
+        for a, b in zip(fused_decode.traceback(ys_t, len_t, L),
+                        fused_decode.traceback_plain(ys_t, len_t, L)):
+            check(torch.equal(a, b), f"traceback {tag_} differs")
+        nb = T_ * B_ * W_ * 4 + 2 * B_ * W_ * 4 + 2 * B_ * W_ * L * 4
+        b_ms, b_by = bound(nb, T_ * B_ * W_ * 5, F32_FLOPS)
+        tb_more[tag_] = dict(
+            T=T_, B=B_, W=W_, L=L, plan=list(fused_decode.traceback_plan(W_)),
+            ms=cuda_ms(lambda: fused_decode.traceback(ys_t, len_t, L)),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"traceback {tag_} (T={T_}, B={B_}, W={W_}, L={L}) on {card}: "
+              f"kernel == plain; {tb_more[tag_]['ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del lp_t, fin_t, ys_t
+    tb_rng = np.random.default_rng(12)
+    for T_, B_, W_, L_, extra in ((200, 256, 100, 256, 300), (9, 3, 1, 6, 3),
+                                  (7, 2, 128, 9, 4), (5, 2, 4, 0, 2),
+                                  (0, 2, 6, 8, 3), (11, 2, 200, 7, 3)):
+        ys_e = torch.from_numpy((tb_rng.integers(0, W_, (T_, B_, W_))
+                                 | (tb_rng.integers(0, 47, (T_, B_, W_)) << 15)
+                                 | ((tb_rng.random((T_, B_, W_)) < 0.9)
+                                    .astype(np.int64) << 30)).astype(
+            np.int32)).to(dev)
+        len_e = torch.from_numpy(tb_rng.integers(
+            0, L_ + extra + 1, (B_, W_)).astype(np.int32)).to(dev)
+        for a, b in zip(fused_decode.traceback(ys_e, len_e, L_),
+                        fused_decode.traceback_plain(ys_e, len_e, L_)):
+            check(torch.equal(a, b), f"traceback T={T_} B={B_} W={W_} "
+                  f"L={L_} (lengths up to L + {extra}) differs")
+    print("traceback == plain at the edge shapes (T, B, W, L): lengths past "
+          "L (200, 256, 100, 256), W = 1, W = 128, L = 0, T = 0, W = 200 (two "
+          "blocks an utterance)", flush=True)
+    report["traceback"]["more_shapes"] = tb_more
+    print(f"traceback reference_large {report['traceback']['ms']:.4f} ms, "
+          f"bound {report['traceback']['bound_ms']:.4f} ms (phase 2)",
+          flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -1884,7 +2099,8 @@ def main() -> int:
             "lm_streaming": lms_launches, "transcribe_audio": a_launches,
             "transcribe_audio_cmvn": ac_launches, "evaluate_lm": ev_launches,
             "tp_batch": tpb_launches, "tp_streaming": tps_launches,
-            "tp_conformer": tpc_launches, "toy_exchange": toy_launches}
+            "tp_conformer": tpc_launches, "toy_exchange": toy_launches,
+            "rnn_streamed": rs_launches, "conformer_f128": cw_launches}
     # the LM variant's launches: those of the LM stream, per path beside
     lm_report.update(
         launches=lms_launches["fused_prefix_decode_lm"],
@@ -1929,7 +2145,8 @@ def main() -> int:
             entry["inside"] = inside[name]
         for extra in ("library_call", "kernel_launches_per_call", "ms_bidir",
                       "lm", "ms_by_shards", "exchange_bytes", "ms_rounds",
-                      "library_ms_rounds", "occupancy", "frame_counted"):
+                      "library_ms_rounds", "occupancy", "frame_counted",
+                      "streamed", "wide_f", "more_shapes"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -55,10 +55,22 @@
 // The kLM = false instantiation is the kernel without the table.
 //
 // Traceback. Bound on the card: bytes (ys read, 20.5 MB; tokens and
-// timesteps written, 52 MB at L=256). Design: the -1 fill of both outputs
-// is a coalesced memset; then one thread per (b, w) walks t = T-1..0,
-// reading one ys word per frame and writing each emission at position
-// pos-1 (dropped when < 0 or >= L: head-keeping on overflow).
+// timesteps written, 52 MB at L=256). Design: one block per utterance
+// (several where W > 128: at most 128 slots a block), one walking thread
+// per slot. ys[t, b, :] is staged into shared memory by cp.async in
+// chunks of TC frames taken from the end backwards, double-buffered (the
+// earlier chunk lands while this one is walked), so each step's dependent
+// load is a shared-memory load. A walk emits at pos-1 (dropped when < 0
+// or >= L: head-keeping on overflow); the kept ones fill the positions
+// below min(length, L) one by one, and each is collected on chip (token,
+// frame) in its row's buffer. After the walk every warp writes whole
+// rows, 16-byte stores along the positions, the -1 cells included: every
+// cell of the two outputs is written once and nothing is filled before
+// the kernel. A row's buffer holds min(L, T) emissions; where the rows do
+// not fit the shared memory at once, the walk runs again for each window
+// of positions (passes). The plan is (TC, G), the wrapper's
+// `traceback_plan`; the buffer and the passes follow from (T, W, L) and
+// the shared memory (`tb_passes`).
 //
 // Traceback with overlay (one streaming chunk). Bound on the card: bytes,
 // the reorder copy of the two [B, W, L] buffers (at B=256, W=100, L=256:
@@ -147,32 +159,205 @@ fused_prefix_decode_kernel(const float* __restrict__ lp,
   }
 }
 
-__global__ void traceback_kernel(const int* __restrict__ ys,
-                                 const int* __restrict__ lengths, int T,
-                                 int B, int W, int L, int* __restrict__ tok,
-                                 int* __restrict__ ts,
-                                 int* __restrict__ start_parent) {
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= B * W) return;
-  const int b = gid / W;
-  int* trow = tok + (size_t)gid * L;
-  int* srow = ts + (size_t)gid * L;
-  int cur = gid - b * W;
-  int pos = lengths[gid];
-  for (int t = T - 1; t >= 0; --t) {
-    const int packed = ys[((size_t)t * B + b) * W + cur];
-    const int appended = (packed >> 30) & 1;
-    if (appended) {
-      const int e = pos - 1;
-      if (e >= 0 && e < L) {
-        trow[e] = (packed >> 15) & 0x7FFF;
-        srow[e] = t;
-      }
-      pos -= 1;
+// Traceback, one block per (b, group of at most kTbRows slots): one
+// walking thread a slot, every warp writing rows. Shared memory: two
+// chunks of ys frames [TC][W], and each row's kept emissions in walk
+// order (the q-th lands at position min(length, L) - 1 - q), CAP of them
+// a pass: token | frame << 15 in 32 bits where T <= 2^17 (kWideT false),
+// else a 16-bit token and a 32-bit frame.
+constexpr int kTbThreads = 256;
+constexpr int kTbRows = 128;             // rows a block at most
+constexpr int kTbSmemMax = 232448;
+
+__host__ __device__ inline int tb_entry_bytes(int T) {
+  return T <= (1 << 17) ? 4 : 6;
+}
+__host__ __device__ inline size_t tb_stage_bytes(int W, int TC) {
+  return 2 * (size_t)TC * W * sizeof(int);
+}
+// emissions a row a pass (CAP) and passes: every kept emission of a row
+// (at most min(L, T)) in one pass where the shared memory holds them
+__host__ __device__ inline void tb_passes(int T, int W, int L, int TC, int G,
+                                          int* cap, int* npass) {
+  const int rows = (W + G - 1) / G, need = min(L, T);
+  const long long room = (long long)kTbSmemMax - (long long)tb_stage_bytes(W, TC);
+  const long long fit = room / ((long long)rows * tb_entry_bytes(T));
+  *cap = (int)min((long long)need, fit);
+  *npass = need == 0 ? 1 : (*cap > 0 ? (need + *cap - 1) / *cap : 0);
+}
+__host__ __device__ inline size_t tb_smem(int T, int W, int L, int TC,
+                                          int G) {
+  int cap, npass;
+  tb_passes(T, W, L, TC, G, &cap, &npass);
+  const int rows = (W + G - 1) / G;
+  return tb_stage_bytes(W, TC) +
+         (size_t)rows * (cap > 0 ? cap : 1) * tb_entry_bytes(T);
+}
+
+// 4 or 16 bytes global -> shared, through L2
+__device__ __forceinline__ void tb_copy(void* dst, const void* src,
+                                        bool wide) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if (wide)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+template <bool kWideT>
+__global__ void __launch_bounds__(kTbThreads)
+traceback_kernel(const int* __restrict__ ys, const int* __restrict__ lengths,
+                 int T, int B, int W, int L, int TC, int G, int cap,
+                 int npass, int* __restrict__ tok, int* __restrict__ ts,
+                 int* __restrict__ start_parent) {
+  extern __shared__ __align__(16) int tb_smem_words[];
+  const int b = blockIdx.x / G;
+  const int rows = (W + G - 1) / G;
+  const int r0 = (blockIdx.x % G) * rows;
+  const int nr = min(rows, W - r0);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  constexpr int kWarps = kTbThreads / 32;
+  int* frames = tb_smem_words;                             // [2][TC][W]
+  uint32_t* em32 = reinterpret_cast<uint32_t*>(frames + 2 * TC * W);
+  int* emt = reinterpret_cast<int*>(em32);                 // kWideT: [rows][cap]
+  uint16_t* emk = reinterpret_cast<uint16_t*>(emt + rows * cap);   // frames,
+  const bool wide = W % 4 == 0;                                   // tokens
+  const int per_frame = wide ? W / 4 : W;
+  const int nchunks = (T + TC - 1) / TC;
+  const bool vec = L % 4 == 0;
+
+  // chunk c holds frames [T - (c + 1) TC, T - c TC) (the first from 0)
+  auto load = [&](int c) {
+    const int hi = T - c * TC, lo = max(0, hi - TC);
+    int* dst = frames + (c & 1) * TC * W;
+    for (int i = tid; i < (hi - lo) * per_frame; i += kTbThreads) {
+      const int f = i / per_frame, q = i - f * per_frame;
+      const int e = wide ? 4 * q : q;
+#ifndef GASR_PROBE_TB_NO_STAGE
+      tb_copy(dst + f * W + e, ys + ((size_t)(lo + f) * B + b) * W + e, wide);
+#endif
     }
-    cur = packed & 0x7FFF;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  const bool walker = tid < nr;
+  const int len = walker ? lengths[(size_t)b * W + r0 + tid] : 0;
+
+  for (int pass = 0; pass < npass; ++pass) {
+    // the walk: every frame from the end; the emissions of window
+    // [pass cap, (pass + 1) cap) of this row's kept ones into shared memory
+    const int q0 = pass * cap;
+    int cur = r0 + tid, pos = len, q = 0;
+    if (nchunks > 0) load(0);
+    for (int c = 0; c < nchunks; ++c) {
+      if (c + 1 < nchunks) {
+        load(c + 1);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();               // chunk c has landed for every thread
+      if (walker) {                  // the dependent loads: shared memory
+        const int hi = T - c * TC, lo = max(0, hi - TC);
+        const int* fr = frames + (c & 1) * TC * W;
+#ifndef GASR_PROBE_TB_NO_WALK
+        for (int f = hi - lo - 1; f >= 0; --f) {
+          const int packed = fr[f * W + cur];
+          if ((packed >> 30) & 1) {
+            const int e = pos - 1;
+            if (e >= 0 && e < L) {   // kept: the q-th, at hi_end - 1 - q
+              const int k = q - q0;
+              if (k >= 0 && k < cap) {
+                const int tk = (packed >> 15) & 0x7FFF;
+                if (kWideT) {
+                  emt[tid * cap + k] = lo + f;
+                  emk[tid * cap + k] = (uint16_t)tk;
+                } else {
+                  em32[tid * cap + k] = (uint32_t)tk |
+                                        ((uint32_t)(lo + f) << 15);
+                }
+              }
+              ++q;
+            }
+            pos -= 1;
+          }
+#ifdef GASR_PROBE_TB_NO_STAGE
+          cur = (packed & 0x7FFF) % W;   // unstaged words: keep the index
+#else                                    // in the buffer (time only)
+          cur = packed & 0x7FFF;
+#endif
+        }
+#endif
+      }
+      __syncthreads();               // chunk c walked: its buffer is free
+    }
+    if (walker && pass == npass - 1) start_parent[(size_t)b * W + r0 + tid] =
+        cur;
+    // each row's window once, a warp a row, 4 positions a lane (16-byte
+    // stores where L % 4 == 0): position p holds kept emission
+    // q = hi_end - 1 - p if q < the kept count, else -1; the cells at or
+    // past hi_end get -1 in the first pass, those below the last window in
+    // the last
+    if (walker) frames[tid] = q;     // the kept count (the chunks are done)
+    __syncthreads();
+    for (int r = warp; r < nr; r += kWarps) {
+      const int n = frames[r];
+      const int he = min(max(lengths[(size_t)b * W + r0 + r], 0), L);
+      // (the last pass also takes the cells below the window: no kept
+      // emission reaches them when the length is past T)
+      const int plo = pass == npass - 1 ? 0 : max(he - (pass + 1) * cap, 0);
+      const int phi = pass == 0 ? L : he - pass * cap;
+      const size_t row = ((size_t)b * W + r0 + r) * L;
+      auto value = [&](int p, int& tv, int& sv) {
+        const int qq = he - 1 - p;
+        if (p >= he || qq >= n) {
+          tv = -1;
+          sv = -1;
+        } else if (kWideT) {
+          tv = emk[r * cap + qq - q0];
+          sv = emt[r * cap + qq - q0];
+        } else {
+          const uint32_t v = em32[r * cap + qq - q0];
+          tv = (int)(v & 0x7FFF);
+          sv = (int)(v >> 15);
+        }
+      };
+#ifndef GASR_PROBE_TB_NO_WRITES
+      if (vec) {
+        for (int p4 = (plo & ~3) + 4 * lane; p4 < phi; p4 += 128) {
+          if (p4 >= plo && p4 + 4 <= phi) {
+            int tv[4], sv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) value(p4 + e, tv[e], sv[e]);
+            *reinterpret_cast<int4*>(tok + row + p4) =
+                make_int4(tv[0], tv[1], tv[2], tv[3]);
+            *reinterpret_cast<int4*>(ts + row + p4) =
+                make_int4(sv[0], sv[1], sv[2], sv[3]);
+          } else {
+            for (int e = 0; e < 4; ++e)
+              if (p4 + e >= plo && p4 + e < phi) {
+                int tv, sv;
+                value(p4 + e, tv, sv);
+                tok[row + p4 + e] = tv;
+                ts[row + p4 + e] = sv;
+              }
+          }
+        }
+      } else {
+        for (int p = plo + lane; p < phi; p += 32) {
+          int tv, sv;
+          value(p, tv, sv);
+          tok[row + p] = tv;
+          ts[row + p] = sv;
+        }
+      }
+#endif
+    }
+    __syncthreads();                 // the emissions are written
   }
-  start_parent[gid] = cur;
 }
 
 template <bool kVec>
@@ -297,17 +482,42 @@ extern "C" int fused_prefix_decode_info(int W, int V, int lm, int* blocks,
   return 0;
 }
 
+// Shared memory of a traceback block at (T, W, L, chunks of TC frames, G
+// blocks an utterance); 0 where a row's emissions cannot fit one at a
+// time.
+extern "C" int traceback_smem(int T, int W, int L, int TC, int G) {
+  if (W < 1 || TC < 1 || G < 1 || T < 0 || L < 0) return 0;
+  int cap, npass;
+  tb_passes(T, W, L, TC, G, &cap, &npass);
+  if (npass == 0) return 0;
+  const size_t n = tb_smem(T, W, L, TC, G);
+  return n > 0x7fffffff ? 0x7fffffff : (int)n;
+}
+
+// The whole traceback in one launch of B G blocks, chunks of TC frames;
+// every cell of tok and ts is written once by the kernel (no fill before).
 extern "C" int traceback_launch(const int* ys, const int* lengths, int T,
-                                int B, int W, int L, int* tok, int* ts,
-                                int* start_parent, cudaStream_t stream) {
-  const size_t bytes = (size_t)B * W * L * sizeof(int);
-  cudaError_t err = cudaMemsetAsync(tok, 0xFF, bytes, stream);  // -1 fill
-  if (err == cudaSuccess) err = cudaMemsetAsync(ts, 0xFF, bytes, stream);
+                                int B, int W, int L, int TC, int G, int* tok,
+                                int* ts, int* start_parent,
+                                cudaStream_t stream) {
+  if (TC < 1 || G < 1 || (W + G - 1) / G > kTbRows || T < 0 || L < 0)
+    return (int)cudaErrorInvalidValue;
+  int cap, npass;
+  tb_passes(T, W, L, TC, G, &cap, &npass);
+  const size_t smem = tb_smem(T, W, L, TC, G);
+  if (npass == 0 || smem > (size_t)kTbSmemMax)
+    return (int)cudaErrorInvalidValue;
+  const bool wide_t = tb_entry_bytes(T) > 4;
+  const void* k = wide_t ? (const void*)traceback_kernel<true>
+                         : (const void*)traceback_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 128;
-  const int blocks = (B * W + threads - 1) / threads;
-  traceback_kernel<<<blocks, threads, 0, stream>>>(ys, lengths, T, B, W, L,
-                                                   tok, ts, start_parent);
+  void* args[] = {&ys, &lengths, &T, &B, &W, &L, &TC, &G, &cap, &npass,
+                  &tok, &ts, &start_parent};
+  err = cudaLaunchKernel(k, dim3(B * G), dim3(kTbThreads), args, smem,
+                         stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
-// Pieces shared by the two persistent recurrence kernels (rnn_scan.cu,
-// lstm_scan.cu): 16-byte asynchronous copies, ldmatrix, mma.sync bf16, and
-// the step barrier between the blocks of a grid (or of one LSTM direction).
+// Pieces shared by the persistent recurrence kernels (rnn_scan.cu's
+// resident and streamed designs, lstm_scan.cu): 16-byte asynchronous
+// copies, ldmatrix, mma.sync bf16, and the step barrier between the blocks
+// of a grid (or of one LSTM direction, or one batch tile of the streamed
+// Elman design).
 //
 // Step barrier. Each call brings its own barrier words (`bar`: scratch
 // from the caller, uninitialised). The prologue zeroes them (block 0) and
@@ -75,6 +77,23 @@ __device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
                : "r"(smem_addr(p)));
 }
 
+// the transposing forms: an 8 x 8 matrix stored k-major (rows k, units
+// contiguous) gives mma16816's B fragment of those 8 k and 8 units
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
 // c += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 sums
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -109,6 +128,59 @@ __device__ __forceinline__ void store_bf16x4(bf16* p, const float* h) {
   pk.x = *reinterpret_cast<uint32_t*>(&lo);
   pk.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = pk;
+}
+
+// mbarriers in shared memory and bulk copies (the tensor memory
+// accelerator) into shared memory, counted by an mbarrier (the streamed
+// Elman design's ring)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// until the phase of bar with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// bytes at src (contiguous, 16-byte aligned, a multiple of 16) into dst,
+// counted by bar's transaction count; `arrive`: this copy also arrives
+// (the phase's one arrival), else it only adds its bytes to the count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          bool arrive) {
+  const uint32_t b = smem_addr(bar);
+  if (arrive)
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+        "r"(bytes)
+        : "memory");
+  else
+    asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(b),
+                 "r"(bytes)
+                 : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
 }
 
 __device__ __forceinline__ unsigned long long ld_acquire_gpu(

@@ -62,8 +62,9 @@
 // Rows past B are zero-filled and never summed; units and K rows past H
 // have zero weights and zero xw, so their h stays tanh(0) = 0 and adds
 // nothing (hbf's padded columns are written as zeros). Every B is taken;
-// H is limited by shared memory (rnn_scan_smem; the wrapper raises past
-// it): W^T, the staged chunk and the partial tile must fit in 227 KB.
+// H is limited by shared memory (rnn_scan_smem): W^T, the staged chunk
+// and the partial tile must fit in 227 KB; past that the wrapper takes
+// the streamed design below.
 #include "recurrence.cuh"
 
 namespace cg = cooperative_groups;
@@ -366,6 +367,472 @@ Kernel pick(int NU, int MB) {
                     : nullptr;
 }
 
+// ---- The streamed design: W_hh past shared-memory residency.
+//
+// One cooperative launch; blocks tile the output over batch and units
+// together: a block computes a tile h_t[b0 .. b0 + MB, n0 .. n0 + NU) from
+// h_{t-1}[b0 .. b0 + MB, :] and W_hh[:, n0 .. n0 + NU), so a step reads
+// about gB H^2 2 + gN B H 2 bytes from L2 for gB batch tiles and gN unit
+// tiles (the wrapper's `stream_plan` picks MB and NU for the fewest bytes
+// a block reads). The grid is gBr x gN blocks, one an SM; where the batch
+// has more tiles than gBr, block row gb0 walks the tiles gb0, gb0 + gBr,
+// .. in turn each step.
+//   - Layouts made for bulk copies. The prologue rounds W_hh to bf16 once
+//     a call into the scratch wblk [gN][Hp][NU] (each block's columns
+//     contiguous, zeros past H; NU / 8 odd, so the eight k rows of an
+//     ldmatrix fall in eight bank groups), writes each block's tiles of
+//     bf16 h0 into slot 0 of the ping-pong buffer hblk [2][Hp / 128][Bp]
+//     [128] (a K stage's rows of a batch tile contiguous; the 16-byte chunk
+//     q of row r at q ^ (r % 8), so ldmatrix reads them without bank
+//     conflicts; rows past B zero in both slots), and the grid meets once.
+//   - A copy warp (one thread) streams K in stages of kStreamK = 128 rows:
+//     the stage's W tile [128][NU] and h tile [MB][128], each one bulk
+//     copy (the tensor memory accelerator) into a ring of S stages counted
+//     by full / empty mbarriers, as soon as a slot is free. Each block
+//     walks K from its own first stage (gn Hp / 128 / gN), so the blocks of
+//     a row do not all read the same h chunk at once. At a step's first
+//     tile it issues the W copies of the first S stages, waits at the step
+//     barrier (the gN blocks of its block row: the only writers and
+//     readers of those rows of h), then issues the h copies.
+//   - 8 consumer warps: WGM along the rows, WGN along the units, WGK along
+//     each stage's K, mma.sync m16n8k16 (A by ldmatrix, B by
+//     ldmatrix.trans from the k-major W tile; the next k16 step's
+//     fragments load while the current one multiplies); the K slices'
+//     partial tiles are summed through shared memory in K order, K slice
+//     0's starting from xw[t] (prefetched into L2 during the step before,
+//     loaded as a tile starts); its warps apply tanh and write out[t]
+//     (float32) and bf16 h_t into the other slot of hblk; then one thread
+//     arrives at the step barrier.
+// Memory order: h_t is written by generic stores and read by the next
+// step's bulk copies (the async proxy): every writer fences the proxies
+// (fence.proxy.async.global) before the block's release, and the copy
+// thread fences them after its acquire.
+constexpr int kStreamConsumers = 256;                  // 8 warps
+constexpr int kStreamWarps = kStreamConsumers / 32;
+constexpr int kStreamThreads = kStreamConsumers + 32;  // + the copy warp
+constexpr int kStreamK = 128;    // K rows a stage
+constexpr int kStreamMaxStages = 8;
+
+struct StreamArgs {
+  const float* xw;     // [T, B, H]
+  const float* w;      // [H, H] float32
+  const float* h0;     // [B, H]
+  float* out;          // [T, B, H]
+  bf16* wblk;          // [gN][Hp][NU] scratch: bf16 W_hh by unit tile
+  bf16* hblk;          // [2][Hp / 128][gB MB][128] scratch (swizzled)
+  unsigned long long* bar;      // gBr gN words (scratch)
+  unsigned long long* clocks;   // probe builds only
+  int T, B, H, Hp, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S, reverse, vec;
+};
+
+__host__ __device__ inline size_t stream_stage(int MB, int NU) {
+  return ((size_t)MB + NU) * kStreamK * sizeof(bf16);
+}
+__host__ __device__ inline size_t stream_red(int MB, int NU, int WGK) {
+  return (size_t)(WGK - 1) * MB * (NU + 4) * sizeof(float);
+}
+__host__ __device__ inline size_t stream_smem(int MB, int NU, int WGK,
+                                              int S) {
+  return S * stream_stage(MB, NU) + stream_red(MB, NU, WGK) +
+         2 * (size_t)S * sizeof(uint64_t);
+}
+
+// element (r, u) of one slot of hblk (Bp rows)
+__device__ __forceinline__ size_t h_index(int r, int u, int Bp) {
+  const int k = u / kStreamK, c = u % kStreamK;
+  return ((size_t)k * Bp + r) * kStreamK +
+         ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+}
+
+// the consumer warps' barrier (the copy warp does not take part)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kStreamConsumers) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// MT: m16 tiles a warp (1 or 2); NTW: n8 tiles a warp. Every warp runs
+// MT x NTW products each k16 step, with no condition around them (a
+// condition puts each mma.sync in a convergence region of its own, and
+// they no longer overlap): a warp that owns fewer n8 tiles multiplies a
+// copy of its last column into accumulators it never stores.
+template <int MT, int NTW>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+rnn_stream_kernel(StreamArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int gb0 = blockIdx.x / a.gN, gn = blockIdx.x % a.gN;
+  const int n0 = gn * a.NU;
+  const int nu = min(a.NU, a.Hp - n0);          // a multiple of 8
+  const int Bp = a.gB * a.MB, nk = a.Hp / kStreamK, S = a.S;
+  const int rot = (int)((long long)gn * nk / a.gN);   // this block's first
+  const int LDR = a.NU + 4;                           // K stage
+  const size_t stage_bytes = stream_stage(a.MB, a.NU);
+  const size_t slot_elems = (size_t)nk * Bp * kStreamK;
+  float* red = reinterpret_cast<float*>(smem + S * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + S * stage_bytes + stream_red(a.MB, a.NU, a.WGK));
+  uint64_t* empty = full + S;
+  unsigned long long* counter = a.bar + (size_t)gb0 * a.gN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  Clock clk;
+  clk.start();
+
+  // W_hh rounded to bf16 once into wblk: groups of 8 units (16 bytes),
+  // four rows at a time per block so that 8 loads of 16 bytes are in
+  // flight a thread (float4 where the rows are 16-byte aligned)
+  {
+    const int groups = a.Hp / 8;
+    const bool v4 =
+        a.H % 4 == 0 && (reinterpret_cast<uintptr_t>(a.w) & 15) == 0;
+    for (int k0 = blockIdx.x; k0 < a.Hp; k0 += 4 * gridDim.x)
+      for (int j = tid; j < groups; j += kStreamThreads) {
+        const int u = 8 * j;
+        float v[4][8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = k0 + q * gridDim.x;
+          const float* wr = a.w + (size_t)k * a.H + u;
+          if (k < a.H && v4 && u + 8 <= a.H) {
+            const float4 lo = __ldg(reinterpret_cast<const float4*>(wr));
+            const float4 hi = __ldg(reinterpret_cast<const float4*>(wr + 4));
+            v[q][0] = lo.x; v[q][1] = lo.y; v[q][2] = lo.z; v[q][3] = lo.w;
+            v[q][4] = hi.x; v[q][5] = hi.y; v[q][6] = hi.z; v[q][7] = hi.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              v[q][e] = k < a.H && u + e < a.H ? __ldg(wr + e) : 0.f;
+          }
+        }
+        const int gu = u / a.NU, ju = u - gu * a.NU;   // its unit tile
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = k0 + q * gridDim.x;
+          if (k >= a.Hp) continue;
+          uint4 pk;
+          uint32_t* w32 = reinterpret_cast<uint32_t*>(&pk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            __nv_bfloat162 b2 =
+                __floats2bfloat162_rn(v[q][2 * e], v[q][2 * e + 1]);
+            w32[e] = *reinterpret_cast<uint32_t*>(&b2);
+          }
+          *reinterpret_cast<uint4*>(
+              a.wblk + ((size_t)gu * a.Hp + k) * a.NU + ju) = pk;
+        }
+      }
+  }
+  // this block's tiles of h0 into slot 0; rows past B zero in both slots
+  for (int gb = gb0; gb < a.gB; gb += a.gBr)
+    for (int i = tid; i < a.MB * nu; i += kStreamThreads) {
+      const int r = gb * a.MB + i / nu, u = n0 + i % nu;
+      const size_t e = h_index(r, u, Bp);
+      a.hblk[e] = __float2bfloat16_rn(
+          r < a.B && u < a.H ? a.h0[(size_t)r * a.H + u] : 0.f);
+      if (r >= a.B) a.hblk[slot_elems + e] = __float2bfloat16_rn(0.f);
+    }
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kStreamWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();
+  clk.lap(kLoads);   // the prologue: W_hh rounded, h0
+  prologue_barrier(a.bar, a.gBr * a.gN);
+  clk.lap(kWait);
+
+  auto stage_w = [&](int slot) {
+    return reinterpret_cast<bf16*>(smem + slot * stage_bytes);
+  };
+  auto stage_h = [&](int slot) { return stage_w(slot) + kStreamK * a.NU; };
+
+  if (warp == kStreamWarps) {        // the copy warp: one thread
+    if (lane != 0) return;
+    fence_proxy_async();
+    const uint32_t w_bytes = kStreamK * a.NU * sizeof(bf16);
+    const uint32_t h_bytes = a.MB * kStreamK * sizeof(bf16);
+    // ring stage st (the call's running count) holds K stage k of a tile,
+    // rotated: this block's k-th is rot + k
+    auto issue_w = [&](int st, int k) {
+      const int slot = st % S, kr = (rot + k) % nk;
+      if (st >= S) mbar_wait(empty + slot, (st / S - 1) & 1);
+#ifndef GASR_PROBE_NO_LOADS
+      bulk_copy(stage_w(slot),
+                a.wblk + ((size_t)gn * a.Hp + (size_t)kr * kStreamK) * a.NU,
+                w_bytes, full + slot, false);
+#endif
+    };
+    auto issue_h = [&](int st, int k, const bf16* h_r, int gb) {
+      const int slot = st % S, kr = (rot + k) % nk;
+#ifndef GASR_PROBE_NO_LOADS
+      bulk_copy(stage_h(slot),
+                h_r + ((size_t)kr * Bp + (size_t)gb * a.MB) * kStreamK,
+                h_bytes, full + slot, true);
+#else
+      mbar_arrive(full + slot);
+#endif
+    };
+    int st = 0;
+    for (int s = 0; s < a.T; ++s) {
+      const bf16* h_r = a.hblk + (size_t)(s & 1) * slot_elems;
+      for (int gb = gb0; gb < a.gB; gb += a.gBr) {
+        const int pre = (gb == gb0 && s > 0) ? min(S, nk) : 0;
+        for (int k = 0; k < pre; ++k) issue_w(st + k, k);   // no h needed
+        if (pre > 0) {               // the step barrier: h_{t-1} is whole
+#ifndef GASR_PROBE_NO_BARRIER
+          wait_word(counter, (unsigned long long)a.gN * s);
+#endif
+          fence_proxy_async();
+        }
+        for (int k = 0; k < nk; ++k) {
+          if (k >= pre) issue_w(st + k, k);
+          issue_h(st + k, k, h_r, gb);
+        }
+        st += nk;
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warps
+  const int wn = warp % a.WGN, wm = (warp / a.WGN) % a.WGM;
+  const int kw = warp / (a.WGN * a.WGM);
+  const int ntiles = nu / 8;
+  const int nt_w = ntiles / a.WGN + (wn < ntiles % a.WGN);
+  const int j0 = wn * (ntiles / a.WGN) + min(wn, ntiles % a.WGN);
+  const int n16 = kStreamK / a.WGK / 16;        // k16 steps a stage
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  // this lane's ldmatrix rows: A, row r_m of m16 tile m (its swizzle);
+  // B, the W tile's k row and the column of n8 tile i (tiles past the
+  // warp's last read its last: products never stored)
+  int a_off[MT], a_swz[MT], b_col[NTW];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int row = (wm * MT + m) * 16 + a_row(lane);
+    a_off[m] = row * kStreamK;
+    a_swz[m] = row & 7;
+  }
+#pragma unroll
+  for (int i = 0; i < NTW; i += 2) {
+    const int last = max(j0 + nt_w - 1, 0);
+    b_col[i] = min(j0 + i + (lane >> 4), last) * 8;      // x4: tiles i, i+1
+    if (i + 1 < NTW) b_col[i + 1] = min(j0 + i + 1, last) * 8;
+    if (i + 1 == NTW) b_col[i] = min(j0 + i, last) * 8;  // x2: tile i
+  }
+  const int b_row = (lane & 7) + 8 * ((lane >> 3) & 1);
+
+  // this thread's xw elements of step s into L2, ahead of their use
+  auto prefetch_l2 = [&](int s) {
+    if (kw != 0) return;
+    const int t = a.reverse ? a.T - 1 - s : s;
+    for (int gb = gb0; gb < a.gB; gb += a.gBr)
+      for (int m = 0; m < MT; ++m)
+        for (int i = 0; i < nt_w; ++i)
+          for (int h = 0; h < 2; ++h) {
+            const int r = gb * a.MB + (wm * MT + m) * 16 + g + 8 * h;
+            const int u = n0 + (j0 + i) * 8 + c2;
+            if (r < a.B && u < a.H)
+              asm volatile("prefetch.global.L2 [%0];" ::"l"(
+                  a.xw + ((size_t)t * a.B + r) * a.H + u));
+          }
+  };
+  // the fragments of k16 step kk of a stage: A, this warp's rows of the h
+  // tile (swizzled chunks); B, its n8 tiles of the W tile (k-major)
+  auto load_frags = [&](const bf16* hs, const bf16* ws, int kk,
+                        uint32_t (&af)[MT][4], uint32_t (&bf)[NTW][2]) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int q = (kk + a_col(lane)) >> 3;
+      ldsm_x4(af[m], hs + a_off[m] + ((q ^ a_swz[m]) << 3));
+    }
+    const bf16* wk = ws + (kk + b_row) * a.NU;
+#pragma unroll
+    for (int i = 0; i < NTW; i += 2) {
+      if (i + 1 < NTW) {
+        uint32_t q4[4];
+        ldsm_x4_t(q4, wk + b_col[i]);
+        bf[i][0] = q4[0];
+        bf[i][1] = q4[1];
+        bf[i + 1][0] = q4[2];
+        bf[i + 1][1] = q4[3];
+      } else {
+        ldsm_x2_t(bf[i], wk + b_col[i]);
+      }
+    }
+  };
+  auto products = [&](float (&acc)[MT][NTW][4], const uint32_t (&af)[MT][4],
+                      const uint32_t (&bf)[NTW][2]) {
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        mma16816(acc[m][i], af[m], bf[i][0], bf[i][1]);
+  };
+
+  prefetch_l2(0);
+  float acc[MT][NTW][4];
+  int st = 0;
+  for (int s = 0; s < a.T; ++s) {
+    const int t = a.reverse ? a.T - 1 - s : s;
+    bf16* h_w = a.hblk + (size_t)((s + 1) & 1) * slot_elems;
+    for (int gb = gb0; gb < a.gB; gb += a.gBr) {
+      const int b0 = gb * a.MB;
+      // the accumulators start from xw[t] (K slice 0; the others from 0):
+      // its loads land while the stages do, off the step's critical path
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < NTW; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = b0 + (wm * MT + m) * 16 + g + 8 * h;
+            const int u = n0 + (j0 + i) * 8 + c2;
+            const float* x = a.xw + ((size_t)t * a.B + r) * a.H + u;
+            float2 v = make_float2(0.f, 0.f);
+            if (kw == 0 && i < nt_w && r < a.B) {
+              if (a.vec && u + 1 < a.H) {
+                v = __ldg(reinterpret_cast<const float2*>(x));
+              } else {
+                if (u < a.H) v.x = __ldg(x);
+                if (u + 1 < a.H) v.y = __ldg(x + 1);
+              }
+            }
+            acc[m][i][2 * h] = v.x;
+            acc[m][i][2 * h + 1] = v.y;
+          }
+      for (int k = 0; k < nk; ++k, ++st) {
+        const int slot = st % S;
+        mbar_wait(full + slot, (st / S) & 1);
+        clk.lap(kLoads);
+        const bf16* hs = stage_h(slot);
+        const bf16* ws = stage_w(slot);
+        const int k0 = kw * n16 * 16;
+        uint32_t af0[MT][4], bf0[NTW][2], af1[MT][4], bf1[NTW][2];
+        load_frags(hs, ws, k0, af0, bf0);
+        if (n16 == 1) {
+          products(acc, af0, bf0);
+        } else {   // k16 step x + 1's fragments load while x multiplies
+          for (int x = 0; x < n16; x += 2) {
+            load_frags(hs, ws, k0 + 16 * (x + 1), af1, bf1);
+            products(acc, af0, bf0);
+            if (x + 2 < n16) load_frags(hs, ws, k0 + 16 * (x + 2), af0, bf0);
+            products(acc, af1, bf1);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);   // the slot is free
+        clk.lap(kProducts);
+      }
+
+      // the K slices' partial tiles, summed in K order by slice 0's warps
+      if (a.WGK > 1) {
+        if (kw > 0) {
+          float* p = red + (size_t)(kw - 1) * a.MB * LDR;
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int i = 0; i < NTW; ++i)
+              if (i < nt_w)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  *reinterpret_cast<float2*>(
+                      p + ((wm * MT + m) * 16 + g + 8 * h) * LDR +
+                      (j0 + i) * 8 + c2) =
+                      make_float2(acc[m][i][2 * h], acc[m][i][2 * h + 1]);
+        }
+        consumers_sync();
+        if (kw == 0)
+          for (int q = 0; q < a.WGK - 1; ++q) {
+            const float* p = red + (size_t)q * a.MB * LDR;
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int i = 0; i < NTW; ++i)
+                if (i < nt_w)
+#pragma unroll
+                  for (int h = 0; h < 2; ++h) {
+                    const float2 v = *reinterpret_cast<const float2*>(
+                        p + ((wm * MT + m) * 16 + g + 8 * h) * LDR +
+                        (j0 + i) * 8 + c2);
+                    acc[m][i][2 * h] += v.x;
+                    acc[m][i][2 * h + 1] += v.y;
+                  }
+          }
+        consumers_sync();            // red is read before it is rewritten
+        clk.lap(kClusterSync);
+      }
+#ifndef GASR_PROBE_NO_EPILOGUE
+      if (kw == 0) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int i = 0; i < NTW; ++i)
+            if (i < nt_w)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = b0 + (wm * MT + m) * 16 + g + 8 * h;
+                const int u = n0 + (j0 + i) * 8 + c2;
+                if (r >= a.B) continue;
+                const size_t o = ((size_t)t * a.B + r) * a.H + u;
+                const float y0 = tanhf(acc[m][i][2 * h]);
+                const float y1 = tanhf(acc[m][i][2 * h + 1]);
+#ifndef GASR_PROBE_NO_OUT
+                if (a.vec && u + 1 < a.H) {
+                  *reinterpret_cast<float2*>(a.out + o) =
+                      make_float2(y0, y1);
+                } else {
+                  if (u < a.H) a.out[o] = y0;
+                  if (u + 1 < a.H) a.out[o + 1] = y1;
+                }
+#endif
+                *reinterpret_cast<__nv_bfloat162*>(h_w +
+                                                   h_index(r, u, Bp)) =
+                    __floats2bfloat162_rn(y0, y1);
+              }
+      }
+#endif
+      clk.lap(kEpilogue);
+    }
+    if (s + 1 < a.T) {
+      prefetch_l2(s + 1);
+      fence_proxy_async();           // h_t, for the next step's copies
+      consumers_sync();
+      if (tid == 0) {                // the block's arrival
+        __threadfence();
+#ifndef GASR_PROBE_NO_BARRIER
+        asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(
+                         counter)
+                     : "memory");
+#endif
+      }
+    }
+  }
+  clk.flush(a.clocks);
+}
+
+typedef void (*StreamKernel)(StreamArgs);
+// the instantiation for MT m16 tiles and at most ntw n8 tiles a warp
+template <int MT>
+StreamKernel pick_ntw(int ntw) {
+  switch (ntw) {
+    case 1: return rnn_stream_kernel<MT, 1>;
+    case 2: return rnn_stream_kernel<MT, 2>;
+    case 3: return rnn_stream_kernel<MT, 3>;
+    case 4: return rnn_stream_kernel<MT, 4>;
+    case 5: return rnn_stream_kernel<MT, 5>;
+    case 6: return rnn_stream_kernel<MT, 6>;
+    case 7: return rnn_stream_kernel<MT, 7>;
+    case 8: return rnn_stream_kernel<MT, 8>;
+    default: return nullptr;
+  }
+}
+StreamKernel pick_stream(int mt, int ntw) {
+  return mt == 1 ? pick_ntw<1>(ntw) : mt == 2 ? pick_ntw<2>(ntw) : nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -427,6 +894,66 @@ int rnn_scan_launch(const float* xw, const float* w, const float* h0, int T,
   return (int)launch_cooperative(kernel, dim3(G * kCluster), kThreads,
                                  smem_bytes(NU, a.Kb, MB), kCluster, stream,
                                  a);
+}
+
+
+// The streamed design. Shared memory of a block: S ring stages of an MB-row
+// h tile and an NU-unit W tile, and the partial tiles of WGK - 1 K slices.
+int rnn_stream_smem(int MB, int NU, int WGK, int S) {
+  return (int)stream_smem(MB, NU, WGK, S);
+}
+
+// How many blocks of the streamed design (smem bytes each) the current card
+// holds at once: SMs times blocks an SM (0 when none fits).
+int rnn_stream_max_blocks(int smem) {
+  if (smem > kSmemMax) return 0;
+  const StreamKernel kernel = pick_stream(2, 8);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kStreamThreads,
+                                                    smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return per_sm * sms;
+}
+
+// One launch for the whole recurrence on gBr x gN blocks (gB batch tiles
+// of MB rows, a multiple of 16 up to 128, walked by gBr block rows; unit
+// tiles of NU, a multiple of 8; warps WGM x WGN x WGK = 8; S ring stages).
+// wblk [gN, Hp, NU] bf16, hblk [2, Hp / 128, gB MB, 128] bf16 and bar (gBr
+// gN 64-bit words) are scratch, all 16-byte aligned. vec: H even and xw,
+// out 8-byte aligned.
+int rnn_stream_launch(const float* xw, const float* w, const float* h0,
+                      int T, int B, int H, int Hp, int MB, int gB, int gBr,
+                      int NU, int gN, int WGM, int WGN, int WGK, int S,
+                      int reverse, int vec, float* out, bf16* wblk,
+                      bf16* hblk, unsigned long long* bar,
+                      unsigned long long* clocks, cudaStream_t stream) {
+  if (Hp % kStreamK != 0 || Hp < H || T < 1 || B < 1 || MB % 16 != 0 ||
+      MB < 16 || MB > 128 || (size_t)gB * MB < (size_t)B ||
+      (size_t)(gB - 1) * MB >= (size_t)B || gBr < 1 || gBr > gB ||
+      NU % 8 != 0 ||
+      (size_t)gN * NU < (size_t)Hp || (size_t)(gN - 1) * NU >= (size_t)Hp ||
+      WGM * WGN * WGK != kStreamWarps || (MB / 16) % WGM != 0 ||
+      MB / 16 / WGM > 2 || kStreamK % (16 * WGK) != 0 || S < 2 ||
+      S > kStreamMaxStages)
+    return (int)cudaErrorInvalidValue;
+  const int ntw = (NU / 8 + WGN - 1) / WGN;
+  const StreamKernel kernel = pick_stream(MB / 16 / WGM, ntw);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = stream_smem(MB, NU, WGK, S);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  StreamArgs a{xw, w, h0, out, wblk, hblk, bar, clocks, T, B, H, Hp, MB,
+               gB, gBr, NU, gN, WGM, WGN, WGK, S, reverse, vec};
+  return (int)launch_cooperative(kernel, dim3(gBr * gN), kStreamThreads,
+                                 smem, 1, stream, a);
 }
 
 }  // extern "C"

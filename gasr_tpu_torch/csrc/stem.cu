@@ -27,16 +27,20 @@
 // Design (times: NVIDIA H100, scripts/torch_stem_probe.py; PERF.md).
 // stem_conv_kernel: one block per (BM = 128 conv2 rows, BN = 256 output
 // channels, 128 where d is not a multiple of 256; b), 12 warps in three
-// roles. The rows are (t2, f2) flattened within one b, m = t2 F2 + f2, so
-// a tile covers t2 in [ta, tb] and needs h1 rows 2ta .. 2tb + 2 (R =
-// 2(tb - ta) + 3, at most 17 at F2 = 20) and every column 0 .. F1: the
-// region. K = 9 d runs as 32-channel chunks, each chunk's nine taps in
-// turn, one tap a stage.
+// roles. conv2's columns f2 are cut into windows of at most 24 (one
+// window up to F = 96; F = 128 two of 16, F = 512 six of 21 or 22); the
+// rows of a window are (t2, f2) flattened within one b, m = t2 fw + f2 -
+// fa, so a tile covers t2 in [ta, tb] and needs h1 rows 2ta .. 2tb + 2 (R
+// = 2(tb - ta) + 3, at most 17 at fw = 20) and the window's columns 2 fa
+// .. 2 (fa + fw): the region, at most 735 positions at any F, so the
+// shared memory does not grow with F (the window's last column is
+// computed again by the next window). K = 9 d runs as 32-channel chunks,
+// each chunk's nine taps in turn, one tap a stage.
 //   - Setup: the im2col of the x under the region (x read through its
 //     strides, rounded to bf16; x row T and column F are zeros), [P][16]
 //     bf16 as 8 x 8 core matrices, and a table of each position's place
 //     in the region (kZero at conv2's pad).
-//   - The region of a chunk (R x (F1 + 1) positions x 32 channels, bf16)
+//   - The region of a chunk (R x (2 fw + 1) positions x 32 channels, bf16)
 //     is conv1 by mma.sync m16n8k16 on that im2col (9 taps padded to 16)
 //     + b1, clipped, in two shared-memory buffers; the row at T1 and the
 //     column at F1 are written as zeros, never computed. Chunk 0 by the
@@ -73,10 +77,8 @@
 // memory. A cluster of blocks sharing each w2 stage by multicast (each w2
 // byte for 256 or 512 rows) was slower here: the blocks wait for each
 // other at every stage.
-// Shared memory (F = 80, d = 512): the ring 5 x 16 KB, two regions of
-// 697 x 80 bytes, the im2col 22.5 KB, the table: 219 KB, one block an SM.
-// The wrapper asks `stem_conv_smem` and refuses shapes above 227 KB
-// (F > 120 at d = 512).
+// Shared memory (d = 512, any F): the ring 5 x 16 KB, two regions of
+// 735 x 80 bytes, the im2col 23 KB, the table: 221 KB, one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -362,41 +364,68 @@ __device__ __forceinline__ float clip20(float y) {
   return fminf(fmaxf(y, 0.f), 20.f);
 }
 
-// Geometry of conv2's row tile m0 .. m0 + BM - 1 of one b.
-struct Tile {
-  int ta, R;         // first t2, h1 region rows (2 ta .. 2 ta + R - 1)
-};
+// f2 windows. conv2's columns f2 are cut into NW windows of fw = F2 / NW
+// or F2 / NW + 1 consecutive columns (the first F2 % NW windows one more),
+// NW = ceil(F2 / kWindowMax) (the wrapper's `f2_windows`). A window's rows
+// are (t2, f2 - fa) flattened, m = t2 fw + f2 - fa, cut into tiles of BM
+// rows; a tile covers t2 in [ta, tb] and needs h1 rows 2 ta .. 2 tb + 2
+// and the window's h1 columns 2 fa .. 2 (fa + fw): its region of R (2 fw
+// + 1) positions, at most kRegionMax for any fw in [2, kWindowMax] and
+// any T. The shared memory is therefore the same at every F.
+constexpr int kWindowMax = 24;
 
-__device__ __forceinline__ Tile tile_of(int m0, int T2, int F2) {
-  const int ta = m0 / F2;
-  const int tb = min((m0 + BM - 1) / F2, T2 - 1);
-  return {ta, 2 * (tb - ta) + 3};
+// Most h1 region positions of a tile of a window of fw columns (T
+// unbounded): (2 span + 3) rows of 2 fw + 1.
+__host__ __device__ constexpr int region_positions(int fw) {
+  return (2 * ((fw - 1 + BM - 1) / fw) + 3) * (2 * fw + 1);
 }
 
-// Most h1 region positions of a row tile.
-__host__ __device__ __forceinline__ int region_positions(int T, int F) {
-  const int T2 = T / 4, F2 = F / 4;
-  const int span = (F2 - 1 + BM - 1) / F2;
-  return (2 * (span < T2 - 1 ? span : T2 - 1) + 3) * (F / 2 + 1);
+__host__ __device__ constexpr int region_max(int lo, int hi) {
+  int most = 0;
+  for (int fw = lo; fw <= hi; ++fw)
+    most = region_positions(fw) > most ? region_positions(fw) : most;
+  return most;
+}
+
+constexpr int kRegionMax = region_max(2, kWindowMax);   // 735
+constexpr int kRegion16 = (kRegionMax + 15) / 16 * 16;
+
+// Geometry of a block: window w of NW (first column fa, fw columns) and
+// its row tile m0 .. m0 + BM - 1.
+struct Tile {
+  int fa, fw;        // the window's first f2 and its columns
+  int m0, ta, R;     // first row, first t2, h1 region rows (2 ta ..)
+};
+
+__device__ __forceinline__ Tile tile_of(int y, int tiles, int NW, int T2,
+                                        int F2) {
+  const int w = y / tiles, q = F2 / NW, rem = F2 % NW;
+  const int fw = q + (w < rem), fa = w * q + min(w, rem);
+  const int m0 = (y % tiles) * BM;
+  const int ta = m0 / fw;
+  const int tb = min((m0 + BM - 1) / fw, T2 - 1);
+  return {fa, fw, m0, ta, 2 * (tb - ta) + 3};
 }
 
 // Shared memory of stem_conv_kernel: the w2 ring [S][CK x BN] bf16, two
-// regions [P][LDA] bf16, the im2col of x [P16][16] bf16, the position
-// table [P16] int, the barriers (the ring's, the regions' full and
-// empty). The epilogue's h2 staging [BM][BN + 8] bf16 overlays the ring
-// and the regions.
-size_t conv_smem(int BN, int T, int F, int S) {
-  const size_t P = region_positions(T, F), P16 = (P + 15) / 16 * 16;
-  return (size_t)S * CK * BN * sizeof(bf16) + 2 * P * LDA * sizeof(bf16) +
-         P16 * 16 * sizeof(bf16) + P16 * sizeof(int) +
+// regions [kRegionMax][LDA] bf16, the im2col of x [kRegion16][16] bf16,
+// the position table [kRegion16] int, the barriers (the ring's, the
+// regions' full and empty). The epilogue's h2 staging [BM][BN + 8] bf16
+// overlays the ring and the regions. No term depends on T or F.
+__host__ __device__ constexpr size_t conv_smem(int BN, int S) {
+  return (size_t)S * CK * BN * sizeof(bf16) +
+         2 * (size_t)kRegionMax * LDA * sizeof(bf16) +
+         (size_t)kRegion16 * 16 * sizeof(bf16) + kRegion16 * sizeof(int) +
          (2 * S + 4) * sizeof(uint64_t);
 }
 
-int conv_stages(int BN, int T, int F) {
-  for (int S = 6; S > 4; --S)
-    if (conv_smem(BN, T, F, S) <= (size_t)kSmemMax) return S;
-  return 4;
+__host__ __device__ constexpr int conv_stages(int BN) {
+  return conv_smem(BN, 6) <= (size_t)kSmemMax
+             ? 6
+             : (conv_smem(BN, 5) <= (size_t)kSmemMax ? 5 : 4);
 }
+static_assert(conv_smem(256, conv_stages(256)) <= (size_t)kSmemMax,
+              "stem_conv_kernel's shared memory");
 
 template <int BN>
 __global__ void __launch_bounds__(kConvThreads, 1)
@@ -404,17 +433,18 @@ stem_conv_kernel(const float* __restrict__ x, long long sx_b, long long sx_t,
                  long long sx_f, const bf16* __restrict__ w1t,
                  const float* __restrict__ b1, const bf16* __restrict__ w2s,
                  const float* __restrict__ b2, bf16* __restrict__ h2, int T,
-                 int F, int d, int S) {
+                 int F, int d, int NW, int tiles) {
   constexpr int kStage = CK * BN;    // bf16 a w2 stage
+  constexpr int S = conv_stages(BN);
+  constexpr int P_max = kRegionMax, P16_max = kRegion16;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int T1 = T / 2, F1 = F / 2, T2 = T / 4, F2 = F / 4;
-  const int PW = F1 + 1;             // region positions a row
-  const int HE = F1 / 2 + 1;         // even columns 0, 2, .., F1 first
-  const int rows = T2 * F2;          // conv2 rows of one b
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, b = blockIdx.z;
-  const Tile tl = tile_of(m0, T2, F2);
-  const int P_max = region_positions(T, F);
-  const int P16_max = (P_max + 15) / 16 * 16;
+  const Tile tl = tile_of(blockIdx.y, tiles, NW, T2, F2);
+  const int PW = 2 * tl.fw + 1;      // region positions a row
+  const int HE = tl.fw + 1;          // even columns 0, 2, .., 2 fw first
+  const int rows = T2 * tl.fw;       // conv2 rows of the window of one b
+  const int n0 = blockIdx.x * BN, m0 = tl.m0, b = blockIdx.z;
+  if (m0 >= rows) return;            // a narrower window's spare tile
   const int P = tl.R * PW, NT = (P + 15) / 16;
 
   bf16* ring = reinterpret_cast<bf16*>(smem);              // [S][kStage]
@@ -436,8 +466,9 @@ stem_conv_kernel(const float* __restrict__ x, long long sx_b, long long sx_t,
     }
   }
   // im2col of the x under the region: position p = r PW + c (h1 row
-  // 2 ta + r, column c) holds bf16(x[4 ta + 2r + ki, 2c + kj]) at k =
-  // 3 ki + kj < 9 (x row T and column F: the zero pad), zeros at k >= 9,
+  // 2 ta + r, column 2 fa + c) holds bf16(x[4 ta + 2r + ki, 4 fa + 2c +
+  // kj]) at k = 3 ki + kj < 9 (x row T and column F: the zero pad), zeros
+  // at k >= 9,
   // as K-major 8 x 8 core matrices (row p's halves k 0-7 and 8-15 at
   // ((p / 8) 2 + half) 128 + (p % 8) 16 bytes: the eight rows of an
   // ldmatrix are 128 contiguous bytes). table[p]: where the position sits
@@ -447,11 +478,12 @@ stem_conv_kernel(const float* __restrict__ x, long long sx_b, long long sx_t,
   for (int p = tid; p < NT * 16 && tid < kThreads; p += kThreads) {
     const int r = p / PW, c = p % PW;
     uint32_t v[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-    const bool pad = 2 * tl.ta + r >= T1 || c >= F1;
+    const bool pad = 2 * tl.ta + r >= T1 || 2 * tl.fa + c >= F1;
     if (p < P && !pad) {
 #pragma unroll
       for (int k = 0; k < 9; ++k) {
-        const int t = 4 * tl.ta + 2 * r + k / 3, f = 2 * c + k % 3;
+        const int t = 4 * tl.ta + 2 * r + k / 3;
+        const int f = 4 * tl.fa + 2 * c + k % 3;
         const float xv = (t < T && f < F) ? xb[t * sx_t + f * sx_f] : 0.f;
         v[k / 2] |= (uint32_t)__bfloat16_as_ushort(__float2bfloat16(xv))
                     << (16 * (k % 2));
@@ -565,7 +597,7 @@ stem_conv_kernel(const float* __restrict__ x, long long sx_b, long long sx_t,
   // each warp 16 of them): its region position at tap (0, 0)
   const int a_row = 64 * (warp / 4) + 16 * (warp % 4) + lane % 16;
   const int a_m = min(m0 + a_row, rows - 1);
-  const int a_pos = 2 * (a_m / F2 - tl.ta) * PW + a_m % F2;
+  const int a_pos = 2 * (a_m / tl.fw - tl.ta) * PW + a_m % tl.fw;
   const int a_col = (lane / 16) * 8;
 
   float acc[BN / 2];
@@ -615,7 +647,8 @@ stem_conv_kernel(const float* __restrict__ x, long long sx_b, long long sx_t,
   fence_acc(acc);
 
   // + b2, clip, bf16, staged in shared memory [BM][BN + 8] (over the ring
-  // and the regions), then 16-byte rows of h2 (rows b * rows + m)
+  // and the regions), then 16-byte rows of h2 (window row t2 fw + j is h2
+  // row (b T2 + t2) F2 + fa + j)
   consumers_sync();
   constexpr int SLD = BN + 8;
   bf16* st = reinterpret_cast<bf16*>(smem);
@@ -632,12 +665,15 @@ stem_conv_kernel(const float* __restrict__ x, long long sx_b, long long sx_t,
     }
   }
   consumers_sync();
-  bf16* hb = h2 + ((long long)b * rows + m0) * d + n0;
   for (int i = tid; i < BM * (BN / 8); i += kThreads) {
     const int m = i / (BN / 8), c = (i % (BN / 8)) * 8;
-    if (m0 + m < rows)
-      *reinterpret_cast<uint4*>(hb + (long long)m * d + c) =
+    const int mw = m0 + m;
+    if (mw < rows) {
+      const long long row = ((long long)b * T2 + mw / tl.fw) * F2 + tl.fa +
+                            mw % tl.fw;
+      *reinterpret_cast<uint4*>(h2 + row * d + n0 + c) =
           *reinterpret_cast<const uint4*>(st + m * SLD + c);
+    }
   }
 }
 
@@ -742,17 +778,18 @@ template <int BN>
 int conv_launch(const float* x, long long sx_b, long long sx_t,
                 long long sx_f, const bf16* w1t, const float* b1,
                 const bf16* w2s, const float* b2, bf16* h2, int B, int T,
-                int F, int d, cudaStream_t stream) {
-  const int S = conv_stages(BN, T, F);
-  const size_t smem = conv_smem(BN, T, F, S);
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+                int F, int d, int NW, cudaStream_t stream) {
+  constexpr size_t smem = conv_smem(BN, conv_stages(BN));
   cudaError_t err = cudaFuncSetAttribute(
       stem_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / BN, ((T / 4) * (F / 4) + BM - 1) / BM, B);
+  // tiles a window: those of the widest (the narrower skip their spare)
+  const int F2 = F / 4, fw_max = F2 / NW + (F2 % NW > 0);
+  const int tiles = ((T / 4) * fw_max + BM - 1) / BM;
+  const dim3 grid(d / BN, NW * tiles, B);
   stem_conv_kernel<BN><<<grid, kConvThreads, smem, stream>>>(
-      x, sx_b, sx_t, sx_f, w1t, b1, w2s, b2, h2, T, F, d, S);
+      x, sx_b, sx_t, sx_f, w1t, b1, w2s, b2, h2, T, F, d, NW, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -772,31 +809,35 @@ int proj_launch(const bf16* A, const bf16* wps, const float* bias, int M,
 
 }  // namespace
 
-// Shared memory of stem_conv_kernel at (T, F, d), in bytes (at most
-// 2^31 - 1); the wrapper refuses shapes above 232,448 before a launch.
-extern "C" int stem_conv_smem(int T, int F, int d) {
-  const int BN = d % 256 ? 128 : 256;
-  const size_t n = conv_smem(BN, T, F, conv_stages(BN, T, F));
-  return n > 0x7fffffff ? 0x7fffffff : (int)n;
+// Shared memory of a stem_conv_kernel block at width d, in bytes: the
+// same at every T and F.
+extern "C" int stem_conv_smem(int d) {
+  return (int)(d % 256 ? conv_smem(128, conv_stages(128))
+                       : conv_smem(256, conv_stages(256)));
 }
+
+// The most f2 columns a window holds (the wrapper's NW = ceil(F2 / it)).
+extern "C" int stem_window_max() { return kWindowMax; }
 
 // conv1 + conv2: x [B, T, F] float32 (strides in elements), w1t [d, 16]
 // bf16 (channel, tap 3 ki + kj; taps 9..15 zero), b1 [d] float32, w2s
 // the staged w2 (`conv_w2_stages`), b2 [d] float32 -> h2 [B, T/4, F/4, d]
-// bf16. T, F multiples of 4, T, F >= 8, d a multiple of 128 up to 1024;
-// w1t, w2s and h2 16-byte aligned.
+// bf16, in NW f2 windows of 2 .. kWindowMax columns. T, F multiples of 4,
+// T, F >= 8, d a multiple of 128 up to 1024; w1t, w2s and h2 16-byte
+// aligned.
 extern "C" int stem_conv_launch(const float* x, long long sx_b,
                                 long long sx_t, long long sx_f,
                                 const bf16* w1t, const float* b1,
                                 const bf16* w2s, const float* b2, bf16* h2,
-                                int B, int T, int F, int d,
+                                int B, int T, int F, int d, int NW,
                                 cudaStream_t stream) {
-  if (T % 4 || F % 4 || T < 8 || F < 8 || d % 128 || d > 1024)
+  if (T % 4 || F % 4 || T < 8 || F < 8 || d % 128 || d > 1024 || NW < 1 ||
+      F / 4 / NW < 2 || F / 4 / NW + (F / 4 % NW > 0) > kWindowMax)
     return (int)cudaErrorInvalidValue;
   return d % 256 ? conv_launch<128>(x, sx_b, sx_t, sx_f, w1t, b1, w2s, b2,
-                                    h2, B, T, F, d, stream)
+                                    h2, B, T, F, d, NW, stream)
                  : conv_launch<256>(x, sx_b, sx_t, sx_f, w1t, b1, w2s, b2,
-                                    h2, B, T, F, d, stream);
+                                    h2, B, T, F, d, NW, stream);
 }
 
 // sub_proj: h2 [M, K] bf16 (M = B T2, K = F2 d) @ wp + bp [N] float32 ->

@@ -43,16 +43,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_mhsa": {"flash_mhsa_rel_launch": [_P] * 8 + [_I] * 4 + [_L] * 9
                    + [_F, _I, _I, _P]},
     "stem": {
-        "stem_conv_launch": [_P, _L, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
+        "stem_conv_launch": [_P, _L, _L, _L] + [_P] * 5 + [_I] * 5 + [_P],
         "stem_proj_launch": [_P] * 3 + [_I] * 4 + [_P, _P],
-        "stem_conv_smem": [_I] * 3,
+        "stem_conv_smem": [_I],
+        "stem_window_max": [],
     },
     "topk": {"topk_launch": [_P, _I, _I, _I, _P, _P, _P]},
     "fused_decode": {
         "fused_prefix_decode_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P,
                                        _P, _P],
         "fused_prefix_decode_info": [_I, _I, _I, _IP, _IP, _IP],
-        "traceback_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "traceback_launch": [_P, _P] + [_I] * 6 + [_P] * 4,
+        "traceback_smem": [_I] * 5,
         "traceback_overlay_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                      _P, _P, _P],
     },
@@ -68,7 +70,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "rnn_scan": {"rnn_scan_launch": [_P] * 3 + [_I] * 9 + [_P] * 5,
                  "rnn_scan_smem": [_I] * 3,
-                 "rnn_scan_max_clusters": [_I] * 3},
+                 "rnn_scan_max_clusters": [_I] * 3,
+                 "rnn_stream_launch": [_P] * 3 + [_I] * 15 + [_P] * 6,
+                 "rnn_stream_smem": [_I] * 4,
+                 "rnn_stream_max_blocks": [_I]},
     "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 8 + [_P] * 6,
                   "lstm_scan_smem": [_I],
                   "lstm_scan_max_blocks": [_I]},
@@ -82,9 +87,9 @@ def scan_supported(B: int, H: int) -> bool:
     (`gasr_tpu/ops/pallas/rnn_scan.py:96-115`, `lstm_scan.py:83-97`):
     `rnn_forward` / `lstm_forward` with impl="pallas" take the rnn_scan /
     lstm_scan kernel at these (batch, hidden) shapes and the float32 loop
-    at any other. The wrappers themselves take every B, and H up to
-    their resident limits (`rnn_scan.max_hidden`,
-    `lstm_scan.max_hidden`)."""
+    at any other. The Elman wrapper takes every H (past its resident
+    limit `rnn_scan.max_hidden`, the streamed design); the LSTM wrapper H
+    up to its resident limit (`lstm_scan.max_hidden`)."""
     return H % 128 == 0 and B % 8 == 0
 
 

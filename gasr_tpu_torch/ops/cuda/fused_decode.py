@@ -14,9 +14,13 @@ bigram table) it launches the kernel's shallow-fusion instantiation,
 which adds lm_q[last + 1, v] to every extend (JAX's `lm_q` variant).
 
 `traceback` replaces `fused_decode.py::traceback_pallas`
-(`_tb_kernel(fused=False)`): one thread per (utterance, slot) walks ys
-backwards and writes tokens and frame indices [B, W, L] (-1 where
-nothing was emitted) and the start slot.
+(`_tb_kernel(fused=False)`): one block per utterance (a few where W >
+128) stages ys in shared memory in chunks of frames from the end
+backwards, one thread per slot walks them and collects its row's
+emissions on chip, and every row goes out once, coalesced, its -1 cells
+included; tokens and frame indices [B, W, L] and the start slot.
+`traceback_plan` gives the chunk length and blocks an utterance,
+`traceback_passes` the rest.
 
 `traceback_overlay` replaces `fused_decode.py::traceback_overlay_pallas`
 (`_tb_kernel(fused=True)`), the streaming chunk's traceback: one warp
@@ -178,6 +182,49 @@ def fused_prefix_decode(log_probs: torch.Tensor, init, blank_id: int = 0,
     return unpack_state(fin), ys
 
 
+# the traceback kernel's blocks (csrc/fused_decode.cu): at most TB_ROWS
+# slots a block, chunks of at most TB_MAX_CHUNK frames whose two staging
+# buffers take at most TB_STAGE_BYTES where one frame's do; the rows'
+# emission buffers take what is left of a block's SMEM_MAX
+TB_ROWS = 128
+TB_MAX_CHUNK = 64
+TB_STAGE_BYTES = 32 * 1024
+SMEM_MAX = 232448
+
+
+def traceback_plan(W: int):
+    """(TC, G): chunks of TC frames, G blocks an utterance (W / G slots
+    each, at most TB_ROWS); TC the largest power of two up to
+    TB_MAX_CHUNK whose two staged chunks fit TB_STAGE_BYTES (1 if none
+    does)."""
+    G = max(1, -(-W // TB_ROWS))
+    TC = TB_MAX_CHUNK
+    while TC > 1 and 2 * TC * W * 4 > TB_STAGE_BYTES:
+        TC //= 2
+    return TC, G
+
+
+def traceback_passes(T: int, W: int, L: int, TC: int, G: int):
+    """`tb_passes` of csrc/fused_decode.cu: (CAP, passes). A row keeps at
+    most min(L, T) emissions; CAP of them fit its buffer (4 bytes each
+    where T <= 2^17, else 6) beside the staged chunks; the walk runs once
+    per window of CAP (0 passes: not even one emission a row fits)."""
+    rows, need = -(-W // G), min(L, T)
+    entry = 4 if T <= 1 << 17 else 6
+    cap = min(need, (SMEM_MAX - 2 * TC * W * 4) // (rows * entry))
+    if need == 0:
+        return cap, 1
+    return cap, (-(-need // cap) if cap > 0 else 0)
+
+
+def traceback_smem(T: int, W: int, L: int, TC: int, G: int) -> int:
+    """`traceback_smem` of csrc/fused_decode.cu: the two staged chunks and
+    the rows' emission buffers of CAP entries."""
+    cap, _ = traceback_passes(T, W, L, TC, G)
+    entry = 4 if T <= 1 << 17 else 6
+    return 2 * TC * W * 4 + -(-W // G) * max(cap, 1) * entry
+
+
 def traceback(packed_ys: torch.Tensor, final_lengths: torch.Tensor, L: int):
     """packed_ys [T, B, W] int32, final_lengths [B, W] -> (tokens,
     timesteps [B, W, L] int32, -1 padded; start_parent [B, W] int32)."""
@@ -186,7 +233,9 @@ def traceback(packed_ys: torch.Tensor, final_lengths: torch.Tensor, L: int):
     if packed_ys.device.type != "cuda":
         raise ValueError(f"traceback: unsupported device {packed_ys.device}")
     T, B, W = packed_ys.shape
-    if W > 2 ** 15 or L < 0:
+    plan = traceback_plan(W) if W > 0 else (1, 1)
+    if W > 2 ** 15 or L < 0 or (
+            W > 0 and traceback_passes(T, W, L, *plan)[1] == 0):
         raise ValueError(f"traceback: W={W} / L={L} out of range")
     ys = packed_ys.to(torch.int32).contiguous()
     lens = final_lengths.to(device=ys.device, dtype=torch.int32).contiguous()
@@ -195,10 +244,11 @@ def traceback(packed_ys: torch.Tensor, final_lengths: torch.Tensor, L: int):
     start = torch.empty(B, W, dtype=torch.int32, device=ys.device)
     if B * W == 0:
         return tok, ts, start
+    TC, G = plan
     lib = _lib.load("fused_decode")
-    err = lib.traceback_launch(_lib.ptr(ys), _lib.ptr(lens), T, B, W, L,
-                               _lib.ptr(tok), _lib.ptr(ts), _lib.ptr(start),
-                               _lib.stream(ys.device))
+    err = lib.traceback_launch(_lib.ptr(ys), _lib.ptr(lens), T, B, W, L, TC,
+                               G, _lib.ptr(tok), _lib.ptr(ts),
+                               _lib.ptr(start), _lib.stream(ys.device))
     _lib.check(err, "traceback")
     global traceback_launches
     traceback_launches += 1

@@ -15,9 +15,11 @@ x row T or column F and conv2's at h1 row T/2 or column F/2 read zero).
 On the card a call is two kernels of `csrc/stem.cu` on the current
 stream: `stem_conv_kernel` computes h1 inside the kernel from x (read
 through its strides, no copy; a dtype other than float32 is converted
-first), one 32-channel chunk of the tile's h1 rows at a time in shared
+first), one 32-channel chunk of the tile's h1 region at a time in shared
 memory, and conv2 as an implicit GEMM over it, writing h2 [B, T/4, F/4,
-d] bf16 to a scratch tensor; `stem_proj_kernel` multiplies h2, seen as
+d] bf16 to a scratch tensor (conv2's columns in `f2_windows` windows of
+at most WINDOW_MAX, so that a block's shared memory is the same at any
+F); `stem_proj_kernel` multiplies h2, seen as
 [B T/4, (F/4) d], by wp and adds bp. No cuDNN or cuBLAS call; besides the
 kernels the wrapper only casts the weights to bf16 and lays w2 and wp
 out as the blocks the kernels copy in bulk (`conv_w2_stages`,
@@ -50,10 +52,17 @@ from gasr_tpu_torch.ops.linear import linear
 # stem_proj_kernel)
 launches = 0
 
-# K slice of the kernels' weight blocks (csrc/stem.cu); a block's shared
-# memory on the card
+# K slice of the kernels' weight blocks (csrc/stem.cu); the most f2
+# columns of a window of the conv kernel (csrc/stem.cu's kWindowMax)
 _CK = 32
-SMEM_MAX = 232448
+WINDOW_MAX = 24
+
+
+def f2_windows(F2: int) -> int:
+    """How many windows of consecutive f2 columns the conv kernel cuts
+    conv2's F2 columns into: the fewest of at most WINDOW_MAX columns,
+    F2 // NW or F2 // NW + 1 each (at least 2 each, since F2 >= 2)."""
+    return -(-F2 // WINDOW_MAX)
 
 
 def stem_eligible(T: int, F: int, d: int, dout: int) -> bool:
@@ -155,10 +164,6 @@ def fused_stem(x, w1, b1, w2, b2, wproj, bproj,
         if t.device != x.device:
             raise ValueError("fused_stem: all tensors must be on one device")
     lib = _lib.load("stem")
-    smem = lib.stem_conv_smem(T, Fr, d)
-    if smem > SMEM_MAX:
-        raise ValueError(f"fused_stem: F={Fr} needs {smem} bytes of shared "
-                         f"memory a block, above the card's {SMEM_MAX}")
     bf = torch.bfloat16
     if x.dtype != torch.float32:
         x = x.float()                                   # else read in place
@@ -176,7 +181,8 @@ def fused_stem(x, w1, b1, w2, b2, wproj, bproj,
     stream = _lib.stream(x.device)
     _lib.check(lib.stem_conv_launch(
         _lib.ptr(x), *x.stride(), _lib.ptr(w1k), _lib.ptr(b1f),
-        _lib.ptr(w2k), _lib.ptr(b2f), _lib.ptr(h2), B, T, Fr, d, stream),
+        _lib.ptr(w2k), _lib.ptr(b2f), _lib.ptr(h2), B, T, Fr, d,
+        f2_windows(F2), stream),
         "fused_stem (stem_conv_kernel)")
     _lib.check(lib.stem_proj_launch(
         _lib.ptr(h2), _lib.ptr(wpk), _lib.ptr(bpf), B * T2, F2 * d, dout,

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the persistent recurrence kernels goes, on one CUDA
-card, at reference_large's Elman shape and one deepspeech2 LSTM layer.
+card, at reference_large's Elman shape (the resident design), three
+Elman shapes past the resident limit (the streamed design: T=200 at (B,
+H) = (256, 4480), (8, 2816), (32, 5120)) and one deepspeech2 LSTM layer.
 
-    python3 scripts/torch_recurrence_probe.py
+    python3 scripts/torch_recurrence_probe.py [--quick]
 
 Builds these libraries from `gasr_tpu_torch/csrc/rnn_scan.cu` and
 `csrc/lstm_scan.cu` into `gasr_tpu_torch/_build/probe_rec/` (nvcc, the
@@ -12,10 +14,11 @@ flags of `ops/cuda/_lib.py`, `-Xptxas -v` for registers and spills):
     barrier, the copies and the epilogue alone (time only);
   - "no_barrier": without the step barrier's arrive and wait
     (-DGASR_PROBE_NO_BARRIER): wrong results, time only;
-  - "no_loads": without the copies of h into the ring
-    (-DGASR_PROBE_NO_LOADS): time only;
-  - "no_epilogue": without the cluster's sum / the LSTM cell and the
-    stores (-DGASR_PROBE_NO_EPILOGUE): time only;
+  - "no_loads": without the copies of h (and, streamed, of W_hh's
+    stages) into the ring (-DGASR_PROBE_NO_LOADS): time only;
+  - "no_epilogue": without the cluster's sum / the LSTM cell / the
+    streamed tile's tanh, and the stores (-DGASR_PROBE_NO_EPILOGUE): time
+    only;
   - "no_sum" (rnn_scan): each block adds its own partial tile eight times
     in place of reading its peers' over distributed shared memory
     (-DGASR_PROBE_NO_SUM), the tanh and every store kept: time only;
@@ -28,22 +31,29 @@ flags of `ops/cuda/_lib.py`, `-Xptxas -v` for registers and spills):
   - "clocks": with clock64() counters (-DGASR_PROBE_CLOCKS): thread 0 of
     every block adds each phase's cycles of every step, read back after
     one call: the wait at the step barrier (with the call's prologue:
-    W_hh and h0 in, and the first wait), the wait for the staged h, the
-    products, (rnn_scan) the partial tiles' store and the cluster
-    barrier, the epilogue (the cluster's sum or the LSTM cell, and the
-    stores), and each block's span (the clock rate it implies).
+    W_hh and h0 in, and the first wait), the wait for the staged h (and
+    W_hh's stages; streamed: also the step barrier, which the copy warp
+    waits at), the products, (rnn_scan) the partial tiles' store and the
+    cluster barrier or, streamed, the sum of the K slices' partial tiles,
+    the epilogue (the cluster's sum or the LSTM cell, and the stores),
+    and each block's span (the clock rate it implies).
 Each build is swapped in under the wrappers (`rnn_scan.rnn_scan`,
 `lstm_scan.lstm_scan`, `lstm_scan.lstm_scan_bidir`), so the shapes and
 plans are the path's. Inputs from a numpy seed: xw [200, 256, 2048], W_hh
-[2048, 2048] (reference_large); xw [300, 32, 2048] per direction, W_hh
-[512, 2048] (deepspeech2). Prints each build's registers, the kernel
-build's error against the plain version, the times (CUDA events, median
-of 5 rounds of 3 calls, the builds in turns) of each build and, beside
-the Elman kernel, of the bf16 `torch.matmul` + `tanh` loop that chip_smoke
-times as its library yardstick, the phase shares, and `torch.profiler`'s
-device kernels of one call of each (more than one kernel, or a cuBLAS or
-cuDNN kernel among them, fails the probe); then the card's name and power
-limit. Imports nothing of JAX. Needs a card.
+[2048, 2048] (reference_large); xw [200, B, H], W_hh [H, H] at the three
+streamed shapes; xw [300, 32, 2048] per direction, W_hh [512, 2048]
+(deepspeech2). Prints each build's registers, the kernel build's error
+against the plain version, the times (CUDA events, median of 5 rounds of
+3 calls, the builds in turns) of each build and, beside each Elman call,
+of the bf16 `torch.matmul` + `tanh` loop that chip_smoke times as its
+library yardstick, the streamed calls' time at T = 1 (the prologue: W_hh
+rounded into the scratch, h0, one step), the phase shares, and
+`torch.profiler`'s device kernels of one call of each (more than one
+kernel, or a cuBLAS or cuDNN kernel among them, fails the probe); then
+the card's name and power limit. --quick: the streamed calls alone,
+builds kernel, no_mma, no_loads, no_barrier, no_epilogue, no_out and
+clocks. Imports nothing
+of JAX. Needs a card.
 """
 
 from __future__ import annotations
@@ -75,7 +85,16 @@ BUILDS = {"rnn_scan": list(VARIANTS),
 PHASES = ("barrier wait (+ prologue)", "h loads", "products",
           "partial store + cluster barrier", "epilogue")
 # position of the `clocks` argument in each launch entry
-CLOCKS_ARG = {"rnn_scan": 15, "lstm_scan": 18}
+CLOCKS_ARG = {"rnn_scan_launch": 15, "rnn_stream_launch": 22,
+              "lstm_scan_launch": 18}
+# the streamed design's thread 0 is a consumer: it waits for the step
+# barrier only through the stages the copy warp issues after it
+PHASES_STREAM = ("prologue", "stage waits (the step barrier's included)",
+                 "products", "K-slice sum", "epilogue")
+# the streamed design's shapes (T, B, H)
+STREAMED = ((200, 256, 4480), (200, 8, 2816), (200, 32, 5120))
+QUICK = ("kernel", "no_mma", "no_loads", "no_barrier", "no_epilogue",
+         "no_out", "clocks")
 
 
 def main() -> int:
@@ -92,12 +111,17 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    quick = "--quick" in sys.argv[1:]
+    builds_of = {name: [v for v in vs if not quick or v in QUICK]
+                 for name, vs in BUILDS.items()}
+    if quick:
+        builds_of["lstm_scan"] = []
 
     out_dir = _lib.BUILD / "probe_rec"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
     procs = []
-    for name, builds in BUILDS.items():
+    for name, builds in builds_of.items():
         for var in builds:
             flags = VARIANTS[var]
             so = out_dir / f"lib{name}_{var}.so"
@@ -141,7 +165,7 @@ def main() -> int:
 
             def launch(*args):
                 args = list(args)
-                args[CLOCKS_ARG[self._name]] = _lib.ptr(clocks)
+                args[CLOCKS_ARG[attr]] = _lib.ptr(clocks)
                 return fn(*args)
             return launch
 
@@ -165,76 +189,91 @@ def main() -> int:
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
 
+    def elman(T_, B_, H_):
+        xw_ = t(rng.standard_normal((T_, B_, H_)) * 0.5)
+        w_ = t(rng.uniform(-1, 1, (H_, H_)) / H_ ** 0.5)
+        return xw_, w_, torch.zeros(B_, H_, device=dev)
+
+    def library_loop(xw_, w_, h0_):
+        w_bf = w_.to(torch.bfloat16)
+
+        def run():
+            h = h0_.to(torch.bfloat16)
+            for s in range(xw_.shape[0]):
+                h = torch.tanh(xw_[s] + torch.matmul(h, w_bf)).to(
+                    torch.bfloat16)
+        return run
+
     T, B, H = 200, 256, 2048
-    xw = t(rng.standard_normal((T, B, H)) * 0.5)
-    w = t(rng.uniform(-1, 1, (H, H)) / H ** 0.5)
-    h0 = torch.zeros(B, H, device=dev)
-    w_bf = w.to(torch.bfloat16)
-
-    def library_rnn():
-        h = h0.to(torch.bfloat16)
-        for s in range(T):
-            h = torch.tanh(xw[s] + torch.matmul(h, w_bf)).to(torch.bfloat16)
-
+    ins = {"rnn_scan": elman(T, B, H)}
+    for Ts, Bs, Hs in STREAMED:
+        ins[f"rnn_stream_{Bs}x{Hs}"] = elman(Ts, Bs, Hs)
     Tl, Bl, Hl = 300, 32, 512
     xf, wf = t(rng.standard_normal((Tl, Bl, 4 * Hl)) * 0.5), t(
         rng.uniform(-1, 1, (Hl, 4 * Hl)) / Hl ** 0.5)
     xb, wb = t(rng.standard_normal((Tl, Bl, 4 * Hl)) * 0.5), t(
         rng.uniform(-1, 1, (Hl, 4 * Hl)) / Hl ** 0.5)
     z = torch.zeros(Bl, Hl, device=dev)
-    calls = {
-        "rnn_scan": ("rnn_scan", lambda: rnn_scan.rnn_scan(xw, w, h0)),
-        "lstm_scan": ("lstm_scan",
-                      lambda: lstm_scan.lstm_scan(xf, wf, z, z)),
-        "lstm_scan_bidir": ("lstm_scan", lambda: lstm_scan.lstm_scan_bidir(
-            xf, xb, wf, wb, z, z)),
-    }
+    calls = {c: ("rnn_scan", (lambda a=a: rnn_scan.rnn_scan(*a)))
+             for c, a in ins.items() if not quick or c != "rnn_scan"}
+    if not quick:
+        calls["lstm_scan"] = ("lstm_scan",
+                              lambda: lstm_scan.lstm_scan(xf, wf, z, z))
+        calls["lstm_scan_bidir"] = ("lstm_scan",
+                                    lambda: lstm_scan.lstm_scan_bidir(
+                                        xf, xb, wf, wb, z, z))
+    loops = {c: library_loop(*ins[c]) for c in calls if c in ins}
 
-    use("rnn_scan", "kernel")
-    use("lstm_scan", "kernel")
-    with torch.no_grad():
-        e_rnn = float((rnn_scan.rnn_scan(xw, w, h0)
-                       - rnn_scan.rnn_scan_plain(xw, w, h0)).abs().max())
-        e_lstm = float((lstm_scan.lstm_scan(xf, wf, z, z)
-                        - lstm_scan.lstm_scan_plain(xf, wf, z, z)
-                        ).abs().max())
-    print(f"kernel builds against the plain versions: rnn_scan max |diff| "
-          f"{e_rnn} (T={T}, B={B}, H={H}), lstm_scan {e_lstm} (T={Tl}, "
-          f"B={Bl}, H={Hl})", flush=True)
-    use("rnn_scan", "flags")
-    use("lstm_scan", "flags")
-    with torch.no_grad():
-        f_rnn = float((rnn_scan.rnn_scan(xw, w, h0)
-                       - rnn_scan.rnn_scan_plain(xw, w, h0)).abs().max())
-        f_lstm = float((lstm_scan.lstm_scan(xf, wf, z, z)
-                        - lstm_scan.lstm_scan_plain(xf, wf, z, z)
-                        ).abs().max())
-    print(f"flags builds against the plain versions: rnn_scan max |diff| "
-          f"{f_rnn}, lstm_scan {f_lstm}", flush=True)
-    if max(e_rnn, e_lstm, f_rnn, f_lstm) > 1e-2:
+    def errors(var):
+        out = {}
+        for c, (name, fn) in calls.items():
+            if var not in builds_of[name]:
+                continue
+            use(name, var)
+            with torch.no_grad():
+                if c in ins:
+                    out[c] = float((fn() - rnn_scan.rnn_scan_plain(
+                        *ins[c])).abs().max())
+                elif c == "lstm_scan":
+                    out[c] = float((fn() - lstm_scan.lstm_scan_plain(
+                        xf, wf, z, z)).abs().max())
+        return out
+
+    e_k = errors("kernel")
+    print(f"kernel builds against the plain versions (max |diff|): {e_k}",
+          flush=True)
+    e_f = errors("flags") if "flags" in builds_of["rnn_scan"] else {}
+    print(f"flags builds against the plain versions: {e_f}", flush=True)
+    if max([*e_k.values(), *e_f.values()]) > 1e-2:
         raise RuntimeError("a kernel or flags build disagrees with its "
                            "plain version")
-    print(f"plans: rnn_scan (Hp, NU, clusters, chunk rows) "
-          f"{rnn_scan._card_plan(dev, H)}; lstm_scan (Hp, RB, groups) "
-          f"{lstm_scan.plan(Bl, Hl)}", flush=True)
+    for c in ins:
+        if c in calls:
+            Tc, Bc, Hc = ins[c][0].shape
+            print(f"{c}: design {rnn_scan.design(dev, Bc, Hc)}, plan "
+                  f"{rnn_scan._card_design(dev, Bc, Hc)[1]}", flush=True)
+    if not quick:
+        print(f"lstm_scan plan (Hp, RB, groups) {lstm_scan.plan(Bl, Hl)}",
+              flush=True)
 
     # times: every build in turns, 5 rounds of 3 calls; the library loop
-    # beside the Elman kernel in every round
+    # beside each Elman call in every round
     times = {(c, v): [] for c, (name, _) in calls.items()
-             for v in BUILDS[name]}
-    times["library_rnn", ""] = []
+             for v in builds_of[name]}
+    for c in loops:
+        times[c, "library loop"] = []
     for c, (name, fn) in calls.items():
-        for v in BUILDS[name]:
+        for v in builds_of[name]:
             use(name, v)
             fn()
     torch.cuda.synchronize()
     for _ in range(5):
         for c, (name, fn) in calls.items():
-            for v in BUILDS[name]:
+            for v in builds_of[name]:
                 use(name, v)
                 times[c, v].append(cuda_ms(fn))
-            if c == "rnn_scan":
-                times["library_rnn", ""].append(cuda_ms(library_rnn))
+            if c in loops:
+                times[c, "library loop"].append(cuda_ms(loops[c]))
     sm_clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -242,15 +281,31 @@ def main() -> int:
     for (c, v), ts in times.items():
         print(f"{c} {v}: {float(np.median(ts)):.4f} ms (median of 5; "
               f"rounds {[round(x, 4) for x in ts]}) on {card}", flush=True)
+    # the streamed calls' prologue: one step
+    use("rnn_scan", "kernel")
+    for c in ins:
+        if c.startswith("rnn_stream") and c in calls:
+            xw1, w1, h1 = ins[c]
+            one = sorted(cuda_ms(lambda: rnn_scan.rnn_scan(xw1[:1], w1, h1))
+                         for _ in range(5))[2]
+            print(f"{c} at T = 1 (prologue + one step): {one:.4f} ms",
+                  flush=True)
 
     # phase shares: one call of each with the counters; the cycles a block
     # spends in each phase a step, and the clock the span implies
-    Hp, NU, G, _ = rnn_scan._card_plan(dev, H)
-    Hl_p, _, groups = lstm_scan.plan(Bl, Hl)
-    shape = {"rnn_scan": (G * rnn_scan.CLUSTER, T),
-             "lstm_scan": (Hl_p // lstm_scan.UNITS * groups, Tl),
-             "lstm_scan_bidir": (2 * Hl_p // lstm_scan.UNITS * groups, Tl)}
+    def blocks_steps(c):
+        if c in ins:
+            Tc, Bc, Hc = ins[c][0].shape
+            kind, p = rnn_scan._card_design(dev, Bc, Hc)
+            if kind == "resident":
+                return p[2] * rnn_scan.CLUSTER, Tc, PHASES
+            return p[3] * p[5], Tc, PHASES_STREAM
+        Hl_p, _, groups = lstm_scan.plan(Bl, Hl)
+        return (Hl_p // lstm_scan.UNITS * groups
+                * (2 if c.endswith("bidir") else 1), Tl, PHASES)
     for c, (name, fn) in calls.items():
+        if "clocks" not in builds_of[name]:
+            continue
         use(name, "clocks")
         clocks.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -260,12 +315,12 @@ def main() -> int:
         end.record()
         end.synchronize()
         cyc = clocks.cpu().numpy().astype(np.float64)
-        nblk, steps = shape[c]
-        span = cyc[len(PHASES)] / nblk
+        nblk, steps, names = blocks_steps(c)
+        span = cyc[len(names)] / nblk
         shares = ", ".join(
-            f"{p} {100 * x / cyc[:len(PHASES)].sum():.1f}% "
+            f"{p} {100 * x / cyc[:len(names)].sum():.1f}% "
             f"({x / nblk / steps:.0f} cycles a step)"
-            for p, x in zip(PHASES, cyc) if x > 0)
+            for p, x in zip(names, cyc) if x > 0)
         print(f"{c} phases (thread 0 of each of {nblk} blocks, {steps} "
               f"steps): {shares}; a block's span {span:.0f} cycles in "
               f"{start.elapsed_time(end):.4f} ms: "
@@ -273,7 +328,8 @@ def main() -> int:
 
     # the device kernels of one call of each
     use("rnn_scan", "kernel")
-    use("lstm_scan", "kernel")
+    if not quick:
+        use("lstm_scan", "kernel")
     ok = True
     for c, (_, fn) in calls.items():
         fn()

@@ -57,8 +57,8 @@ H1_LOAD = """\
               const __nv_bfloat162 v_ =
                   *reinterpret_cast<const __nv_bfloat162*>(
                       reinterpret_cast<const bf16*>(x) +
-                      (((long long)b * T1 + 2 * tl.ta + r_) * F1 + c_) *
-                          d + cc * CK + ch);
+                      (((long long)b * T1 + 2 * tl.ta + r_) * F1 +
+                       2 * tl.fa + c_) * d + cc * CK + ch);
               y0 = __low2float(v_);
               y1 = __high2float(v_);
             }"""
@@ -106,9 +106,9 @@ def _phases(src: str, once) -> str:
              "    wgmma_commit();\n    TICK(4)\n    wgmma_wait<1>();\n"
              "    TICK(5)\n")
     p = once(p, "          *reinterpret_cast<const uint4*>(st + m * SLD + c);"
-                "\n  }\n}",
+                "\n    }\n  }\n}",
              "          *reinterpret_cast<const uint4*>(st + m * SLD + c);"
-             "\n  }\n  TICK(7)\n  if (lane == 0) {\n"
+             "\n    }\n  }\n  TICK(7)\n  if (lane == 0) {\n"
              "    for (int i = 0; i < 8; ++i) atomicAdd(&g_prof[i], ph[i]);\n"
              "    atomicAdd(&g_prof[8], 1ull);\n  }\n}")
     p += ('\nextern "C" int prof_read(unsigned long long* h) {\n'
@@ -139,10 +139,10 @@ def _variants(src: str) -> dict:
         "no_conv1": no_conv1,
         "no_w2_copies": _no_copies(src, once),
         "phases": _phases(src, once),
-        "no_h2_store": once(src, "      *reinterpret_cast<uint4*>(hb + (long "
-                                 "long)m * d + c) =\n",
-                            "      if (m < 0) *reinterpret_cast<uint4*>(hb + "
-                            "(long long)m * d + c) =\n"),
+        "no_h2_store": once(src, "      *reinterpret_cast<uint4*>(h2 + row * "
+                                 "d + n0 + c) =\n",
+                            "      if (m < 0) *reinterpret_cast<uint4*>(h2 + "
+                            "row * d + n0 + c) =\n"),
         "no_mma": once(src, MMA_LINE, "      (void)0;\n"),
     }
 
@@ -227,7 +227,7 @@ def main() -> int:
         _lib.check(lib.stem_conv_launch(
             src.data_ptr(), *x.stride(), w1k.data_ptr(), b1f.data_ptr(),
             w2k.data_ptr(), b2f.data_ptr(), dst.data_ptr(), B, T, F, d,
-            stream), f"stem_conv {name}")
+            stem.f2_windows(F2), stream), f"stem_conv {name}")
 
     def proj():
         _lib.check(libs["kernel"].stem_proj_launch(

@@ -248,6 +248,58 @@ def test_traceback_overlay_kernel_equals_plain(dev, Tc, B, W, L, parent,
             out.data_ptr() not in (bt.data_ptr(), bs.data_ptr())
 
 
+def _traceback_inputs(dev, T, B, W, L, extra, seed):
+    """Random backpointers and chars, nine appends in ten; lengths up to
+    L + extra, 0 among them."""
+    rng = np.random.default_rng(seed)
+    ys = (rng.integers(0, W, (T, B, W)) | (rng.integers(0, 47, (T, B, W))
+                                          << 15)
+          | ((rng.random((T, B, W)) < 0.9).astype(np.int64) << 30)).astype(
+        np.int32)
+    lens = rng.integers(0, L + extra + 1, (B, W)).astype(np.int32)
+    lens.flat[0] = 0
+    return torch.from_numpy(ys).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.parametrize("T,B,W,L,extra", [
+    (200, 256, 100, 256, 0),    # reference_large's shape
+    (300, 64, 16, 256, 0),      # conformer_l's
+    (200, 256, 100, 256, 300),  # lengths past L: the head is kept
+    (23, 2, 5, 12, 10),
+    (9, 3, 1, 6, 3),            # W = 1
+    (7, 2, 128, 9, 4),          # W = 128
+    (5, 2, 4, 0, 2),            # L = 0: only start_parent
+    (0, 2, 6, 8, 3),            # T = 0: every cell -1
+    (11, 2, 200, 7, 3),         # W > 128: two blocks an utterance
+])
+def test_traceback_kernel_equals_plain_at_edge_shapes(dev, T, B, W, L, extra):
+    ys, lens = _traceback_inputs(dev, T, B, W, L, extra, T + W + L)
+    n0 = fused_decode.traceback_launches
+    got = fused_decode.traceback(ys, lens, L)
+    torch.cuda.synchronize()
+    assert fused_decode.traceback_launches == n0 + 1
+    for a, b in zip(got, fused_decode.traceback_plain(ys, lens, L)):
+        assert torch.equal(a, b)
+
+
+def test_traceback_kernel_writes_every_cell_without_a_fill(dev):
+    # the kernel writes the -1 cells itself: one device kernel a call, no
+    # memset before it; outputs that start as garbage come out right
+    ys, lens = _traceback_inputs(dev, 40, 8, 16, 32, 8, 1)
+    torch.empty(8 * 16 * 32 * 4, dtype=torch.int32, device=dev).fill_(7)
+    fused_decode.traceback(ys, lens, 32)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = fused_decode.traceback(ys, lens, 32)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "traceback_kernel" in names[0], names
+    for a, b in zip(got, fused_decode.traceback_plain(ys, lens, 32)):
+        assert torch.equal(a, b)
+
+
 def test_traceback_overlay_kernel_empty_batch(dev):
     ys, lens, bt, bs = _overlay_inputs(dev, 4, 0, 8, 16, 1)
     n0 = fused_decode.overlay_launches
@@ -470,15 +522,10 @@ def test_recurrence_kernels_back_to_back_on_one_stream(dev):
 
 
 def test_recurrence_kernels_past_the_resident_limit_raise(dev):
-    # W_hh stays in shared memory: past the limit each wrapper raises a
-    # ValueError that names it, and launches nothing
-    H = rnn_scan.max_hidden(dev) + 128
-    n0 = rnn_scan.launches
-    with pytest.raises(ValueError, match="resident limit"):
-        rnn_scan.rnn_scan(torch.zeros(1, 2, H, device=dev),
-                          torch.zeros(H, H, device=dev),
-                          torch.zeros(2, H, device=dev))
-    assert rnn_scan.launches == n0
+    # the LSTM keeps W_hh in shared memory: past the limit its wrapper
+    # raises a ValueError that names it, and launches nothing (the Elman
+    # wrapper takes the streamed design there:
+    # test_rnn_scan_past_the_resident_limit_launches_once)
     B = 4
     H = lstm_scan.max_hidden(2) + lstm_scan.UNITS
     n0 = lstm_scan.launches
@@ -490,6 +537,75 @@ def test_recurrence_kernels_past_the_resident_limit_raise(dev):
             torch.zeros(H, 4 * H, device=dev),
             torch.zeros(B, H, device=dev), torch.zeros(B, H, device=dev))
     assert lstm_scan.launches == n0
+
+
+@pytest.mark.parametrize("B,reverse", [(2, False), (20, True)])
+def test_rnn_scan_past_the_resident_limit_launches_once(dev, B, reverse):
+    # past the resident design's limit the streamed design: one launch,
+    # close to the plain version
+    H = rnn_scan.max_hidden(dev) + 128
+    assert rnn_scan.design(dev, B, H) == "streamed"
+    rng = np.random.default_rng(H + B)
+    xw = torch.from_numpy((rng.standard_normal((4, B, H)) * 0.5).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((rng.uniform(-1, 1, (H, H)) / H ** 0.5).astype(
+        np.float32)).to(dev)
+    h0 = torch.tanh(torch.from_numpy(rng.standard_normal((B, H)).astype(
+        np.float32))).to(dev)
+    n0, s0 = rnn_scan.launches, rnn_scan.streamed_launches
+    got = rnn_scan.rnn_scan(xw, w, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    assert (rnn_scan.launches - n0, rnn_scan.streamed_launches - s0) == (1,
+                                                                         1)
+    want = rnn_scan.rnn_scan_plain(xw, w, h0, reverse=reverse)
+    # a few steps: float32 sum order, and the rare bf16 rounding flip of h
+    assert float((got - want).abs().max()) < 1e-3
+    one = rnn_scan.rnn_scan(xw[:1], w, h0, reverse=reverse)
+    assert float((one - rnn_scan.rnn_scan_plain(
+        xw[:1], w, h0, reverse=reverse)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("B,H,T", [(8, 2816, 3), (256, 4480, 2),
+                                   (24, 3000, 3)])
+def test_rnn_forward_pallas_takes_the_kernel_at_every_jax_shape(dev, B, H, T):
+    # rnn_forward(impl="pallas") takes the kernel wherever JAX's rule
+    # admits (H % 128 == 0, B % 8 == 0), past the resident limit too: one
+    # launch a direction; at H = 3000 (outside the rule) the float32 loop
+    from gasr_tpu_torch.ops.rnn import rnn_forward, rnn_init
+    params = rnn_init(torch.Generator().manual_seed(H), 16, H,
+                      bidirectional=True)
+    x = torch.from_numpy(np.random.default_rng(B).standard_normal(
+        (T, B, 16)).astype(np.float32))
+    on_card = {k: [{n: v.to(dev) for n, v in c.items()} for c in layers]
+               for k, layers in params.items()}
+    n0, s0 = rnn_scan.launches, rnn_scan.streamed_launches
+    with torch.no_grad():
+        got = rnn_forward(on_card, x.to(dev), impl="pallas")
+        torch.cuda.synchronize()
+        want = rnn_forward(params, x, impl="pallas")   # the plain version
+    n = 2 if H % 128 == 0 else 0
+    assert (rnn_scan.launches - n0, rnn_scan.streamed_launches - s0) == (n,
+                                                                         n)
+    assert got.shape == want.shape == (T, B, 2 * H)
+    assert float((got.cpu() - want).abs().max()) < 1e-3
+
+
+def test_plans_shared_memory_equals_the_kernels(dev):
+    # the wrappers size the streamed Elman and traceback blocks with
+    # Python copies of the kernels' shared-memory arithmetic: the same
+    # bytes as the C entries
+    lib = _lib.load("rnn_scan")
+    for B, H in ((8, 2816), (32, 5120), (256, 4480), (1024, 8192)):
+        Hp, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S = rnn_scan.stream_plan(
+            B, H, 132)
+        assert lib.rnn_stream_smem(MB, NU, WGK, S) == rnn_scan.stream_smem(
+            MB, NU, WGK, S)
+    lib = _lib.load("fused_decode")
+    for T, W, L in ((200, 100, 256), (300, 16, 256), (2000, 128, 2048),
+                    (200000, 4, 8), (0, 6, 8)):
+        plan = fused_decode.traceback_plan(W)
+        assert lib.traceback_smem(T, W, L, *plan) == \
+            fused_decode.traceback_smem(T, W, L, *plan)
 
 
 def test_recurrence_kernels_are_one_device_kernel_a_call(dev):
@@ -720,6 +836,10 @@ def test_flash_mhsa_kernel_zero_length_averages_v(dev):
     (2, 8, 8, 128, 128, torch.bfloat16, False),        # T = F = 8
     (4, 400, 80, 512, 512, torch.bfloat16, True),      # x a strided view
     (0, 1200, 80, 512, 512, torch.bfloat16, False),    # B = 0
+    (2, 400, 128, 512, 512, torch.bfloat16, False),    # F/4 in two windows
+    (2, 200, 160, 512, 512, torch.float32, True),      # two windows of 20
+    (2, 104, 512, 512, 512, torch.bfloat16, False),    # six windows
+    (1, 64, 100, 1024, 128, torch.float32, False),     # windows of 13, 12
 ])
 def test_fused_stem_kernel_close_to_plain(dev, B, T, F, d, dout, out, x_view):
     rng = np.random.default_rng(T + d)
@@ -767,16 +887,42 @@ def test_kernel_wrappers_refuse(dev):
     with pytest.raises(NotImplementedError, match="forward only"):
         stem.fused_stem(torch.zeros(1, 16, 8, device=dev,
                                     requires_grad=True), *w)
-    # a frequency axis whose h1 rows overflow the conv kernel's shared
-    # memory (stem_conv_smem) is refused before any launch
+    # no frequency axis is refused for shared memory: the conv kernel's
+    # block asks for the same bytes at every F (f2 windows of at most
+    # WINDOW_MAX columns)
     wide = [torch.zeros(s, device=dev) for s in
             ((3, 3, 1, 512), (512,), (3, 3, 512, 512), (512,),
              (40 * 512, 128), (128,))]
     lib = _lib.load("stem")
-    assert lib.stem_conv_smem(1200, 80, 512) <= stem.SMEM_MAX
-    assert lib.stem_conv_smem(64, 160, 512) > stem.SMEM_MAX
-    with pytest.raises(ValueError, match="shared memory"):
-        stem.fused_stem(torch.zeros(1, 64, 160, device=dev), *wide)
+    assert lib.stem_conv_smem(512) <= 232448
+    assert lib.stem_window_max() == stem.WINDOW_MAX
+    n0 = stem.launches
+    out = stem.fused_stem(torch.zeros(1, 64, 160, device=dev), *wide)
+    assert stem.launches == n0 + 1 and out.shape == (1, 16, 128)
+
+
+@pytest.mark.parametrize("F", [128, 160])
+def test_conformer_stem_pallas_at_wide_frequency_axes(dev, F):
+    # conformer_apply(stem_impl="pallas") takes the stem kernel at any F
+    # that stem_eligible admits (one call: its 2 kernel launches)
+    cfg = dataclasses.replace(PRESETS["conformer_s"], linear_size=128,
+                              num_blocks=1, input_size=F, batch_size=2,
+                              seg_len=32, mesh_shape={})
+    params = model_init(dataclasses.replace(cfg, device="cpu"),
+                        torch.Generator().manual_seed(F))
+    on_card = model_init(cfg, torch.Generator().manual_seed(F))
+    x = torch.from_numpy(np.random.default_rng(F).uniform(
+        size=(2, 32, F)).astype(np.float32))
+    with torch.no_grad():
+        s0 = stem.launches
+        got = model_apply(cfg, on_card, x.to(dev), compute_dtype="bfloat16",
+                          stem_impl="pallas")
+        assert stem.launches == s0 + 1
+        want = model_apply(cfg, params, x, compute_dtype="bfloat16",
+                           stem_impl="pallas", attn_impl="pallas")
+    assert got.shape == want.shape == (8, 2, cfg.output_size)
+    assert float((got.cpu() - want).abs().max()) <= KERNEL_REL * \
+        max(1.0, float(want.abs().max()))
 
 
 def test_bf16_matmul_on_card_close_to_cpu(dev):

@@ -25,6 +25,17 @@ The emulations follow the kernels' decomposition step by step.
   multiplies a chunk of 32 rows of slot s % 2 in four K quarters, summed
   ((q0 + q1) + (q2 + q3)); the cell writes out[t] and bf16 h_t into slot
   (s + 1) % 2.
+  Elman, streamed (`emulate_stream`, past the resident limit): the
+  wrapper's `stream_plan` at a given number of co-resident blocks; the
+  prologue's bf16 W_hh scratch [Hp, Hp] (zero padded) and bf16 h0 in slot
+  0; at step s block (gb0, gn) walks its batch tiles gb0, gb0 + gBr, ..;
+  for each it streams K in stages of 128 from its own first stage
+  (gn * stages // gN, then around; the h tile of slot s % 2, zero past B,
+  and the W tile of its NU units), each of the WGK K slices of a
+  stage into a partial tile of its own (slice 0's starts from xw[t]; the
+  warps of the `warp_grid` cover every m16 x n8 tile of the block once a
+  slice), sums the partial tiles in K order, applies tanh and writes
+  out[t] and bf16 h_t into slot (s + 1) % 2.
 Blocks run one after another inside a step, so a schedule that reads the
 slot it is writing sees some units of h_t in place of h_{t-1}: the
 `read_write_slot` variants must fail (a case checks that they do).
@@ -329,3 +340,133 @@ def test_lstm_plan():
     assert tlstm.plan(16, 256) == (256, 32, 1)       # bilstm_2x256
     assert tlstm.plan(150, 40) == (48, 96, 2)
     assert tlstm.plan(1, 1) == (16, 32, 1)
+
+
+def _stream_warps(MB, nu, WGM, WGN, WGK):
+    """The streamed kernel's warps over a block's tile: every (m16, n8)
+    tile covered once in each K slice, at most 2 m16 and STREAM_NTW n8
+    tiles a warp (its accumulators)."""
+    MT, ntiles = MB // 16 // WGM, nu // 8
+    assert 1 <= MT <= 2 and WGM * WGN * WGK == trnn.STREAM_WARPS
+    for kw in range(WGK):
+        seen = []
+        for wm in range(WGM):
+            for wn in range(WGN):
+                nt_w = ntiles // WGN + (wn < ntiles % WGN)
+                j0 = wn * (ntiles // WGN) + min(wn, ntiles % WGN)
+                assert nt_w <= trnn.STREAM_NTW
+                seen += [(wm * MT + m, j0 + i) for m in range(MT)
+                         for i in range(nt_w)]
+        assert sorted(seen) == [(m, j) for m in range(MB // 16)
+                                for j in range(ntiles)]
+
+
+def emulate_stream(xw, w, h0, reverse=False, blocks=132,
+                   read_write_slot=False):
+    T, B, H = xw.shape
+    Hp, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S = trnn.stream_plan(B, H,
+                                                                 blocks)
+    assert gBr * gN <= blocks and S >= 2
+    K, KW = trnn.STREAM_K, trnn.STREAM_K // WGK
+    wbf = torch.zeros(Hp, Hp)
+    wbf[:H, :H] = _bf16(w)                    # the prologue's scratch
+    hbf = torch.zeros(2, B, Hp)
+    hbf[0, :, :H] = _bf16(h0)
+    out = torch.full((T, B, H), float("nan"))
+    prefetched = {0}
+    for s in range(T):
+        t = T - 1 - s if reverse else s
+        assert s in prefetched, "xw read before its prefetch"
+        if s + 1 < T:
+            prefetched.add(s + 1)             # issued before the barrier
+        read = (s + 1) % 2 if read_write_slot else s % 2
+        for gb0 in range(gBr):
+            for gn in range(gN):
+                n0 = gn * NU
+                nu = min(NU, Hp - n0)
+                _stream_warps(MB, nu, WGM, WGN, WGK)
+                for gb in range(gb0, gB, gBr):
+                    b0 = gb * MB
+                    nr = min(MB, B - b0)
+                    part = torch.zeros(WGK, MB, nu)
+                    m = max(0, min(nu, H - n0))
+                    part[0, :nr, :m] = xw[t, b0:b0 + nr, n0:n0 + m]
+                    nk = Hp // K
+                    for k in range(nk):       # the ring's stages in order,
+                        k = (gn * nk // gN + k) % nk   # from the block's own
+                        hs = torch.zeros(MB, K)
+                        hs[:nr] = hbf[read, b0:b0 + nr, k * K:(k + 1) * K]
+                        ws = wbf[k * K:(k + 1) * K, n0:n0 + nu]
+                        for kw in range(WGK):
+                            sl = slice(kw * KW, (kw + 1) * KW)
+                            part[kw] += hs[:, sl] @ ws[sl]
+                    total = part[0]
+                    for q in range(1, WGK):   # in K order
+                        total = total + part[q]
+                    h = torch.tanh(total[:nr])
+                    out[t, b0:b0 + nr, n0:n0 + m] = h[:, :m]
+                    hbf[(s + 1) % 2, b0:b0 + nr, n0:n0 + nu] = _bf16(h)
+    assert not bool(out.isnan().any())
+    return out
+
+
+@pytest.mark.parametrize("T,B,H,reverse,blocks", [
+    (5, 24, 256, False, 6),     # 6 unit tiles of 48 (WGK K slices)
+    (4, 40, 384, True, 4),      # B off the 16-row tile, 4 of 96 units
+    (3, 136, 200, False, 2),    # H 200 -> 256; two batch tiles of 128
+                                # walked by one block row
+    (4, 8, 1024, False, 20),    # reference-like: MB = 16, 19 blocks of 56
+])
+def test_stream_schedule_matches_plain_and_jax(T, B, H, reverse, blocks):
+    xw, w, h0 = _rnn_inputs(T, B, H, T * B + H)
+    got = emulate_stream(torch.from_numpy(xw), torch.from_numpy(w),
+                         torch.from_numpy(h0), reverse, blocks)
+    plain = trnn.rnn_scan_plain(torch.from_numpy(xw), torch.from_numpy(w),
+                                torch.from_numpy(h0), reverse)
+    jax_out = torch.from_numpy(np.array(rnn_scan_pallas_raw(
+        jnp.asarray(xw), jnp.asarray(w), jnp.asarray(h0), reverse=reverse,
+        interpret=True)))
+    _close(got, plain)
+    _close(got, jax_out)
+
+
+def test_stream_schedule_reading_the_slot_it_writes_fails():
+    T, B, H = 5, 24, 256
+    xw, w, h0 = (torch.from_numpy(a) for a in _rnn_inputs(T, B, H, 13))
+    plain = trnn.rnn_scan_plain(xw, w, h0)
+    bad = emulate_stream(xw, w, h0, blocks=6, read_write_slot=True)
+    assert float((bad - plain).abs().max()) > WRONG
+
+
+def test_stream_plan():
+    # the three shapes past the resident limit that the card runs, on an
+    # H100's 132 blocks: (Hp, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S)
+    assert trnn.stream_plan(8, 2816, 132) == (2816, 16, 1, 1, 24, 118, 1, 1,
+                                              8, 8)
+    assert trnn.stream_plan(32, 5120, 132) == (5120, 32, 1, 1, 40, 128, 2,
+                                               1, 4, 8)
+    assert trnn.stream_plan(256, 4480, 132) == (4480, 128, 2, 2, 72, 63, 4,
+                                                2, 1, 4)
+    # a batch past the blocks' rows: block rows walk several batch tiles
+    Hp, MB, gB, gBr, NU, gN = trnn.stream_plan(1024, 8192, 132)[:6]
+    assert gB > gBr and gBr * gN <= 132 and gB * MB >= 1024
+    # unit tiles of an odd number of n8 tiles (the kernel's W tile rows
+    # fall in distinct bank groups)
+    for B, H in ((8, 2816), (256, 4480), (1024, 8192), (8, 20000)):
+        assert trnn.stream_plan(B, H, 132)[4] // 8 % 2 == 1
+
+
+def test_design_rule_takes_a_kernel_at_every_shape():
+    # resident up to its limit (2688 on an H100: 15 clusters of 8 at one
+    # block an SM), streamed past it; never the plain version, never a
+    # raise, at every (B, H) that JAX's rule admits
+    for B in (8, 16, 256, 1024):
+        for H in range(128, 12289, 128):
+            kind, p = trnn.pick_design(B, H, _rnn_smem, lambda *_: CLUSTERS,
+                                       132)
+            assert kind == ("resident" if H <= 2688 else "streamed"), (B, H)
+            if kind == "streamed":
+                Hp, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S = p
+                assert gBr * gN <= 132 and gB * MB >= B and gN * NU >= Hp
+                assert trnn.stream_smem(MB, NU, WGK, S) <= trnn.SMEM_MAX
+                assert trnn.warp_grid(MB, NU) == (WGM, WGN, WGK)

@@ -2,17 +2,21 @@
 on the CPU, against the stem's math in float64, the port's plain version
 and the JAX package's `stem_ref` and `fused_stem(interpret=True)`.
 
-The emulation follows the kernels' schedule. conv2's rows are (t2, f2)
-flattened within one b and cut into tiles of `tile` rows; a tile covers
-t2 in [ta, tb] and holds the h1 region of rows 2 ta .. 2 tb + 2 and
-columns 0 .. F/2 (the last row or column may be conv2's zero pad). The
-region is the im2col of x (9 taps, x row T and column F zero) times w1
-per 32-channel chunk, + b1, clipped and rounded, with the pad positions
-written as zeros, stored even columns first; conv2 reads each tap
-(di, dj) of each row at region position 2 (t2 - ta) PW + f2 + di PW +
-(F/4 + 1 if dj = 1 else dj / 2), sums chunk by chunk and tap by tap,
-adds b2, clips and rounds (the h2 tile); sub_proj multiplies h2 seen as
-[B T/4, (F/4) d] by wp in row tiles and 32-deep K slices and adds bp.
+The emulation follows the kernels' schedule. conv2's columns f2 are cut
+into the wrapper's `f2_windows` windows (fa, fw): fw = F2 // NW or one
+more, at most `WINDOW_MAX`; a window's rows are (t2, f2 - fa) flattened
+within one b and cut into tiles of `tile` rows; a tile covers t2 in
+[ta, tb] and holds the h1 region of rows 2 ta .. 2 tb + 2 and columns
+2 fa .. 2 (fa + fw) (the last row or column may be conv2's zero pad).
+The region is the im2col of x (9 taps, x row T and column F zero) times
+w1 per 32-channel chunk, + b1, clipped and rounded, with the pad
+positions written as zeros, stored even columns first; conv2 reads each
+tap (di, dj) of each row at region position 2 (t2 - ta) PW + f2 - fa +
+di PW + (fw + 1 if dj = 1 else dj / 2) (PW = 2 fw + 1), sums chunk by
+chunk and tap by tap, adds b2, clips and rounds (the h2 tile, written at
+its (t2, f2)); sub_proj multiplies h2 seen as [B T/4, (F/4) d] by wp in
+row tiles and 32-deep K slices and adds bp. A region never holds more
+than REGION_MAX positions at any F (the kernel's shared memory).
 
 Tolerances:
   EXACT     the emulation in float64 against the stem's math in float64
@@ -40,6 +44,7 @@ from gasr_tpu_torch.ops.cuda import stem as tstem
 EXACT = 1e-9
 BF16_REL = 0.02
 CK = 32                    # channels of a chunk, K of a sub_proj slice
+REGION_MAX = 735           # csrc/stem.cu's kRegionMax: region positions
 
 # (B, T, F, d, dout, tile)
 CASES = [
@@ -70,38 +75,50 @@ def _r16(a):
     return a.to(torch.bfloat16).to(a.dtype)
 
 
-def _tile(T, F_, m0, tile):
-    """(ta, R): the tile's first t2 and its region rows."""
-    T2, F2 = T // 4, F_ // 4
-    ta = m0 // F2
-    tb = min((m0 + tile - 1) // F2, T2 - 1)
+def _windows(F_, window_max=None):
+    """The conv kernel's f2 windows (fa, fw): `f2_windows` of them, the
+    first F2 % NW one column wider."""
+    F2 = F_ // 4
+    NW = (tstem.f2_windows(F2) if window_max is None
+          else -(-F2 // window_max))
+    q, rem = divmod(F2, NW)
+    return [(w * q + min(w, rem), q + (w < rem)) for w in range(NW)]
+
+
+def _tile(T, F_, m0, tile, fw=None):
+    """(ta, R): the tile's first t2 and its region rows (in a window of
+    fw columns; all F/4 by default)."""
+    T2, fw = T // 4, fw or F_ // 4
+    ta = m0 // fw
+    tb = min((m0 + tile - 1) // fw, T2 - 1)
     return ta, 2 * (tb - ta) + 3
 
 
-def _slot(c, F_):
+def _slot(c, fw):
     """A region column's place in its row: even columns first."""
-    return c // 2 + (F_ // 4 + 1) * (c % 2)
+    return c // 2 + (fw + 1) * (c % 2)
 
 
-def _im2col_table(xb, T, F_, ta, R, rnd):
-    """im2col [P, 9] of the x under the region (x row T and column F
-    zero) and, per position, its region index and whether it is conv2's
-    zero pad (h1 row T/2 or column F/2)."""
-    PW = F_ // 2 + 1
+def _im2col_table(xb, T, F_, ta, R, rnd, fa=0, fw=None):
+    """im2col [P, 9] of the x under the region of window (fa, fw) (x row
+    T and column F zero) and, per position, its region index and whether
+    it is conv2's zero pad (h1 row T/2 or column F/2)."""
+    fw = fw or F_ // 4
+    PW = 2 * fw + 1
     P = R * PW
     r = torch.arange(P) // PW
     c = torch.arange(P) % PW
     xp = F.pad(rnd(xb), (0, 3, 0, 4 * ta + 2 * R + 2 - xb.shape[0]))
-    cols = torch.stack([xp[4 * ta + 2 * r + ki, 2 * c + kj]
+    cols = torch.stack([xp[4 * ta + 2 * r + ki, 4 * fa + 2 * c + kj]
                         for ki in range(3) for kj in range(3)], dim=1)
     # x past row T or column F is the pad: zero
     t_ok = torch.stack([4 * ta + 2 * r + ki < T for ki in range(3)
                         for _ in range(3)], dim=1)
-    f_ok = torch.stack([2 * c + kj < F_ for _ in range(3)
+    f_ok = torch.stack([4 * fa + 2 * c + kj < F_ for _ in range(3)
                         for kj in range(3)], dim=1)
     cols = torch.where(t_ok & f_ok, cols, 0.0)
-    pad = (2 * ta + r >= T // 2) | (c >= F_ // 2)
-    return cols, r * PW + _slot(c, F_), pad
+    pad = (2 * ta + r >= T // 2) | (2 * fa + c >= F_ // 2)
+    return cols, r * PW + _slot(c, fw), pad
 
 
 def _region(cols, idx, pad, w1c, b1c, rnd, compute_pad=False):
@@ -116,41 +133,47 @@ def _region(cols, idx, pad, w1c, b1c, rnd, compute_pad=False):
     return reg
 
 
-def _tap_rows(m0, tile, rows, ta, T, F_, di, dj):
+def _tap_rows(m0, tile, rows, ta, T, F_, di, dj, fw=None):
     """Region positions read by tap (di, dj) for the tile's rows (rows
-    past the b's last are clamped to it, as the kernel's lanes are)."""
-    F2, PW = F_ // 4, F_ // 2 + 1
+    past the window's last are clamped to it, as the kernel's lanes are)."""
+    fw = fw or F_ // 4
+    PW = 2 * fw + 1
     m = torch.clamp(torch.arange(m0, m0 + tile), max=rows - 1)
-    base = 2 * (m // F2 - ta) * PW + m % F2
-    return base + di * PW + ((F_ // 4 + 1) if dj == 1 else dj // 2)
+    base = 2 * (m // fw - ta) * PW + m % fw
+    return base + di * PW + ((fw + 1) if dj == 1 else dj // 2)
 
 
-def _conv_tiles(x, w1, b1, w2, b2, tile, rnd, acc_dtype, compute_pad=False):
-    """h2 [B, T2, F2, d] by the conv kernel's tiles and chunks."""
+def _conv_tiles(x, w1, b1, w2, b2, tile, rnd, acc_dtype, compute_pad=False,
+                window_max=None):
+    """h2 [B, T2, F2, d] by the conv kernel's windows, tiles and chunks."""
     B, T, F_ = x.shape
     d = w2.shape[-1]
     T2, F2 = T // 4, F_ // 4
-    rows = T2 * F2
     w1t = rnd(w1.reshape(9, d)).to(acc_dtype)
     w2t = rnd(w2.reshape(9, d, d)).to(acc_dtype)
-    h2 = torch.empty(B, rows, d, dtype=acc_dtype)
+    h2 = torch.full((B, T2, F2, d), float("nan"), dtype=acc_dtype)
     for b in range(B):
-        for m0 in range(0, rows, tile):
-            ta, R = _tile(T, F_, m0, tile)
-            cols, idx, pad = _im2col_table(x[b].to(acc_dtype), T, F_, ta, R,
-                                           rnd)
-            acc = torch.zeros(tile, d, dtype=acc_dtype)
-            for c0 in range(0, d, CK):
-                reg = _region(cols, idx, pad, w1t[:, c0:c0 + CK],
-                              b1[c0:c0 + CK].to(acc_dtype), rnd, compute_pad)
-                for tap in range(9):
-                    a = reg[_tap_rows(m0, tile, rows, ta, T, F_, tap // 3,
-                                      tap % 3)]
-                    acc += a @ w2t[tap, c0:c0 + CK]
-            n = min(tile, rows - m0)
-            h2[b, m0:m0 + n] = rnd((acc[:n] + b2.to(acc_dtype)).clamp(0.0,
-                                                                      20.0))
-    return h2.reshape(B, T2, F2, d)
+        for fa, fw in _windows(F_, window_max):
+            rows = T2 * fw
+            for m0 in range(0, rows, tile):
+                ta, R = _tile(T, F_, m0, tile, fw)
+                assert R * (2 * fw + 1) <= REGION_MAX
+                cols, idx, pad = _im2col_table(x[b].to(acc_dtype), T, F_, ta,
+                                               R, rnd, fa, fw)
+                acc = torch.zeros(tile, d, dtype=acc_dtype)
+                for c0 in range(0, d, CK):
+                    reg = _region(cols, idx, pad, w1t[:, c0:c0 + CK],
+                                  b1[c0:c0 + CK].to(acc_dtype), rnd,
+                                  compute_pad)
+                    for tap in range(9):
+                        a = reg[_tap_rows(m0, tile, rows, ta, T, F_,
+                                          tap // 3, tap % 3, fw)]
+                        acc += a @ w2t[tap, c0:c0 + CK]
+                m = torch.arange(m0, min(m0 + tile, rows))
+                h2[b, m // fw, fa + m % fw] = rnd(
+                    (acc[:len(m)] + b2.to(acc_dtype)).clamp(0.0, 20.0))
+    assert not bool(h2.isnan().any())          # every row written
+    return h2
 
 
 def _proj_tiles(h2, wp, bp, tile, rnd, acc_dtype):
@@ -169,7 +192,7 @@ def _proj_tiles(h2, wp, bp, tile, rnd, acc_dtype):
 
 
 def _emulate(x, w1, b1, w2, b2, wp, bp, tile=128, exact=False,
-             out_dtype=torch.bfloat16, compute_pad=False):
+             out_dtype=torch.bfloat16, compute_pad=False, window_max=None):
     """The kernels' schedule: float64 without roundings (exact), or bf16
     operands with float32 sums at the kernels' rounding points."""
     if exact:
@@ -179,7 +202,8 @@ def _emulate(x, w1, b1, w2, b2, wp, bp, tile=128, exact=False,
         rnd, acc = _r16, torch.float32
         args = [a.float() for a in (x, w1, b1, w2, b2, wp, bp)]
     x, w1, b1, w2, b2, wp, bp = args
-    h2 = _conv_tiles(x, w1, b1, w2, b2, tile, rnd, acc, compute_pad)
+    h2 = _conv_tiles(x, w1, b1, w2, b2, tile, rnd, acc, compute_pad,
+                     window_max)
     out = _proj_tiles(h2, wp, bp, tile, rnd, acc)
     return out if exact else out.to(out_dtype)
 
@@ -318,3 +342,57 @@ def test_region_barrier_parities():
             if cc >= 2:       # the release of chunk cc - 2, the buffer's
                 k = sum(1 for c in range(cc - 2) if c & 1 == buf)
                 assert ((cc >> 1) - 1) & 1 == k & 1
+
+
+# (B, T, F, d, dout): conv2's columns in two windows of 16, two of 20 and
+# six of 21 or 22 (past F = 96, the most one window holds)
+WIDE = [(1, 8, 128, 128, 128), (1, 12, 160, 128, 128),
+        (1, 8, 512, 128, 128)]
+WIDE_IDS = ["F128", "F160", "F512"]
+
+
+@pytest.mark.parametrize("B,T,F_,d,dout", WIDE, ids=WIDE_IDS)
+def test_windowed_schedule_float64_equals_math(B, T, F_, d, dout):
+    assert len(_windows(F_)) > 1
+    w = [torch.from_numpy(a) for a in _weights(F_, d, dout, F_)]
+    x = torch.from_numpy(_x(B, T, F_, T + F_))
+    got = _emulate(x, *w, exact=True)
+    assert float((got - _math64(x, *w)).abs().max()) <= EXACT
+
+
+@pytest.mark.parametrize("B,T,F_,d,dout", WIDE, ids=WIDE_IDS)
+def test_windowed_schedule_close_to_stem_ref_and_pallas(B, T, F_, d, dout):
+    w = _weights(F_, d, dout, F_ + 1)
+    x = _x(B, T, F_, F_ + 2)
+    got = _emulate(torch.from_numpy(x), *(torch.from_numpy(a) for a in w),
+                   out_dtype=torch.float32)
+    jw = [jnp.asarray(a) for a in w]
+    _within_bf16(got, jstem.stem_ref(jnp.asarray(x), *jw,
+                                     out_dtype=jnp.float32))
+    _within_bf16(got, jstem.fused_stem(jnp.asarray(x), *jw, interpret=True,
+                                       out_dtype=jnp.float32))
+
+
+def test_f2_windows_bound_the_region():
+    # every F2 is cut into consecutive windows of 2 .. WINDOW_MAX columns,
+    # and no tile of any window, at any T, holds more than REGION_MAX
+    # region positions: the conv kernel's shared memory does not depend
+    # on F (or T)
+    assert _windows(80) == [(0, 20)]                 # conformer_l: as before
+    assert _windows(128) == [(0, 16), (16, 16)]
+    assert [fw for _, fw in _windows(512)] == [22, 22, 21, 21, 21, 21]
+    for F2 in range(2, 1025):
+        ws = _windows(4 * F2)
+        assert [fa for fa, _ in ws] == [0] + list(
+            np.cumsum([fw for _, fw in ws])[:-1])
+        assert sum(fw for _, fw in ws) == F2
+        assert all(2 <= fw <= tstem.WINDOW_MAX for _, fw in ws)
+    most = 0
+    for fw in range(2, tstem.WINDOW_MAX + 1):
+        for T in (8, 12, 1200, 4096):
+            rows = T // 4 * fw
+            most = max(most, max(_tile(T, 4 * fw, m0, 128, fw)[1] *
+                                 (2 * fw + 1) for m0 in range(0, rows, 128)))
+    # (the kernel's bound, (2 span + 3) (2 fw + 1) with span the most t2
+    # rows a tile of 128 can cross, is not always reached at m0 % 128 = 0)
+    assert 697 < most <= REGION_MAX
