@@ -43,7 +43,16 @@ reference_large log-probs with {"model": 4} ("fused": 1 tp_scan launch,
 "fused_frame": 800 tp_frame launches, "xla" on 40 frames) and on
 conformer_l's log-probs with its {"data": 2, "model": 4} mesh, each equal
 to the single-card decode, and `streaming_step_tp` in 10 chunks of 20
-frames equal to the TP batch decode.
+frames equal to the TP batch decode; the shapes past the earlier
+kernels' limits (phase 12): the streamed Elman design, the stem at wide
+F, the traceback at more shapes, and bidirectional LSTM layers past the
+resident limit ((B, H, T) = (32, 1024, 300), (8, 1536, 200), (256, 2048,
+200): the streamed LSTM design, one launch each, against its plain
+version and timed beside cuDNN's LSTM); and the port's bench (phase 13):
+`bench.measure_ours` on reference_large with rnn_impl "scan" and
+"pallas" (launches counted), `bench.measure_streaming` at Tc=20, and
+`python -m gasr_tpu_torch.bench --small` / `--fault-inject` and
+`python -m gasr_tpu_torch.baseline_compat` as subprocesses.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -61,6 +70,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1940,6 +1950,107 @@ def main() -> int:
         del params_r, x_r, out_r, xw_r, want_r, w_bf_r
     report["rnn_scan"]["streamed"] = streamed
 
+    # 12a, the LSTM: lstm_forward(impl="pallas") on bidirectional layers
+    # past the resident limit (the streamed design), each (B, H, T) one
+    # launch for both directions; one step from a random (h, c) and T steps
+    # against lstm_scan_plain; the kernel and torch.nn.LSTM (cuDNN, bf16,
+    # bidirectional, input 64: its time includes its small input
+    # projection) in turns
+    from gasr_tpu_torch.ops.lstm import (_input_projection as lstm_proj,
+                                         lstm_forward, lstm_init)
+    lstm_streamed = {}
+    ls_launches = {name: 0 for name in counters}
+    for B_, H_, T_ in ((32, 1024, 300), (8, 1536, 200), (256, 2048, 200)):
+        tag_ = f"B={B_} H={H_} T={T_}"
+        params_l = lstm_init(torch.Generator().manual_seed(H_), 64, H_,
+                             bidirectional=True, device=dev)
+        x_l = torch.from_numpy(np.random.default_rng(B_).standard_normal(
+            (T_, B_, 64)).astype(np.float32)).to(dev)
+        design = lstm_scan.design(dev, B_, H_, 2)
+        check(design == "streamed", f"lstm_scan {tag_}: design {design}")
+        cf, cb = params_l["layers"][0], params_l["layers_rev"][0]
+        with torch.no_grad():
+            lstm_forward(params_l, x_l, impl="pallas")       # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            s0 = lstm_scan.streamed_launches
+            out_l = lstm_forward(params_l, x_l, impl="pallas")
+            torch.cuda.synchronize()
+            got_ = read_counts()
+            n_str = lstm_scan.streamed_launches - s0
+            check(got_["lstm_scan"] == 1 and n_str == 1,
+                  f"lstm_forward {tag_}: launches {got_}, streamed {n_str}")
+            ls_launches = {k: v + got_[k] for k, v in ls_launches.items()}
+            xf_l, xb_l = lstm_proj(cf, x_l), lstm_proj(cb, x_l)
+            z_l = torch.zeros(B_, H_, device=dev)
+            want_l = torch.cat([
+                lstm_scan.lstm_scan_plain(xf_l, cf["w_hh"], z_l, z_l),
+                lstm_scan.lstm_scan_plain(xb_l, cb["w_hh"], z_l, z_l, True)],
+                -1)
+            check(bool(torch.isfinite(out_l).all())
+                  and tuple(out_l.shape) == (T_, B_, 2 * H_),
+                  f"lstm_forward {tag_} output")
+            e_scan = float((out_l - want_l).abs().max())
+            srng = np.random.default_rng(H_ + 1)
+            h_l = torch.tanh(torch.from_numpy(srng.standard_normal(
+                (B_, H_)).astype(np.float32))).to(dev)
+            c_l = torch.from_numpy(srng.standard_normal((B_, H_)).astype(
+                np.float32)).to(dev)
+            step_k = lstm_scan.lstm_scan_bidir(xf_l[:1], xb_l[-1:],
+                                               cf["w_hh"], cb["w_hh"], h_l,
+                                               c_l)
+            step_p = torch.cat([
+                lstm_scan.lstm_scan_plain(xf_l[:1], cf["w_hh"], h_l, c_l),
+                lstm_scan.lstm_scan_plain(xb_l[-1:], cb["w_hh"], h_l, c_l,
+                                          True)], -1)
+            e_step = float((step_k - step_p).abs().max())
+        check(e_step <= LSTM_STEP_TOL, f"lstm_scan {tag_}: step {e_step}")
+        check(e_scan <= LSTM_SCAN_TOL, f"lstm_scan {tag_}: T={T_} {e_scan}")
+        nn_l = torch.nn.LSTM(64, H_, bidirectional=True).to(dev,
+                                                            torch.bfloat16)
+        nn_l.flatten_parameters()
+        x_lb = x_l.to(torch.bfloat16)
+
+        def kern_l():
+            lstm_scan.lstm_scan_bidir(xf_l, xb_l, cf["w_hh"], cb["w_hh"],
+                                      z_l, z_l)
+        rounds_l = {"kernel": [], "library": []}
+        with torch.no_grad():
+            for _ in range(5):
+                rounds_l["kernel"].append(cuda_ms(kern_l, iters=1, warmup=1))
+                rounds_l["library"].append(cuda_ms(lambda: nn_l(x_lb),
+                                                   iters=1, warmup=1))
+            plain_ms_l = cuda_ms(lambda: (
+                lstm_scan.lstm_scan_plain(xf_l, cf["w_hh"], z_l, z_l),
+                lstm_scan.lstm_scan_plain(xb_l, cb["w_hh"], z_l, z_l, True)),
+                iters=1, warmup=0)
+        b_ms, b_by = bound(2 * T_ * B_ * 4 * H_ * 4 + T_ * B_ * 2 * H_ * 4
+                           + 2 * H_ * 4 * H_ * 4 + 2 * B_ * H_ * 4,
+                           2 * 2 * T_ * B_ * H_ * 4 * H_, BF16_TENSOR_FLOPS)
+        lstm_streamed[tag_] = dict(
+            design=design,
+            plan=list(lstm_scan._card_design(dev, B_, H_, 2)[1]),
+            ms=float(np.median(rounds_l["kernel"])),
+            library_ms=float(np.median(rounds_l["library"])),
+            plain_ms=plain_ms_l, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=max(e_step, e_scan), step_err=e_step,
+            launches=got_["lstm_scan"], ms_rounds=rounds_l["kernel"],
+            library_ms_rounds=rounds_l["library"])
+        r = lstm_streamed[tag_]
+        print(f"lstm_forward(impl='pallas') bidirectional {tag_} on {card}: "
+              f"design {design} (plan (Hp, KS, MB, gB, gBr, NU, gN, WGM, "
+              f"WGN, WGK, S) {r['plan']}), {got_['lstm_scan']} launch; one "
+              f"step max |kernel - plain| {e_step} (tolerance "
+              f"{LSTM_STEP_TOL}), T={T_} {e_scan} (tolerance "
+              f"{LSTM_SCAN_TOL}); kernel {r['ms']:.4f} ms, torch.nn.LSTM "
+              f"bf16 (cuDNN) {r['library_ms']:.4f} ms (medians of 5 rounds "
+              f"in turns: kernel {[round(v_, 4) for v_ in rounds_l['kernel']]}"
+              f", cuDNN {[round(v_, 4) for v_ in rounds_l['library']]}), "
+              f"plain {plain_ms_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        del params_l, x_l, out_l, xf_l, xb_l, want_l, nn_l, x_lb
+    report["lstm_scan"]["streamed"] = lstm_streamed
+
     # 12b. the fused stem at F = 128, 160, 512 (f2 windows; the conv kernel's
     # shared memory is the same at every F) against its plain version, and
     # conformer_apply(stem_impl="pallas") at F = 128 on conformer_l's widths
@@ -2062,6 +2173,96 @@ def main() -> int:
           f"bound {report['traceback']['bound_ms']:.4f} ms (phase 2)",
           flush=True)
 
+    # ---- 13. the port's bench (gasr_tpu_torch/bench.py): measure_ours on
+    # reference_large with the preset's rnn_impl="scan" and with "pallas"
+    # (launches of its warm-up call and 3 x 5 timed calls: a decode and a
+    # traceback each, an rnn_scan a forward with "pallas"), measure_streaming
+    # at Tc=20, the CLI (--small, --fault-inject) and baseline_compat as
+    # subprocesses, their output parsed
+    from gasr_tpu_torch import bench
+    cfg13 = PRESETS["reference_large"]
+    audio13 = cfg13.batch_size * cfg13.seg_len * bench.FRAME_SHIFT_S
+    bench_runs = {}
+    for impl in ("scan", "pallas"):
+        zero_counts()
+        r13 = bench.measure_ours(dataclasses.replace(cfg13, rnn_impl=impl),
+                                 3, reps=5)
+        torch.cuda.synchronize()
+        got_ = read_counts()
+        calls = 1 + 3 * 5
+        want_ = {"fused_prefix_decode": calls, "traceback": calls,
+                 "rnn_scan": calls if impl == "pallas" else 0}
+        check(all(got_[k] == v for k, v in want_.items())
+              and sum(got_.values()) == sum(want_.values()),
+              f"bench.measure_ours rnn_impl={impl!r}: launches {got_}, "
+              f"expected {want_}")
+        bench_runs[impl] = dict(r13, launches=got_,
+                                audio_s_per_s=audio13 / r13["overall_s"])
+        print(f"bench.measure_ours reference_large rnn_impl={impl!r} on "
+              f"{card}: forward {r13['forward_s'] * 1e3:.3f} ms, decode "
+              f"{r13['decode_s'] * 1e3:.3f} ms (medians of 5 loops of 3, "
+              f"host clock and one fence), "
+              f"{bench_runs[impl]['audio_s_per_s']:.1f} audio-s/s; launches "
+              f"of 16 forwards and decodes {got_}", flush=True)
+    zero_counts()
+    st13 = bench.measure_streaming(cfg13, STREAM_TC, iters=3, reps=3)
+    torch.cuda.synchronize()
+    bst_launches = read_counts()
+    n_str = (cfg13.seg_len // STREAM_TC) * (1 + 3 * 3)
+    check(bst_launches["fused_prefix_decode"] == n_str
+          and bst_launches["traceback_overlay"] == n_str
+          and bst_launches["traceback"] == 0,
+          f"bench.measure_streaming launches {bst_launches}")
+    print(f"bench.measure_streaming reference_large Tc={STREAM_TC} on {card}: "
+          f"{st13['median'] * 1e3:.3f} ms a stream (median of 3, range "
+          f"{st13['min'] * 1e3:.3f}-{st13['max'] * 1e3:.3f}), "
+          f"{audio13 / st13['median']:.1f} audio-s/s; launches "
+          f"{bst_launches}", flush=True)
+    work13 = _lib.BUILD / "chip_smoke"
+    work13.mkdir(parents=True, exist_ok=True)
+    env13 = dict(os.environ, PYTHONPATH=ROOT)
+
+    def run13(*argv):
+        p13 = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                             env=env13, capture_output=True, text=True,
+                             timeout=600)
+        check(p13.returncode == 0, f"{' '.join(argv)} exited "
+              f"{p13.returncode}:\n{p13.stderr[-3000:]}")
+        return p13.stdout
+
+    line13 = json.loads(run13("gasr_tpu_torch.bench", "--small")
+                        .strip().splitlines()[-1])
+    check(set(line13) == {"metric", "value", "unit", "vs_baseline",
+                          "detail"}
+          and line13["value"] > 0 and line13["vs_baseline"] > 0
+          and line13["detail"]["device"] not in ("", "cpu"),
+          f"bench --small line {line13}")
+    print(f"python -m gasr_tpu_torch.bench --small: {line13['value']} "
+          f"audio-s/s, vs_baseline {line13['vs_baseline']} on "
+          f"{line13['detail']['device']}", flush=True)
+    fault13 = json.loads(run13("gasr_tpu_torch.bench", "--fault-inject")
+                         .strip().splitlines()[-1])
+    check(fault13.get("fault_injection") == "detected",
+          f"bench --fault-inject: {fault13}")
+    compat_cfg = work13 / "compat.json"
+    compat_cfg.write_text(json.dumps([
+        {"batch_size": 8, "input_size": 26, "n_context": 1,
+         "linear_size": 256, "rnn_hidden_size": 256, "vocab_size": 46,
+         "seg_len": 50, "epoch": 2, "device": "cuda", "num_threads": 4,
+         "beam_width": 10},
+        {"batch_size": 3, "input_size": 10, "n_context": 0,
+         "linear_size": 40, "rnn_hidden_size": 50, "vocab_size": 3,
+         "seg_len": 9, "epoch": 1, "device": "cuda", "num_threads": 4,
+         "beam_width": 2}]))
+    compat_out = run13("gasr_tpu_torch.baseline_compat", str(compat_cfg))
+    for pat in (r"^Forward: \d+\.\d+ s$", r"^CTC Decode \d+\.\d+ s$",
+                r"^Overall \d+\.\d+ s$", r"^====== config ======$"):
+        check(len(re.findall(pat, compat_out, re.M)) == 2,
+              f"baseline_compat output: {pat} not twice in {compat_out}")
+    print("python -m gasr_tpu_torch.bench --fault-inject: detected; "
+          "python -m gasr_tpu_torch.baseline_compat on two configs "
+          "(device cuda): the three lines each", flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -2100,7 +2301,11 @@ def main() -> int:
             "transcribe_audio_cmvn": ac_launches, "evaluate_lm": ev_launches,
             "tp_batch": tpb_launches, "tp_streaming": tps_launches,
             "tp_conformer": tpc_launches, "toy_exchange": toy_launches,
-            "rnn_streamed": rs_launches, "conformer_f128": cw_launches}
+            "rnn_streamed": rs_launches, "conformer_f128": cw_launches,
+            "lstm_streamed": ls_launches,
+            "bench_scan": bench_runs["scan"]["launches"],
+            "bench_pallas": bench_runs["pallas"]["launches"],
+            "bench_streaming": bst_launches}
     # the LM variant's launches: those of the LM stream, per path beside
     lm_report.update(
         launches=lms_launches["fused_prefix_decode_lm"],

@@ -330,6 +330,453 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_scan_kernel(Args a) {
   clk.flush(a.clocks);
 }
 
+// ---- The streamed design: W_hh past shared-memory residency (the
+// resident design needs a unit tile's 4 x 16 columns of all Hp rows in
+// each block, and D Hp / 16 blocks at once: past H = 1008 on an H100).
+//
+// One cooperative launch for both directions; per direction, blocks tile
+// the output over batch and units together, as rnn_scan.cu's streamed
+// design does: block (d, gb0, gn) computes the gates of units [n0, n0 +
+// NU) for the batch tiles gb0, gb0 + gBr, .. of MB rows from h_{t-1}'s
+// rows of each and W_hh's four gate columns of those units. A unit tile
+// owns all four gates of its units, so the cell stays in the block:
+//   - The prologue rounds W_hh to bf16 once a call into the scratch wblk
+//     [D][gN][Hp][4 NU + 8]: a unit tile's K rows, each its 4 NU gate
+//     columns by octets of units, gate by gate ((octet 4 + gate) 8 +
+//     unit % 8), then 8 zeros, so the k rows of an ldmatrix are 4 NU / 8 +
+//     1 (odd) 16-byte chunks apart and fall in distinct bank groups; zeros
+//     past H. It writes h0 (bf16) into slot 0 of the direction's ping-pong
+//     buffer hblk [D][2][Hp / KS][Bp][KS] (recurrence.cuh: h_index; rows
+//     past B zero in both slots), and c0 into cbuf where a block walks
+//     several batch tiles; the grid meets once.
+//   - K streams in stages of KS rows (128, or 64 where a stage of 128
+//     leaves room for fewer than two): the copy warp of recurrence.cuh
+//     (stream_copies) issues the stage's W tile [KS][4 NU + 8] and h tile
+//     [MB][KS], one bulk copy each, into a ring of S stages; each block
+//     starts K at its own stage; the step barrier is one counter for each
+//     (direction, block row): the gN blocks that write and read those
+//     rows of that direction's h.
+//   - 8 consumer warps: WGM along the rows, WGN along the unit octets (a
+//     warp owns whole octets: its n8 tiles are the four gates of each),
+//     WGK along each stage's K, mma.sync m16n8k16, every product
+//     unconditional (a warp with fewer octets multiplies a copy of its
+//     last one into accumulators it never stores). K slice 0's
+//     accumulators start from xw[t] (prefetched into L2 during the step
+//     before, loaded as a tile starts); the other slices' partial tiles
+//     are added in K order through shared memory. Then each lane holds
+//     all four gates of its (row, unit) pairs in registers: c = f c + i g,
+//     h = o tanh(c), with c in registers from c0 to the last step (or
+//     parked in cbuf between the batch tiles a block walks), out[t] in
+//     float32 and bf16 h_t into the other slot.
+// Bound on the card: at B = 256, H = 2048 a direction's bf16 W_hh (32 MB)
+// is past L2 with the other's, and each batch tile a block walks reads it
+// again: the step is the stream of W_hh; at small B the step is the
+// latency of streaming W_hh from L2 with little to multiply.
+constexpr int kStreamConsumers = 256;                  // 8 warps
+constexpr int kStreamWarps = kStreamConsumers / 32;
+constexpr int kStreamThreads = kStreamConsumers + 32;  // + the copy warp
+constexpr int kStreamMaxStages = 8;
+
+struct StreamArgs {
+  const float* xw[2];  // [T, B, 4H] per direction
+  const float* w[2];   // [H, 4H] float32 per direction
+  const float* h0;     // [B, H]
+  const float* c0;     // [B, H]
+  float* out;          // [T, B, D H]
+  bf16* wblk;          // [D][gN][Hp][4 NU + 8] scratch
+  bf16* hblk;          // [D][2][Hp / KS][gB MB][KS] scratch (swizzled)
+  float* cbuf;         // [D][gB MB][Hp] scratch, where gB > gBr
+  unsigned long long* bar;      // D gBr words (scratch)
+  unsigned long long* clocks;   // probe builds only
+  int D, T, B, H, Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S, rev_mask,
+      vec;
+};
+
+__host__ __device__ inline int stream_ldw(int NU) { return 4 * NU + 8; }
+__host__ __device__ inline size_t stream_stage(int KS, int MB, int NU) {
+  return ((size_t)MB + stream_ldw(NU)) * KS * sizeof(bf16);
+}
+__host__ __device__ inline size_t stream_red(int MB, int NU, int WGK) {
+  return (size_t)(WGK - 1) * MB * (4 * NU + 4) * sizeof(float);
+}
+__host__ __device__ inline size_t stream_smem(int KS, int MB, int NU,
+                                              int WGK, int S) {
+  return S * stream_stage(KS, MB, NU) + stream_red(MB, NU, WGK) +
+         2 * (size_t)S * sizeof(uint64_t);
+}
+
+// MT: m16 tiles a warp (1 or 2); OCW: unit octets a warp (1 or 2), 4 OCW
+// n8 tiles. ptxas (sm_90a, the 168-register cap of 288 threads): (1, 1)
+// 142 registers, (1, 2) 168, (2, 1) 161, no spills; (2, 2) spills 172
+// bytes, and its tiles of 128 rows still halve the W_hh a step streams
+// at B = 256 (T = 200, H = 2048, both directions: 18.59 against 22.38 ms
+// on an NVIDIA H100 80GB HBM3 at 700 W, scripts/torch_lstm_tiles.py).
+template <int MT, int OCW>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+lstm_stream_kernel(StreamArgs a) {
+  constexpr int NTW = 4 * OCW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int per_dir = a.gBr * a.gN;
+  const int d = blockIdx.x / per_dir, bl = blockIdx.x % per_dir;
+  const int gb0 = bl / a.gN, gn = bl % a.gN;
+  const int n0 = gn * a.NU;
+  const int noct = min(a.NU, a.Hp - n0) / 8;    // this tile's octets
+  const int H = a.H, KS = a.KS, LDW = stream_ldw(a.NU), LDR = 4 * a.NU + 4;
+  const int Bp = a.gB * a.MB, nk = a.Hp / KS, S = a.S;
+  const int rot = (int)((long long)gn * nk / a.gN);   // the first K stage
+  const bool rev = (a.rev_mask >> d) & 1, multi = a.gB > a.gBr;
+  const float* xw = a.xw[d];
+  const size_t stage_bytes = stream_stage(KS, a.MB, a.NU);
+  const size_t slot_elems = (size_t)nk * Bp * KS;
+  bf16* hblk = a.hblk + (size_t)d * 2 * slot_elems;
+  float* cbuf = multi ? a.cbuf + (size_t)d * Bp * a.Hp : nullptr;
+  float* red = reinterpret_cast<float*>(smem + S * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + S * stage_bytes + stream_red(a.MB, a.NU, a.WGK));
+  const Ring ring{smem, stage_bytes, (uint32_t)(KS * LDW * sizeof(bf16)),
+                  (uint32_t)(a.MB * KS * sizeof(bf16)), S, full, full + S};
+  unsigned long long* counter = a.bar + (size_t)d * a.gBr + gb0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  Clock clk;
+  clk.start();
+
+  // W_hh of every direction rounded to bf16 once into wblk, by the whole
+  // grid: one 16-byte chunk (8 units of one gate) a thread at a time
+  {
+    const int cpr = LDW / 8;                    // chunks a row
+    const size_t per_d = (size_t)a.gN * a.Hp * cpr;
+    const size_t total = a.D * per_d;
+    for (size_t i = (size_t)blockIdx.x * kStreamThreads + tid; i < total;
+         i += (size_t)gridDim.x * kStreamThreads) {
+      const int dd = (int)(i / per_d);
+      size_t rem = i % per_d;
+      const int ch = (int)(rem % cpr);
+      rem /= cpr;
+      const int k = (int)(rem % a.Hp), tile = (int)(rem / a.Hp);
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      const int u = tile * a.NU + (ch / 4) * 8, g = ch % 4;
+      if (ch < cpr - 1 && k < H && u < H) {
+        const float* wr = a.w[dd] + (size_t)k * 4 * H + (size_t)g * H + u;
+        if (H % 4 == 0 && (reinterpret_cast<uintptr_t>(a.w[dd]) & 15) == 0 &&
+            u + 8 <= H) {
+          const float4 lo = __ldg(reinterpret_cast<const float4*>(wr));
+          const float4 hi = __ldg(reinterpret_cast<const float4*>(wr + 4));
+          v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+          v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = u + e < H ? __ldg(wr + e) : 0.f;
+        }
+      }
+      uint4 pk;
+      uint32_t* w32 = reinterpret_cast<uint32_t*>(&pk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        __nv_bfloat162 b2 = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        w32[e] = *reinterpret_cast<uint32_t*>(&b2);
+      }
+      *reinterpret_cast<uint4*>(
+          a.wblk + (((size_t)dd * a.gN + tile) * a.Hp + k) * LDW + ch * 8) =
+          pk;
+    }
+  }
+  // this block's tiles of h0 into slot 0 (rows past B zero in both slots)
+  // and, where it walks several batch tiles, of c0 into cbuf
+  const int nu = noct * 8;
+  for (int gb = gb0; gb < a.gB; gb += a.gBr)
+    for (int i = tid; i < a.MB * nu; i += kStreamThreads) {
+      const int r = gb * a.MB + i / nu, u = n0 + i % nu;
+      const bool ok = r < a.B && u < H;
+      const size_t e = h_index(r, u, Bp, KS);
+      hblk[e] = __float2bfloat16_rn(ok ? a.h0[(size_t)r * H + u] : 0.f);
+      if (r >= a.B) hblk[slot_elems + e] = __float2bfloat16_rn(0.f);
+      if (multi) cbuf[(size_t)r * a.Hp + u] = ok ? a.c0[(size_t)r * H + u]
+                                                 : 0.f;
+    }
+  if (tid == 0) ring.init(kStreamWarps);
+  fence_proxy_async();
+  clk.lap(kLoads);   // the prologue: W_hh rounded, h0, c0
+  prologue_barrier(a.bar, a.D * a.gBr);
+  clk.lap(kWait);
+
+  if (warp == kStreamWarps) {        // the copy warp: one thread
+    if (lane == 0)
+      stream_copies(ring, a.wblk + ((size_t)d * a.gN + gn) * a.Hp * LDW,
+                    (size_t)KS * LDW, hblk, slot_elems, Bp, a.MB, KS, nk,
+                    rot, a.T, gb0, a.gB, a.gBr, counter,
+                    (unsigned long long)a.gN);
+    return;
+  }
+
+  // ---- the consumer warps
+  const int wn = warp % a.WGN, wm = (warp / a.WGN) % a.WGM;
+  const int kw = warp / (a.WGN * a.WGM);
+  const int ocw = noct / a.WGN + (wn < noct % a.WGN);   // this warp's
+  const int o0 = wn * (noct / a.WGN) + min(wn, noct % a.WGN);   // octets
+  const int n16 = KS / a.WGK / 16;              // k16 steps a stage
+  const int g8 = lane >> 2, c2 = 2 * (lane & 3);
+  // this lane's ldmatrix rows: A, row r_m of m16 tile m (its swizzle);
+  // B, the W tile's columns of n8 tiles i, i + 1 (gates of one octet;
+  // octets past the warp's last read its last: products never stored)
+  int a_off[MT], a_swz[MT], b_off[NTW / 2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int row = (wm * MT + m) * 16 + a_row(lane);
+    a_off[m] = row * KS;
+    a_swz[m] = row & 7;
+  }
+  const int last = max(o0 + ocw - 1, 0);
+#pragma unroll
+  for (int i = 0; i < NTW; i += 2) {
+    const int t = i + (lane >> 4);
+    b_off[i / 2] = (min(o0 + t / 4, last) * 4 + t % 4) * 8;
+  }
+  const int bk = (lane & 7) + 8 * ((lane >> 3) & 1);
+  // (row, unit) of accumulator element (m, n8 tile i, half h) of batch
+  // tile b0: row b0 + (wm MT + m) 16 + g8 + 8 h, units u, u + 1 of gate
+  // i % 4
+  auto unit = [&](int i) { return n0 + (o0 + i / 4) * 8 + c2; };
+  auto row = [&](int b0, int m, int h) {
+    return b0 + (wm * MT + m) * 16 + g8 + 8 * h;
+  };
+
+  // this thread's xw elements of step s into L2, ahead of their use
+  auto prefetch_l2 = [&](int s) {
+    if (kw != 0) return;
+    const int t = rev ? a.T - 1 - s : s;
+    for (int gb = gb0; gb < a.gB; gb += a.gBr)
+      for (int m = 0; m < MT; ++m)
+        for (int i = 0; i < 4 * ocw; ++i)
+          for (int h = 0; h < 2; ++h) {
+            const int r = row(gb * a.MB, m, h), u = unit(i);
+            if (r < a.B && u < H)
+              asm volatile("prefetch.global.L2 [%0];" ::"l"(
+                  xw + ((size_t)t * a.B + r) * 4 * H + (size_t)(i % 4) * H +
+                  u));
+          }
+  };
+  auto load_frags = [&](const bf16* hs, const bf16* ws, int kk,
+                        uint32_t (&af)[MT][4], uint32_t (&bf)[NTW][2]) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int q = (kk + a_col(lane)) >> 3;
+      ldsm_x4(af[m], hs + a_off[m] + ((q ^ a_swz[m]) << 3));
+    }
+    const bf16* wk = ws + (kk + bk) * LDW;
+#pragma unroll
+    for (int i = 0; i < NTW; i += 2) {
+      uint32_t q4[4];
+      ldsm_x4_t(q4, wk + b_off[i / 2]);
+      bf[i][0] = q4[0];
+      bf[i][1] = q4[1];
+      bf[i + 1][0] = q4[2];
+      bf[i + 1][1] = q4[3];
+    }
+  };
+  auto products = [&](float (&acc)[MT][NTW][4], const uint32_t (&af)[MT][4],
+                      const uint32_t (&bf)[NTW][2]) {
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        mma16816(acc[m][i], af[m], bf[i][0], bf[i][1]);
+  };
+
+  // c of this lane's (row, unit) pairs: element (m, octet oc, 2 h + e)
+  float cst[MT][OCW][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int oc = 0; oc < OCW; ++oc)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = row(gb0 * a.MB, m, h), u = unit(4 * oc) + e;
+          cst[m][oc][2 * h + e] =
+              !multi && kw == 0 && oc < ocw && r < a.B && u < H
+                  ? a.c0[(size_t)r * H + u]
+                  : 0.f;
+        }
+
+  prefetch_l2(0);
+  float acc[MT][NTW][4];
+  int st = 0;
+  for (int s = 0; s < a.T; ++s) {
+    const int t = rev ? a.T - 1 - s : s;
+    bf16* h_w = hblk + (size_t)((s + 1) & 1) * slot_elems;
+    for (int gb = gb0; gb < a.gB; gb += a.gBr) {
+      const int b0 = gb * a.MB;
+      // the accumulators start from xw[t] (K slice 0; the others from 0):
+      // its loads land while the stages do
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < NTW; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = row(b0, m, h), u = unit(i);
+            const float* x =
+                xw + ((size_t)t * a.B + r) * 4 * H + (size_t)(i % 4) * H + u;
+            float2 v = make_float2(0.f, 0.f);
+            if (kw == 0 && i / 4 < ocw && r < a.B) {
+              if (a.vec && u + 1 < H) {
+                v = __ldg(reinterpret_cast<const float2*>(x));
+              } else {
+                if (u < H) v.x = __ldg(x);
+                if (u + 1 < H) v.y = __ldg(x + 1);
+              }
+            }
+            acc[m][i][2 * h] = v.x;
+            acc[m][i][2 * h + 1] = v.y;
+          }
+      if (multi && kw == 0)          // c of this batch tile, back
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int oc = 0; oc < OCW; ++oc)
+            if (oc < ocw)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float2 c = *reinterpret_cast<const float2*>(
+                    cbuf + (size_t)row(b0, m, h) * a.Hp + unit(4 * oc));
+                cst[m][oc][2 * h] = c.x;
+                cst[m][oc][2 * h + 1] = c.y;
+              }
+      for (int k = 0; k < nk; ++k, ++st) {
+        const int slot = st % S;
+        mbar_wait(ring.full + slot, (st / S) & 1);
+        clk.lap(kLoads);
+        const bf16* hs = ring.h(slot);
+        const bf16* ws = ring.w(slot);
+        const int k0 = kw * n16 * 16;
+        uint32_t af0[MT][4], bf0[NTW][2], af1[MT][4], bf1[NTW][2];
+        load_frags(hs, ws, k0, af0, bf0);
+        if (n16 == 1) {
+          products(acc, af0, bf0);
+        } else {   // k16 step x + 1's fragments load while x multiplies
+          for (int x = 0; x < n16; x += 2) {
+            load_frags(hs, ws, k0 + 16 * (x + 1), af1, bf1);
+            products(acc, af0, bf0);
+            if (x + 2 < n16) load_frags(hs, ws, k0 + 16 * (x + 2), af0, bf0);
+            products(acc, af1, bf1);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ring.empty + slot);   // the slot is free
+        clk.lap(kProducts);
+      }
+
+      // the K slices' partial tiles, added in K order by slice 0's warps
+      if (a.WGK > 1) {
+        auto at = [&](float* p, int m, int i, int h) {
+          return p + (size_t)((wm * MT + m) * 16 + g8 + 8 * h) * LDR +
+                 (o0 * 4 + i) * 8 + c2;
+        };
+        if (kw > 0) {
+          float* p = red + (size_t)(kw - 1) * a.MB * LDR;
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int i = 0; i < NTW; ++i)
+              if (i / 4 < ocw)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  *reinterpret_cast<float2*>(at(p, m, i, h)) =
+                      make_float2(acc[m][i][2 * h], acc[m][i][2 * h + 1]);
+        }
+        consumers_sync<kStreamConsumers>();
+        if (kw == 0)
+          for (int q = 0; q < a.WGK - 1; ++q) {
+            float* p = red + (size_t)q * a.MB * LDR;
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int i = 0; i < NTW; ++i)
+                if (i / 4 < ocw)
+#pragma unroll
+                  for (int h = 0; h < 2; ++h) {
+                    const float2 v =
+                        *reinterpret_cast<const float2*>(at(p, m, i, h));
+                    acc[m][i][2 * h] += v.x;
+                    acc[m][i][2 * h + 1] += v.y;
+                  }
+          }
+        consumers_sync<kStreamConsumers>();   // red is read before it is
+                                              // rewritten
+        clk.lap(kClusterSync);
+      }
+#ifndef GASR_PROBE_NO_EPILOGUE
+      if (kw == 0) {                 // the cell: four gates a lane
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int oc = 0; oc < OCW; ++oc)
+            if (oc < ocw)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                float hv[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float ig = sigmoid(acc[m][4 * oc][2 * h + e]);
+                  const float fg = sigmoid(acc[m][4 * oc + 1][2 * h + e]);
+                  const float gg = tanhf(acc[m][4 * oc + 2][2 * h + e]);
+                  const float og = sigmoid(acc[m][4 * oc + 3][2 * h + e]);
+                  float& c = cst[m][oc][2 * h + e];
+                  c = fg * c + ig * gg;
+                  hv[e] = og * tanhf(c);
+                }
+                const int r = row(b0, m, h), u = unit(4 * oc);
+                if (r >= a.B) continue;
+#ifndef GASR_PROBE_NO_OUT
+                float* o = a.out + ((size_t)t * a.B + r) * a.D * H +
+                           (size_t)d * H + u;
+                if (a.vec && u + 1 < H) {
+                  *reinterpret_cast<float2*>(o) = make_float2(hv[0], hv[1]);
+                } else {
+                  if (u < H) o[0] = hv[0];
+                  if (u + 1 < H) o[1] = hv[1];
+                }
+#endif
+                *reinterpret_cast<__nv_bfloat162*>(
+                    h_w + h_index(r, u, Bp, KS)) =
+                    __floats2bfloat162_rn(hv[0], hv[1]);
+              }
+        if (multi)                   // c of this batch tile, parked
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int oc = 0; oc < OCW; ++oc)
+              if (oc < ocw)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  *reinterpret_cast<float2*>(
+                      cbuf + (size_t)row(b0, m, h) * a.Hp + unit(4 * oc)) =
+                      make_float2(cst[m][oc][2 * h], cst[m][oc][2 * h + 1]);
+      }
+#endif
+      clk.lap(kEpilogue);
+    }
+    if (s + 1 < a.T) {
+      prefetch_l2(s + 1);
+      stream_arrive<kStreamConsumers>(counter);
+    }
+  }
+  clk.flush(a.clocks);
+}
+
+typedef void (*StreamKernel)(StreamArgs);
+// the instantiation for MT m16 tiles and OCW unit octets a warp
+StreamKernel pick_stream(int mt, int ocw) {
+  return mt == 1 && ocw == 1   ? lstm_stream_kernel<1, 1>
+         : mt == 1 && ocw == 2 ? lstm_stream_kernel<1, 2>
+         : mt == 2 && ocw == 1 ? lstm_stream_kernel<2, 1>
+         : mt == 2 && ocw == 2 ? lstm_stream_kernel<2, 2>
+                               : nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -379,6 +826,73 @@ int lstm_scan_launch(const float* xw0, const float* xw1, const float* w0,
          D, T, B, H, Hp, RB, G, rev_mask};
   return (int)launch_cooperative(lstm_scan_kernel, grid, kThreads,
                                  smem_bytes(Hp), 1, stream, a);
+}
+
+
+// The streamed design. Shared memory of a block: S ring stages of a KS-row
+// W tile of NU units' four gates and an MB-row h tile, and the partial
+// tiles of WGK - 1 K slices.
+int lstm_stream_smem(int KS, int MB, int NU, int WGK, int S) {
+  return (int)stream_smem(KS, MB, NU, WGK, S);
+}
+
+// How many blocks of the streamed design (smem bytes each) the current card
+// holds at once: SMs times blocks an SM (0 when none fits).
+int lstm_stream_max_blocks(int smem) {
+  if (smem > kSmemMax) return 0;
+  const StreamKernel kernel = pick_stream(1, 2);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kStreamThreads,
+                                                    smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return per_sm * sms;
+}
+
+// One launch for the recurrences of D directions (as lstm_scan_launch) on
+// D gBr gN blocks: per direction gB batch tiles of MB rows (a multiple of
+// 16 up to 128) walked by gBr block rows, gN unit tiles of NU units (a
+// multiple of 8), K stages of KS = 64 or 128 rows (Hp: H rounded up to
+// 128), warps WGM x WGN x WGK = 8, S ring stages. wblk [D, gN, Hp, 4 NU +
+// 8] bf16, hblk [D, 2, Hp / KS, gB MB, KS] bf16, cbuf [D, gB MB, Hp]
+// float32 (read only where gB > gBr) and bar (D gBr 64-bit words) are
+// scratch, all 16-byte aligned. vec: H even and xw, out 8-byte aligned.
+int lstm_stream_launch(const float* xw0, const float* xw1, const float* w0,
+                       const float* w1, const float* h0, const float* c0,
+                       int D, int T, int B, int H, int Hp, int KS, int MB,
+                       int gB, int gBr, int NU, int gN, int WGM, int WGN,
+                       int WGK, int S, int rev_mask, int vec, float* out,
+                       bf16* wblk, bf16* hblk, float* cbuf,
+                       unsigned long long* bar, unsigned long long* clocks,
+                       cudaStream_t stream) {
+  if (D < 1 || D > 2 || (KS != 64 && KS != 128) || Hp % 128 != 0 ||
+      Hp < H || T < 1 || B < 1 || MB % 16 != 0 || MB < 16 || MB > 128 ||
+      (size_t)gB * MB < (size_t)B || (size_t)(gB - 1) * MB >= (size_t)B ||
+      gBr < 1 || gBr > gB || NU % 8 != 0 || NU < 8 ||
+      (size_t)gN * NU < (size_t)Hp || (size_t)(gN - 1) * NU >= (size_t)Hp ||
+      WGM < 1 || WGN < 1 || WGK < 1 ||
+      WGM * WGN * WGK != kStreamWarps || (MB / 16) % WGM != 0 ||
+      KS % (16 * WGK) != 0 || S < 2 || S > kStreamMaxStages ||
+      (gB > gBr && cbuf == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int mt = MB / 16 / WGM, ocw = (NU / 8 + WGN - 1) / WGN;
+  const StreamKernel kernel = pick_stream(mt, ocw);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = stream_smem(KS, MB, NU, WGK, S);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  StreamArgs a{{xw0, xw1}, {w0, w1}, h0, c0, out, wblk, hblk, cbuf, bar,
+               clocks, D, T, B, H, Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN,
+               WGK, S, rev_mask, vec};
+  return (int)launch_cooperative(kernel, dim3(D * gBr * gN), kStreamThreads,
+                                 smem, 1, stream, a);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
-// Pieces shared by the persistent recurrence kernels (rnn_scan.cu's
-// resident and streamed designs, lstm_scan.cu): 16-byte asynchronous
-// copies, ldmatrix, mma.sync bf16, and the step barrier between the blocks
-// of a grid (or of one LSTM direction, or one batch tile of the streamed
-// Elman design).
+// Pieces shared by the persistent recurrence kernels (the resident and
+// streamed designs of rnn_scan.cu and lstm_scan.cu): 16-byte asynchronous
+// copies, ldmatrix, mma.sync bf16, the step barrier between the blocks of
+// a grid (or of one LSTM direction, or one block row of a streamed
+// design), and the streamed designs' ring of K stages with its copy warp.
 //
 // Step barrier. Each call brings its own barrier words (`bar`: scratch
 // from the caller, uninitialised). The prologue zeroes them (block 0) and
@@ -132,7 +132,7 @@ __device__ __forceinline__ void store_bf16x4(bf16* p, const float* h) {
 
 // mbarriers in shared memory and bulk copies (the tensor memory
 // accelerator) into shared memory, counted by an mbarrier (the streamed
-// Elman design's ring)
+// designs' ring)
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
@@ -255,6 +255,130 @@ __device__ __forceinline__ void step_barrier(unsigned long long* bar, int n,
 #endif
   __syncthreads();
 #endif
+}
+
+// ---- The streamed designs (rnn_scan.cu's rnn_stream_kernel and
+// lstm_scan.cu's lstm_stream_kernel): W_hh past shared-memory residency,
+// rounded to bf16 once a call into a scratch that every step streams from
+// L2 in K stages of KS rows.
+//
+// h_{t-1} lives in a ping-pong scratch whose slot is [Hp / KS][Bp][KS]: a
+// K stage's rows of a batch tile contiguous (one bulk copy), the 16-byte
+// chunk q of row r at q ^ (r % 8), so that ldmatrix reads the eight rows
+// of a fragment without bank conflicts (KS = 64 or 128). Element (r, u):
+__device__ __forceinline__ size_t h_index(int r, int u, int Bp, int KS) {
+  const int k = u / KS, c = u % KS;
+  return ((size_t)k * Bp + r) * KS + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+}
+
+// The consumer warps' barrier (named barrier 1; the copy warp does not
+// take part)
+template <int N>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
+// h_t is written by generic stores and read by the next step's bulk copies
+// (the async proxy): every writer fences the proxies before the block's
+// release, and the copy thread fences them after its acquire.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// The ring of S stages in shared memory, each a W tile (w_bytes) then an
+// h tile, counted by full (one arrival and the copies' bytes) and empty
+// (one arrival a consumer warp) mbarriers.
+struct Ring {
+  unsigned char* base;
+  size_t stage_bytes;
+  uint32_t w_bytes, h_bytes;
+  int S;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ bf16* w(int slot) const {
+    return reinterpret_cast<bf16*>(base + slot * stage_bytes);
+  }
+  __device__ bf16* h(int slot) const {
+    return reinterpret_cast<bf16*>(base + slot * stage_bytes + w_bytes);
+  }
+  // thread 0, in the prologue (before the grid meets)
+  __device__ void init(int consumer_warps) const {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, consumer_warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// The copy warp's one thread: every K stage of every batch tile of every
+// step into the ring, in the order the consumers take them. The block's
+// W tiles: stage k at wsrc + k w_stage (elements); the h tiles: slot s % 2
+// of hblk (slot_elems each, Bp rows), batch tile gb at rows gb MB. The
+// block walks the batch tiles gb0, gb0 + gBr, .. < gB each step and K from
+// its own first stage rot (then around, nk stages). At a step's first tile
+// it issues the W copies of the first S stages (they need no h), waits at
+// the step barrier (counter >= per_step s: every writer of these rows has
+// written h_{t-1}), then issues the h copies.
+__device__ __forceinline__ void stream_copies(
+    const Ring& ring, const bf16* wsrc, size_t w_stage, const bf16* hblk,
+    size_t slot_elems, int Bp, int MB, int KS, int nk, int rot, int T,
+    int gb0, int gB, int gBr, const unsigned long long* counter,
+    unsigned long long per_step) {
+  fence_proxy_async();
+  const int S = ring.S;
+  // ring stage st (the call's running count) holds K stage k of a tile
+  auto issue_w = [&](int st, int k) {
+    const int slot = st % S, kr = (rot + k) % nk;
+    if (st >= S) mbar_wait(ring.empty + slot, (st / S - 1) & 1);
+#ifndef GASR_PROBE_NO_LOADS
+    bulk_copy(ring.w(slot), wsrc + (size_t)kr * w_stage, ring.w_bytes,
+              ring.full + slot, false);
+#endif
+  };
+  auto issue_h = [&](int st, int k, const bf16* h_r, int gb) {
+    const int slot = st % S, kr = (rot + k) % nk;
+#ifndef GASR_PROBE_NO_LOADS
+    bulk_copy(ring.h(slot), h_r + ((size_t)kr * Bp + (size_t)gb * MB) * KS,
+              ring.h_bytes, ring.full + slot, true);
+#else
+    mbar_arrive(ring.full + slot);
+#endif
+  };
+  int st = 0;
+  for (int s = 0; s < T; ++s) {
+    const bf16* h_r = hblk + (size_t)(s & 1) * slot_elems;
+    for (int gb = gb0; gb < gB; gb += gBr) {
+      const int pre = (gb == gb0 && s > 0) ? min(S, nk) : 0;
+      for (int k = 0; k < pre; ++k) issue_w(st + k, k);   // no h needed
+      if (pre > 0) {                 // the step barrier: h_{t-1} is whole
+#ifndef GASR_PROBE_NO_BARRIER
+        wait_word(counter, per_step * s);
+#endif
+        fence_proxy_async();
+      }
+      for (int k = 0; k < nk; ++k) {
+        if (k >= pre) issue_w(st + k, k);
+        issue_h(st + k, k, h_r, gb);
+      }
+      st += nk;
+    }
+  }
+}
+
+// A consumer block's arrival at the step barrier of the streamed designs,
+// after its h_t is written (every consumer thread calls it)
+template <int N>
+__device__ __forceinline__ void stream_arrive(unsigned long long* counter) {
+  fence_proxy_async();               // h_t, for the next step's copies
+  consumers_sync<N>();
+  if (threadIdx.x == 0) {            // the block's arrival
+    __threadfence();
+#ifndef GASR_PROBE_NO_BARRIER
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(counter)
+                 : "memory");
+#endif
+  }
 }
 
 // Probe builds (scripts/torch_recurrence_probe.py, -DGASR_PROBE_CLOCKS):

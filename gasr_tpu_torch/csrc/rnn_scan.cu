@@ -437,22 +437,6 @@ __host__ __device__ inline size_t stream_smem(int MB, int NU, int WGK,
          2 * (size_t)S * sizeof(uint64_t);
 }
 
-// element (r, u) of one slot of hblk (Bp rows)
-__device__ __forceinline__ size_t h_index(int r, int u, int Bp) {
-  const int k = u / kStreamK, c = u % kStreamK;
-  return ((size_t)k * Bp + r) * kStreamK +
-         ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
-}
-
-// the consumer warps' barrier (the copy warp does not take part)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kStreamConsumers) : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-}
-
 // MT: m16 tiles a warp (1 or 2); NTW: n8 tiles a warp. Every warp runs
 // MT x NTW products each k16 step, with no condition around them (a
 // condition puts each mma.sync in a convergence region of its own, and
@@ -473,7 +457,10 @@ rnn_stream_kernel(StreamArgs a) {
   float* red = reinterpret_cast<float*>(smem + S * stage_bytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(
       smem + S * stage_bytes + stream_red(a.MB, a.NU, a.WGK));
-  uint64_t* empty = full + S;
+  const Ring ring{smem, stage_bytes,
+                  (uint32_t)(kStreamK * a.NU * sizeof(bf16)),
+                  (uint32_t)(a.MB * kStreamK * sizeof(bf16)), S, full,
+                  full + S};
   unsigned long long* counter = a.bar + (size_t)gb0 * a.gN;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   Clock clk;
@@ -527,73 +514,23 @@ rnn_stream_kernel(StreamArgs a) {
   for (int gb = gb0; gb < a.gB; gb += a.gBr)
     for (int i = tid; i < a.MB * nu; i += kStreamThreads) {
       const int r = gb * a.MB + i / nu, u = n0 + i % nu;
-      const size_t e = h_index(r, u, Bp);
+      const size_t e = h_index(r, u, Bp, kStreamK);
       a.hblk[e] = __float2bfloat16_rn(
           r < a.B && u < a.H ? a.h0[(size_t)r * a.H + u] : 0.f);
       if (r >= a.B) a.hblk[slot_elems + e] = __float2bfloat16_rn(0.f);
     }
-  if (tid == 0) {
-    for (int i = 0; i < S; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, kStreamWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) ring.init(kStreamWarps);
   fence_proxy_async();
   clk.lap(kLoads);   // the prologue: W_hh rounded, h0
   prologue_barrier(a.bar, a.gBr * a.gN);
   clk.lap(kWait);
 
-  auto stage_w = [&](int slot) {
-    return reinterpret_cast<bf16*>(smem + slot * stage_bytes);
-  };
-  auto stage_h = [&](int slot) { return stage_w(slot) + kStreamK * a.NU; };
-
   if (warp == kStreamWarps) {        // the copy warp: one thread
-    if (lane != 0) return;
-    fence_proxy_async();
-    const uint32_t w_bytes = kStreamK * a.NU * sizeof(bf16);
-    const uint32_t h_bytes = a.MB * kStreamK * sizeof(bf16);
-    // ring stage st (the call's running count) holds K stage k of a tile,
-    // rotated: this block's k-th is rot + k
-    auto issue_w = [&](int st, int k) {
-      const int slot = st % S, kr = (rot + k) % nk;
-      if (st >= S) mbar_wait(empty + slot, (st / S - 1) & 1);
-#ifndef GASR_PROBE_NO_LOADS
-      bulk_copy(stage_w(slot),
-                a.wblk + ((size_t)gn * a.Hp + (size_t)kr * kStreamK) * a.NU,
-                w_bytes, full + slot, false);
-#endif
-    };
-    auto issue_h = [&](int st, int k, const bf16* h_r, int gb) {
-      const int slot = st % S, kr = (rot + k) % nk;
-#ifndef GASR_PROBE_NO_LOADS
-      bulk_copy(stage_h(slot),
-                h_r + ((size_t)kr * Bp + (size_t)gb * a.MB) * kStreamK,
-                h_bytes, full + slot, true);
-#else
-      mbar_arrive(full + slot);
-#endif
-    };
-    int st = 0;
-    for (int s = 0; s < a.T; ++s) {
-      const bf16* h_r = a.hblk + (size_t)(s & 1) * slot_elems;
-      for (int gb = gb0; gb < a.gB; gb += a.gBr) {
-        const int pre = (gb == gb0 && s > 0) ? min(S, nk) : 0;
-        for (int k = 0; k < pre; ++k) issue_w(st + k, k);   // no h needed
-        if (pre > 0) {               // the step barrier: h_{t-1} is whole
-#ifndef GASR_PROBE_NO_BARRIER
-          wait_word(counter, (unsigned long long)a.gN * s);
-#endif
-          fence_proxy_async();
-        }
-        for (int k = 0; k < nk; ++k) {
-          if (k >= pre) issue_w(st + k, k);
-          issue_h(st + k, k, h_r, gb);
-        }
-        st += nk;
-      }
-    }
+    if (lane == 0)
+      stream_copies(ring, a.wblk + (size_t)gn * a.Hp * a.NU,
+                    (size_t)kStreamK * a.NU, a.hblk, slot_elems, Bp, a.MB,
+                    kStreamK, nk, rot, a.T, gb0, a.gB, a.gBr, counter,
+                    (unsigned long long)a.gN);
     return;
   }
 
@@ -705,10 +642,10 @@ rnn_stream_kernel(StreamArgs a) {
           }
       for (int k = 0; k < nk; ++k, ++st) {
         const int slot = st % S;
-        mbar_wait(full + slot, (st / S) & 1);
+        mbar_wait(ring.full + slot, (st / S) & 1);
         clk.lap(kLoads);
-        const bf16* hs = stage_h(slot);
-        const bf16* ws = stage_w(slot);
+        const bf16* hs = ring.h(slot);
+        const bf16* ws = ring.w(slot);
         const int k0 = kw * n16 * 16;
         uint32_t af0[MT][4], bf0[NTW][2], af1[MT][4], bf1[NTW][2];
         load_frags(hs, ws, k0, af0, bf0);
@@ -723,7 +660,7 @@ rnn_stream_kernel(StreamArgs a) {
           }
         }
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty + slot);   // the slot is free
+        if (lane == 0) mbar_arrive(ring.empty + slot);   // the slot is free
         clk.lap(kProducts);
       }
 
@@ -743,7 +680,7 @@ rnn_stream_kernel(StreamArgs a) {
                       (j0 + i) * 8 + c2) =
                       make_float2(acc[m][i][2 * h], acc[m][i][2 * h + 1]);
         }
-        consumers_sync();
+        consumers_sync<kStreamConsumers>();
         if (kw == 0)
           for (int q = 0; q < a.WGK - 1; ++q) {
             const float* p = red + (size_t)q * a.MB * LDR;
@@ -761,7 +698,8 @@ rnn_stream_kernel(StreamArgs a) {
                     acc[m][i][2 * h + 1] += v.y;
                   }
           }
-        consumers_sync();            // red is read before it is rewritten
+        consumers_sync<kStreamConsumers>();   // red is read before it is
+                                              // rewritten
         clk.lap(kClusterSync);
       }
 #ifndef GASR_PROBE_NO_EPILOGUE
@@ -788,8 +726,8 @@ rnn_stream_kernel(StreamArgs a) {
                   if (u + 1 < a.H) a.out[o + 1] = y1;
                 }
 #endif
-                *reinterpret_cast<__nv_bfloat162*>(h_w +
-                                                   h_index(r, u, Bp)) =
+                *reinterpret_cast<__nv_bfloat162*>(
+                    h_w + h_index(r, u, Bp, kStreamK)) =
                     __floats2bfloat162_rn(y0, y1);
               }
       }
@@ -798,16 +736,7 @@ rnn_stream_kernel(StreamArgs a) {
     }
     if (s + 1 < a.T) {
       prefetch_l2(s + 1);
-      fence_proxy_async();           // h_t, for the next step's copies
-      consumers_sync();
-      if (tid == 0) {                // the block's arrival
-        __threadfence();
-#ifndef GASR_PROBE_NO_BARRIER
-        asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(
-                         counter)
-                     : "memory");
-#endif
-      }
+      stream_arrive<kStreamConsumers>(counter);
     }
   }
   clk.flush(a.clocks);

@@ -153,3 +153,42 @@ class Pipeline:
         if self.vocab is None:
             return " ".join(map(str, ids))
         return "".join(self.vocab[i] for i in ids)
+
+
+def main(argv=None):
+    """A small DeepSpeech pipeline on random weights and inputs: prints
+    each utterance's text and the call's time.
+
+        python -m gasr_tpu_torch.infer [--model deepspeech] [--batch 4]
+            [--frames 50] [--beam 10] [--device cuda|cpu]
+    """
+    import argparse
+
+    from gasr_tpu_torch.runtime.timer import Timer
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="deepspeech")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--frames", type=int, default=50)
+    ap.add_argument("--beam", type=int, default=10)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the pipeline runs (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = Config(model=args.model, batch_size=args.batch,
+                 input_size=26, n_context=1, linear_size=256,
+                 rnn_hidden_size=256, vocab_size=27,
+                 seg_len=args.frames, beam_width=args.beam,
+                 device=args.device)
+    pipe = Pipeline(cfg)
+    feats = torch.rand((args.batch, args.frames, cfg.feat_size),
+                       generator=torch.Generator().manual_seed(1))
+    timer = Timer()
+    out, dt = timer.time("transcribe", pipe.transcribe, feats)
+    for b, (ids, score) in enumerate(out):
+        print(f"utt {b}: {pipe.to_text(ids)!r}  score={score:.3f}")
+    print(f"[{dt:.3f}s transcribe on {pipe.device}, the first call]")
+
+
+if __name__ == "__main__":
+    main()

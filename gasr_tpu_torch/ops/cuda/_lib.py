@@ -76,7 +76,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                  "rnn_stream_max_blocks": [_I]},
     "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 8 + [_P] * 6,
                   "lstm_scan_smem": [_I],
-                  "lstm_scan_max_blocks": [_I]},
+                  "lstm_scan_max_blocks": [_I],
+                  "lstm_stream_launch": [_P] * 6 + [_I] * 17 + [_P] * 7,
+                  "lstm_stream_smem": [_I] * 5,
+                  "lstm_stream_max_blocks": [_I]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -87,9 +90,9 @@ def scan_supported(B: int, H: int) -> bool:
     (`gasr_tpu/ops/pallas/rnn_scan.py:96-115`, `lstm_scan.py:83-97`):
     `rnn_forward` / `lstm_forward` with impl="pallas" take the rnn_scan /
     lstm_scan kernel at these (batch, hidden) shapes and the float32 loop
-    at any other. The Elman wrapper takes every H (past its resident
-    limit `rnn_scan.max_hidden`, the streamed design); the LSTM wrapper H
-    up to its resident limit (`lstm_scan.max_hidden`)."""
+    at any other. Both wrappers take every H: past their resident limits
+    (`rnn_scan.max_hidden`, `lstm_scan.max_hidden`) their streamed
+    designs."""
     return H % 128 == 0 and B % 8 == 0
 
 

@@ -8,17 +8,23 @@ accumulates in float32 and the gates are float32. Forward or reverse in
 time; the output keeps xw's time index.
 
 `lstm_scan` (one direction) and `lstm_scan_bidir` (a forward and a
-reverse direction in the same launch) launch the CUDA kernel
-(`csrc/lstm_scan.cu`: one persistent cooperative launch a call, W_hh
-resident in shared memory, c in registers, a step barrier per direction)
-for CUDA tensors and run `lstm_scan_plain` for CPU tensors. Every B goes
-through the kernel in one launch (past the batch groups the card holds
-at once, a block walks several); H up to the resident limit
-(`max_hidden`: a unit tile's blocks, each holding 4 x 16 columns of
-W_hh, must fit on the card at once for every direction), past which it
-raises `ValueError`; other devices raise.
-`ops/lstm.py::lstm_forward` takes it only where `_lib.scan_supported`
-(the JAX package's shape rule) holds.
+reverse direction in the same launch) launch a CUDA kernel of
+`csrc/lstm_scan.cu` for CUDA tensors (one persistent cooperative launch a
+call, c in registers, a step barrier per direction) and run
+`lstm_scan_plain` for CPU tensors. `pick_design` chooses the kernel from
+(B, H, D) and the card's limits:
+  - "resident" where a unit tile's blocks, each holding the 4 x 16 gate
+    columns of W_hh in shared memory, fit on the card at once for every
+    direction (`max_hidden`: H up to 1008 on an H100); every B, in batch
+    groups (past the groups the card holds at once, a block walks
+    several);
+  - "streamed" past that: W_hh rounded to bf16 once a call into a scratch
+    that every step streams from L2 in K stages (bulk copies by a copy
+    warp), blocks tiled over batch and unit tiles that own all four gates
+    of their units (`stream_plan`).
+Neither gives way to the plain version: a launch that fails raises; other
+devices raise. `ops/lstm.py::lstm_forward` takes it only where
+`_lib.scan_supported` (the JAX package's shape rule) holds.
 """
 
 from __future__ import annotations
@@ -30,13 +36,27 @@ import torch
 from gasr_tpu_torch.ops.cuda import _lib
 
 # kernel launches made by lstm_scan / lstm_scan_bidir (one per call,
-# whatever the number of directions)
+# whatever the number of directions, either design); those of the streamed
+# design among them
 launches = 0
+streamed_launches = 0
 
-# the kernel's decomposition (csrc/lstm_scan.cu)
+# the resident design's decomposition (csrc/lstm_scan.cu, lstm_scan_kernel)
 UNITS = 16            # hidden units a block (its 4 x 16 gate columns)
 ROWS = 32             # batch rows a chunk
 GROUP_MAX = 128       # batch rows a block at most (4 chunks of c in registers)
+SMEM_MAX = 232448     # a block's shared memory on sm_90
+
+# the streamed design (csrc/lstm_scan.cu, lstm_stream_kernel)
+STREAM_ALIGN = 128          # H padded to this (K stages of 128 or 64)
+STREAM_KS = (128, 64)       # K rows a ring stage, the larger where 2 fit
+STREAM_WARPS = 8
+STREAM_MAX_STAGES = 8
+STREAM_ROWS = (16, 32, 64, 128)   # batch rows a block: m16 tiles 1-8
+STREAM_TILES = 16           # accumulator tiles (m16 x n8) a warp at most:
+                            # the (2, 2) build spills ~0.5 KB at the
+                            # 168-register cap of 288 threads and still
+                            # beats the tiling it replaces (PERF.md)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -54,27 +74,141 @@ def plan(B: int, H: int):
     return Hp, RB, -(-B // RB)
 
 
-_fit: dict = {}
+def resident_smem(Hp: int) -> int:
+    """`lstm_scan_smem` of csrc/lstm_scan.cu: the block's bf16 W^T [64][Hp +
+    8], a staged chunk of h [32][Hp + 8] and the K quarters' float32 gate
+    tiles [4][32][68]."""
+    return 4 * UNITS * (Hp + 8) * 2 + ROWS * (Hp + 8) * 2 + 4 * ROWS * 68 * 4
 
 
-def _resident_groups(D: int, H: int) -> int:
+def resident_groups(D: int, H: int, smem, max_blocks) -> int:
     """How many batch groups a unit tile the card holds at once for D
     directions at width H (its blocks: D x Hp / 16 x groups); 0 past the
-    resident limit."""
+    resident limit. `smem(Hp)` gives a block's shared memory,
+    `max_blocks(bytes)` how many such blocks the card holds at once."""
     Hp = _round_up(H, UNITS)
-    key = (torch.cuda.current_device(), D, Hp)
-    if key not in _fit:
+    return max_blocks(smem(Hp)) // (D * Hp // UNITS)
+
+
+def stream_smem(KS: int, MB: int, NU: int, WGK: int, S: int) -> int:
+    """`lstm_stream_smem` of csrc/lstm_scan.cu: S stages of the W tile
+    [KS][4 NU + 8] and the h tile [MB][KS] (bf16), WGK - 1 float32 partial
+    tiles [MB][4 NU + 4] and the ring's 2 S mbarriers."""
+    return (S * (MB + 4 * NU + 8) * KS * 2
+            + (WGK - 1) * MB * (4 * NU + 4) * 4 + 16 * S)
+
+
+def warp_grid(MB: int, NU: int, KS: int):
+    """(WGM, WGN, WGK): the 8 warps of a streamed block along its rows (1
+    or 2 m16 tiles each), its unit octets (1 or 2 each: a warp's n8 tiles
+    are the four gates of its octets, at most STREAM_TILES accumulator
+    tiles) and each stage's KS rows; the least work a warp (then the
+    fewest K slices), or None."""
+    best = None
+    mt, octets = MB // 16, NU // 8
+    for wgm in (1, 2, 4, 8):
+        if mt % wgm or mt // wgm > 2:
+            continue
+        for wgn in (1, 2, 4, 8):
+            if wgm * wgn > STREAM_WARPS:
+                continue
+            wgk = STREAM_WARPS // (wgm * wgn)
+            ocw = -(-octets // wgn)
+            if (ocw > 2 or (mt // wgm) * 4 * ocw > STREAM_TILES
+                    or KS % (16 * wgk)):
+                continue
+            key = ((mt // wgm) * 4 * ocw * (KS // 16 // wgk), wgk)
+            if best is None or key < best[0]:
+                best = (key, (wgm, wgn, wgk))
+    return None if best is None else best[1]
+
+
+def stream_plan(B: int, H: int, D: int, blocks: int, smem_max: int = None):
+    """The streamed design's decomposition at (B, H) for D directions on
+    `blocks` co-resident blocks (one an SM, blocks // D a direction):
+    (Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S). Per direction, gB
+    batch tiles of MB rows walked by gBr block rows (each takes tiles gb0,
+    gb0 + gBr, ..), gN unit tiles of NU units (a multiple of 8; the last
+    may hold fewer), each owning the four gate columns of its units; K
+    stages of KS rows (128 where two stages fit, else 64); S ring stages,
+    as many as shared memory holds (at most STREAM_MAX_STAGES). Chosen for
+    the fewest bytes the busiest block reads from L2 a step (its tiles' h
+    rows and W columns), then the fewest a step over the card, then the
+    fewest batch tiles; for each MB the most block rows whose unit tile
+    fits the warps. None where no tiling fits."""
+    smem_max = SMEM_MAX if smem_max is None else smem_max
+    Hp = _round_up(H, STREAM_ALIGN)
+    per_dir = blocks // D
+    best = None
+    for MB in STREAM_ROWS:
+        gB = -(-B // MB)
+        if MB > 16 and -(-B // (MB // 2)) == gB:
+            continue                 # a smaller tile has as few batch tiles
+        for gBr in range(min(gB, per_dir), 0, -1):
+            NU = 8 * -(-Hp // (8 * (per_dir // gBr)))
+            gN = -(-Hp // NU)
+            for KS in STREAM_KS:
+                grid = warp_grid(MB, NU, KS)
+                if grid is None:
+                    continue
+                S = min(STREAM_MAX_STAGES,
+                        (smem_max - stream_smem(KS, MB, NU, grid[2], 0))
+                        // stream_smem(KS, MB, NU, 1, 1))
+                if S >= 2:
+                    break
+            else:
+                continue
+            walk = -(-gB // gBr)
+            cost = (walk * (MB + 4 * NU) * Hp * 2,
+                    D * (gB * 4 * Hp * Hp * 2 + gN * B * Hp * 2), gB)
+            if best is None or cost < best[0]:
+                best = (cost, (Hp, KS, MB, gB, gBr, NU, gN, *grid, S))
+            break
+    return None if best is None else best[1]
+
+
+def pick_design(B: int, H: int, D: int, smem, max_blocks, blocks: int):
+    """The one rule that picks the kernel: ("resident", (Hp, RB, groups,
+    GY)) wherever the resident design fits (`resident_groups` > 0; GY
+    blocks a unit tile, each walking groups / GY batch groups), else
+    ("streamed", `stream_plan`); (None, None) only where neither fits.
+    `smem(Hp)` and `max_blocks(bytes)` describe the resident kernel on the
+    card, `blocks` the streamed kernel's co-resident blocks."""
+    res = resident_groups(D, H, smem, max_blocks)
+    if res > 0:
+        Hp, RB, groups = plan(B, H)
+        return "resident", (Hp, RB, groups, min(groups, res))
+    sp = stream_plan(B, H, D, blocks)
+    return ("streamed", sp) if sp is not None else (None, None)
+
+
+_designs: dict = {}
+
+
+def _card_design(device, B: int, H: int, D: int):
+    key = (device.index, B, H, D)
+    if key not in _designs:
         lib = _lib.load("lstm_scan")
-        _fit[key] = (lib.lstm_scan_max_blocks(lib.lstm_scan_smem(Hp))
-                     // (D * Hp // UNITS))
-    return _fit[key]
+        _designs[key] = pick_design(
+            B, H, D, lib.lstm_scan_smem, lib.lstm_scan_max_blocks,
+            lib.lstm_stream_max_blocks(SMEM_MAX))
+    return _designs[key]
+
+
+def design(device, B: int, H: int, D: int = 1) -> str:
+    """The kernel `lstm_scan` (D = 1) / `lstm_scan_bidir` (D = 2) launches
+    at (B, H) on this card: "resident" or "streamed"."""
+    return _card_design(device, B, H, D)[0]
 
 
 def max_hidden(D: int) -> int:
-    """The largest H (a multiple of 16) the kernel takes on this card for
-    D directions, at any B."""
+    """The largest H (a multiple of 16) the resident design takes on this
+    card for D directions, at any B; the streamed design takes the H past
+    it."""
+    lib = _lib.load("lstm_scan")
     H = 0
-    while _resident_groups(D, H + UNITS) > 0:
+    while resident_groups(D, H + UNITS, lib.lstm_scan_smem,
+                          lib.lstm_scan_max_blocks) > 0:
         H += UNITS
     return H
 
@@ -146,36 +280,55 @@ def _launch(xws: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     dev = h0.device
     if T * B * H == 0:
         return xws[0].new_empty(T, B, D * H)
-    resident = _resident_groups(D, H)
-    if resident == 0:
-        raise ValueError(
-            f"lstm_scan: H={H} with {D} direction(s) is past the kernel's "
-            f"resident limit H <= {max_hidden(D)} on this card (W_hh stays "
-            f"in shared memory, 4H^2 x 2 x D bytes over blocks that must "
-            f"all be resident at once)")
-    Hp, RB, groups = plan(B, H)
-    GY = min(groups, resident)
-    # the kernel reads float32 W_hh and rounds it to bf16 itself, and takes
-    # any H: units past H read as zeros in every gate
+    kind, p = _card_design(dev, B, H, D)
+    if kind is None:
+        raise ValueError(f"lstm_scan: no tiling of the streamed design fits "
+                         f"B={B}, H={H}, {D} direction(s) on this card")
+    # the kernels read float32 W_hh and round it to bf16 themselves, and
+    # take any H: units past H read as zeros in every gate
     xs = [x.contiguous() for x in xws]
     wf = [(w if w.dtype == torch.float32 else w.float()).contiguous()
           for w in ws]
     h, c = h0.float().contiguous(), c0.float().contiguous()
     out = torch.empty(T, B, D * H, dtype=torch.float32, device=dev)
-    hbf = torch.empty(D, 2, B, Hp, dtype=torch.bfloat16, device=dev)
-    # c of the groups a block leaves, where it walks several
-    cbuf = torch.empty(D, B, Hp, device=dev) if GY < groups else None
-    bar = torch.empty(D * Hp // UNITS * GY, dtype=torch.int64, device=dev)
     rev_mask = sum(1 << d for d, r in enumerate(reverse) if r)
-    err = _lib.load("lstm_scan").lstm_scan_launch(
-        _lib.ptr(xs[0]), _lib.ptr(xs[-1]), _lib.ptr(wf[0]), _lib.ptr(wf[-1]),
-        _lib.ptr(h), _lib.ptr(c), D, T, B, H, Hp, RB, GY, rev_mask,
-        _lib.ptr(out), _lib.ptr(hbf),
-        None if cbuf is None else _lib.ptr(cbuf), _lib.ptr(bar), None,
-        _lib.stream(dev))
-    _lib.check(err, "lstm_scan")
-    global launches
+    lib = _lib.load("lstm_scan")
+    if kind == "resident":
+        Hp, RB, groups, GY = p
+        hbf = torch.empty(D, 2, B, Hp, dtype=torch.bfloat16, device=dev)
+        # c of the groups a block leaves, where it walks several
+        cbuf = torch.empty(D, B, Hp, device=dev) if GY < groups else None
+        bar = torch.empty(D * Hp // UNITS * GY, dtype=torch.int64,
+                          device=dev)
+        err = lib.lstm_scan_launch(
+            _lib.ptr(xs[0]), _lib.ptr(xs[-1]), _lib.ptr(wf[0]),
+            _lib.ptr(wf[-1]), _lib.ptr(h), _lib.ptr(c), D, T, B, H, Hp, RB,
+            GY, rev_mask, _lib.ptr(out), _lib.ptr(hbf),
+            None if cbuf is None else _lib.ptr(cbuf), _lib.ptr(bar), None,
+            _lib.stream(dev))
+    else:
+        Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S = p
+        wbf = torch.empty(D, gN, Hp, 4 * NU + 8, dtype=torch.bfloat16,
+                          device=dev)
+        hbf = torch.empty(D, 2, Hp // KS, gB * MB, KS, dtype=torch.bfloat16,
+                          device=dev)
+        # c of the batch tiles a block leaves, where it walks several
+        cbuf = (torch.empty(D, gB * MB, Hp, device=dev) if gB > gBr
+                else None)
+        bar = torch.empty(D * gBr, dtype=torch.int64, device=dev)
+        vec = int(H % 2 == 0 and out.data_ptr() % 8 == 0
+                  and all(x.data_ptr() % 8 == 0 for x in xs))
+        err = lib.lstm_stream_launch(
+            _lib.ptr(xs[0]), _lib.ptr(xs[-1]), _lib.ptr(wf[0]),
+            _lib.ptr(wf[-1]), _lib.ptr(h), _lib.ptr(c), D, T, B, H, Hp, KS,
+            MB, gB, gBr, NU, gN, WGM, WGN, WGK, S, rev_mask, vec,
+            _lib.ptr(out), _lib.ptr(wbf), _lib.ptr(hbf),
+            None if cbuf is None else _lib.ptr(cbuf), _lib.ptr(bar), None,
+            _lib.stream(dev))
+    _lib.check(err, f"lstm_scan ({kind})")
+    global launches, streamed_launches
     launches += 1
+    streamed_launches += kind == "streamed"
     return out
 
 

@@ -80,3 +80,76 @@ def _to_torch(node: Any, device: torch.device) -> Any:
         return [_to_torch(v, device) for v in node]
     # a copy: arrays from jax.device_get are read-only
     return torch.from_numpy(np.array(node, dtype=np.float32)).to(device)
+
+
+# ---------------- PyTorch import ----------------
+
+def _np(v) -> np.ndarray:
+    return (v.detach().cpu().numpy() if hasattr(v, "detach")
+            else np.asarray(v)).astype(np.float32)
+
+
+def _t(v, device) -> torch.Tensor:
+    """A reference weight [out, in] -> the port's [in, out]."""
+    return torch.from_numpy(np.ascontiguousarray(_np(v).T)).to(device)
+
+
+def _v(v, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(_np(v))).to(device)
+
+
+def import_torch_deepspeech(state_dict: Mapping[str, Any],
+                            num_layers: int = 1,
+                            bidirectional: bool = False,
+                            device="cpu") -> dict:
+    """The reference's DeepSpeech state_dict (baseline/model.py: mlp123,
+    rnn, mlp56) -> the port's params.
+
+    torch Linear stores weight [out, in]; the port stores [in, out]
+    (reference convention, Linear.h:21). torch RNN stores weight_ih_l{l}
+    [H, in]; the port stores [in, H] (RNN_Cell.h:21-24). Values may be
+    tensors or array-likes."""
+    sd = state_dict
+    dev = torch.device(device)
+
+    def lin(wk: str, bk: str) -> dict:
+        return {"w": _t(sd[wk], dev), "b": _v(sd[bk], dev)}
+
+    def cell(l: int, suffix: str) -> dict:
+        return {"w_ih": _t(sd[f"rnn.weight_ih_l{l}{suffix}"], dev),
+                "w_hh": _t(sd[f"rnn.weight_hh_l{l}{suffix}"], dev),
+                "b_ih": _v(sd[f"rnn.bias_ih_l{l}{suffix}"], dev),
+                "b_hh": _v(sd[f"rnn.bias_hh_l{l}{suffix}"], dev)}
+
+    rnn = {"layers": [cell(l, "") for l in range(num_layers)]}
+    if bidirectional:
+        rnn["layers_rev"] = [cell(l, "_reverse") for l in range(num_layers)]
+    return {
+        "mlp1": lin("mlp123.0.weight", "mlp123.0.bias"),
+        "mlp2": lin("mlp123.2.weight", "mlp123.2.bias"),
+        "mlp3": lin("mlp123.4.weight", "mlp123.4.bias"),
+        "rnn": rnn,
+        "mlp5": lin("mlp56.0.weight", "mlp56.0.bias"),
+        "mlp6": lin("mlp56.2.weight", "mlp56.2.bias"),
+    }
+
+
+def import_torch_lstm(state_dict: Mapping[str, Any], num_layers: int = 1,
+                      bidirectional: bool = False, prefix: str = "",
+                      device="cpu") -> dict:
+    """A torch.nn.LSTM state_dict -> the port's `ops/lstm.py` params
+    (gate order i, f, g, o kept; weights transposed to [in, 4H])."""
+    sd = state_dict
+    dev = torch.device(device)
+
+    def cell(l: int, suffix: str) -> dict:
+        return {"w_ih": _t(sd[f"{prefix}weight_ih_l{l}{suffix}"], dev),
+                "w_hh": _t(sd[f"{prefix}weight_hh_l{l}{suffix}"], dev),
+                "b_ih": _v(sd[f"{prefix}bias_ih_l{l}{suffix}"], dev),
+                "b_hh": _v(sd[f"{prefix}bias_hh_l{l}{suffix}"], dev)}
+
+    params = {"layers": [cell(l, "") for l in range(num_layers)]}
+    if bidirectional:
+        params["layers_rev"] = [cell(l, "_reverse")
+                                for l in range(num_layers)]
+    return params

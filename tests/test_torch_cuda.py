@@ -521,22 +521,29 @@ def test_recurrence_kernels_back_to_back_on_one_stream(dev):
     assert float((torch.cat([one, two]) - want).abs().max()) < 1e-3
 
 
-def test_recurrence_kernels_past_the_resident_limit_raise(dev):
-    # the LSTM keeps W_hh in shared memory: past the limit its wrapper
-    # raises a ValueError that names it, and launches nothing (the Elman
-    # wrapper takes the streamed design there:
-    # test_rnn_scan_past_the_resident_limit_launches_once)
-    B = 4
+@pytest.mark.parametrize("D", [1, 2])
+def test_lstm_scan_past_the_resident_limit_launches_once(dev, D):
+    # past the resident design's limit (H > 1008 on an H100) the streamed
+    # design: one launch, close to the plain version (it raised before)
+    B, T = 4, 5
     H = lstm_scan.max_hidden(2) + lstm_scan.UNITS
-    n0 = lstm_scan.launches
-    with pytest.raises(ValueError, match="resident limit"):
-        lstm_scan.lstm_scan_bidir(
-            torch.zeros(1, B, 4 * H, device=dev),
-            torch.zeros(1, B, 4 * H, device=dev),
-            torch.zeros(H, 4 * H, device=dev),
-            torch.zeros(H, 4 * H, device=dev),
-            torch.zeros(B, H, device=dev), torch.zeros(B, H, device=dev))
-    assert lstm_scan.launches == n0
+    assert lstm_scan.design(dev, B, H, D) == "streamed"
+    xw_f, w_f, h0, c0 = _lstm_inputs(dev, T, B, H, H + D)
+    xw_b, w_b, _, _ = _lstm_inputs(dev, T, B, H, H + D + 1)
+    n0, s0 = lstm_scan.launches, lstm_scan.streamed_launches
+    if D == 2:
+        got = lstm_scan.lstm_scan_bidir(xw_f, xw_b, w_f, w_b, h0, c0)
+        want = torch.cat([
+            lstm_scan.lstm_scan_plain(xw_f, w_f, h0, c0),
+            lstm_scan.lstm_scan_plain(xw_b, w_b, h0, c0, reverse=True)], -1)
+    else:
+        got = lstm_scan.lstm_scan(xw_f, w_f, h0, c0, reverse=True)
+        want = lstm_scan.lstm_scan_plain(xw_f, w_f, h0, c0, reverse=True)
+    torch.cuda.synchronize()
+    assert (lstm_scan.launches - n0, lstm_scan.streamed_launches - s0) == (
+        1, 1)
+    # a few steps: float32 sum order, and the rare bf16 rounding flip of h
+    assert float((got - want).abs().max()) < 1e-3
 
 
 @pytest.mark.parametrize("B,reverse", [(2, False), (20, True)])
@@ -590,6 +597,33 @@ def test_rnn_forward_pallas_takes_the_kernel_at_every_jax_shape(dev, B, H, T):
     assert float((got.cpu() - want).abs().max()) < 1e-3
 
 
+@pytest.mark.parametrize("B,H,T", [(8, 1152, 3), (256, 2048, 2),
+                                   (24, 1100, 3)])
+def test_lstm_forward_pallas_takes_the_kernel_at_every_jax_shape(dev, B, H,
+                                                                 T):
+    # lstm_forward(impl="pallas") takes the kernel wherever JAX's rule
+    # admits (H % 128 == 0, B % 8 == 0), past the resident limit too: one
+    # launch a layer for both directions; at H = 1100 (outside the rule)
+    # the float32 loop
+    from gasr_tpu_torch.ops.lstm import lstm_forward, lstm_init
+    params = lstm_init(torch.Generator().manual_seed(H), 16, H,
+                       bidirectional=True)
+    x = torch.from_numpy(np.random.default_rng(B).standard_normal(
+        (T, B, 16)).astype(np.float32))
+    on_card = {k: [{n: v.to(dev) for n, v in c.items()} for c in layers]
+               for k, layers in params.items()}
+    n0, s0 = lstm_scan.launches, lstm_scan.streamed_launches
+    with torch.no_grad():
+        got = lstm_forward(on_card, x.to(dev), impl="pallas")
+        torch.cuda.synchronize()
+        want = lstm_forward(params, x, impl="pallas")  # the plain version
+    n = 1 if H % 128 == 0 else 0
+    assert (lstm_scan.launches - n0, lstm_scan.streamed_launches - s0) == (
+        n, n)
+    assert got.shape == want.shape == (T, B, 2 * H)
+    assert float((got.cpu() - want).abs().max()) < 1e-3
+
+
 def test_plans_shared_memory_equals_the_kernels(dev):
     # the wrappers size the streamed Elman and traceback blocks with
     # Python copies of the kernels' shared-memory arithmetic: the same
@@ -600,6 +634,15 @@ def test_plans_shared_memory_equals_the_kernels(dev):
             B, H, 132)
         assert lib.rnn_stream_smem(MB, NU, WGK, S) == rnn_scan.stream_smem(
             MB, NU, WGK, S)
+    lib = _lib.load("lstm_scan")
+    for Hp in (16, 512, 1008):
+        assert lib.lstm_scan_smem(Hp) == lstm_scan.resident_smem(Hp)
+    for B, H, D in ((32, 1024, 2), (8, 1536, 2), (256, 2048, 2),
+                    (1024, 8192, 1), (8, 8192, 2)):
+        Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S = \
+            lstm_scan.stream_plan(B, H, D, 132)
+        assert lib.lstm_stream_smem(KS, MB, NU, WGK, S) == \
+            lstm_scan.stream_smem(KS, MB, NU, WGK, S)
     lib = _lib.load("fused_decode")
     for T, W, L in ((200, 100, 256), (300, 16, 256), (2000, 128, 2048),
                     (200000, 4, 8), (0, 6, 8)):

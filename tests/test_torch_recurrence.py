@@ -470,3 +470,172 @@ def test_design_rule_takes_a_kernel_at_every_shape():
                 assert gBr * gN <= 132 and gB * MB >= B and gN * NU >= Hp
                 assert trnn.stream_smem(MB, NU, WGK, S) <= trnn.SMEM_MAX
                 assert trnn.warp_grid(MB, NU) == (WGM, WGN, WGK)
+
+
+def _lstm_stream_warps(MB, noct, WGM, WGN, WGK):
+    """The streamed LSTM kernel's warps over a block's tile: every (m16,
+    unit octet) pair covered once in each K slice, a warp's n8 tiles the
+    four gates of whole octets, at most STREAM_TILES accumulator tiles."""
+    MT = MB // 16 // WGM
+    assert 1 <= MT <= 2 and WGM * WGN * WGK == tlstm.STREAM_WARPS
+    ocw_max = -(-noct // WGN)
+    assert ocw_max <= 2 and MT * 4 * ocw_max <= tlstm.STREAM_TILES
+    for kw in range(WGK):
+        seen = []
+        for wm in range(WGM):
+            for wn in range(WGN):
+                ocw = noct // WGN + (wn < noct % WGN)
+                o0 = wn * (noct // WGN) + min(wn, noct % WGN)
+                seen += [(wm * MT + m, o0 + i) for m in range(MT)
+                         for i in range(ocw)]
+        assert sorted(seen) == [(m, o) for m in range(MB // 16)
+                                for o in range(noct)]
+
+
+def emulate_lstm_stream(xws, ws, h0, c0, reverse, blocks=132,
+                        read_write_slot=False):
+    D = len(xws)
+    T, B, H4 = xws[0].shape
+    H = H4 // 4
+    Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S = tlstm.stream_plan(
+        B, H, D, blocks)
+    assert D * gBr * gN <= blocks and S >= 2
+    assert tlstm.stream_smem(KS, MB, NU, WGK, S) <= tlstm.SMEM_MAX
+    KW, nk = KS // WGK, Hp // KS
+    out = torch.full((T, B, D * H), float("nan"))
+    for d in range(D):
+        # the prologue's scratch: tile gn's K rows, its units' four gates
+        # by octets ((octet 4 + gate) 8 + unit % 8), zeros past H
+        wt = torch.zeros(gN, Hp, 4 * NU)
+        for gn in range(gN):
+            for o in range(NU // 8):
+                for g in range(4):
+                    u0 = gn * NU + o * 8
+                    m = max(0, min(8, H - u0))
+                    col = (o * 4 + g) * 8
+                    wt[gn, :H, col:col + m] = _bf16(
+                        ws[d][:, g * H + u0:g * H + u0 + m])
+        hbf = torch.zeros(2, B, Hp)
+        hbf[0, :, :H] = _bf16(h0)
+        c = torch.zeros(B, Hp)               # registers or cbuf
+        c[:, :H] = c0
+        for s in range(T):
+            t = T - 1 - s if reverse[d] else s
+            read = (s + 1) % 2 if read_write_slot else s % 2
+            for gb0 in range(gBr):
+                for gn in range(gN):
+                    n0 = gn * NU
+                    noct = min(NU, Hp - n0) // 8
+                    _lstm_stream_warps(MB, noct, WGM, WGN, WGK)
+                    for gb in range(gb0, gB, gBr):
+                        b0 = gb * MB
+                        nr = min(MB, B - b0)
+                        part = torch.zeros(WGK, MB, 4 * NU)
+                        for o in range(noct):   # slice 0 starts from xw[t]
+                            u0 = n0 + o * 8
+                            m = max(0, min(8, H - u0))
+                            for g in range(4):
+                                col = (o * 4 + g) * 8
+                                part[0, :nr, col:col + m] = xws[d][
+                                    t, b0:b0 + nr, g * H + u0:g * H + u0 + m]
+                        for k in range(nk):   # from the block's own stage
+                            k = (gn * nk // gN + k) % nk
+                            hs = torch.zeros(MB, KS)
+                            hs[:nr] = hbf[read, b0:b0 + nr, k * KS:(k + 1) * KS]
+                            wk = wt[gn, k * KS:(k + 1) * KS]
+                            for kw in range(WGK):
+                                sl = slice(kw * KW, (kw + 1) * KW)
+                                part[kw] += hs[:, sl] @ wk[sl]
+                        total = part[0]
+                        for q in range(1, WGK):   # in K order
+                            total = total + part[q]
+                        for o in range(noct):     # the cell, in registers
+                            u0 = n0 + o * 8
+                            gates = [total[:nr, (o * 4 + g) * 8:
+                                           (o * 4 + g + 1) * 8]
+                                     for g in range(4)]
+                            cc = c[b0:b0 + nr, u0:u0 + 8]
+                            cc = torch.sigmoid(gates[1]) * cc + \
+                                torch.sigmoid(gates[0]) * torch.tanh(gates[2])
+                            c[b0:b0 + nr, u0:u0 + 8] = cc
+                            h = torch.sigmoid(gates[3]) * torch.tanh(cc)
+                            m = max(0, min(8, H - u0))
+                            out[t, b0:b0 + nr, d * H + u0:d * H + u0 + m] = \
+                                h[:, :m]
+                            hbf[(s + 1) % 2, b0:b0 + nr, u0:u0 + 8] = _bf16(h)
+    assert not bool(out.isnan().any())
+    return out
+
+
+@pytest.mark.parametrize("T,B,H,D,blocks", [
+    (4, 8, 128, 1, 132),      # one direction: 16 unit tiles of 8 units
+    (3, 8, 256, 2, 132),      # both directions on 66 blocks each
+    (4, 8, 256, 1, 2),        # 2 tiles of 128 units: K stages of 64
+    (3, 40, 256, 2, 4),       # three batch tiles walked by one block row
+])
+def test_lstm_stream_schedule_matches_plain_and_jax(T, B, H, D, blocks):
+    ins = [_lstm_inputs(T, B, H, T * B + H + d) for d in range(D)]
+    xs = [torch.from_numpy(a[0]) for a in ins]
+    ws = [torch.from_numpy(a[1]) for a in ins]
+    h0, c0 = torch.from_numpy(ins[0][2]), torch.from_numpy(ins[0][3])
+    rev = [False, True][:D] if D == 2 else [True]
+    got = emulate_lstm_stream(xs, ws, h0, c0, rev, blocks)
+    plain = torch.cat([tlstm.lstm_scan_plain(xs[d], ws[d], h0, c0, rev[d])
+                       for d in range(D)], -1)
+    jax_out = torch.cat([torch.from_numpy(np.array(lstm_scan_pallas_raw(
+        jnp.asarray(ins[d][0]), jnp.asarray(ins[d][1]), jnp.asarray(ins[0][2]),
+        jnp.asarray(ins[0][3]), reverse=rev[d], interpret=True)))
+        for d in range(D)], -1)
+    _close(got, plain)
+    _close(got, jax_out)
+
+
+def test_lstm_stream_schedule_reading_the_slot_it_writes_fails():
+    T, B, H = 5, 8, 256
+    tt = [torch.from_numpy(a) for a in _lstm_inputs(T, B, H, 17)]
+    plain = tlstm.lstm_scan_plain(*tt)
+    bad = emulate_lstm_stream([tt[0]], [tt[1]], tt[2], tt[3], [False],
+                              blocks=4, read_write_slot=True)
+    assert float((bad - plain).abs().max()) > WRONG
+
+
+def test_lstm_stream_plan():
+    # phase 12a's three bidirectional layers on an H100's 132 blocks:
+    # (Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S)
+    assert tlstm.stream_plan(32, 1024, 2, 132) == (
+        1024, 128, 32, 1, 1, 16, 64, 2, 2, 2, 8)
+    assert tlstm.stream_plan(8, 1536, 2, 132) == (
+        1536, 128, 16, 1, 1, 24, 64, 1, 4, 2, 7)
+    assert tlstm.stream_plan(256, 2048, 2, 132) == (
+        2048, 128, 128, 2, 1, 32, 64, 4, 2, 1, 3)
+    # wide unit tiles take K stages of 64 (two stages of 128 do not fit)
+    assert tlstm.stream_plan(8, 8192, 2, 132)[:2] == (8192, 64)
+
+
+def _lstm_resident_blocks(nbytes):
+    # the resident kernel on an H100: one block of 512 threads an SM
+    return 132 if nbytes <= tlstm.SMEM_MAX else 0
+
+
+def test_lstm_design_rule_takes_a_kernel_at_every_shape():
+    # resident up to its limit (1008 on an H100, so H = 896 of JAX's rule),
+    # streamed past it; never the plain version, never a raise, at every
+    # (B, H) that JAX's rule admits, for one and two directions
+    for D in (1, 2):
+        for B in (8, 16, 256, 1024):
+            for H in range(128, 8193, 128):
+                kind, p = tlstm.pick_design(
+                    B, H, D, tlstm.resident_smem, _lstm_resident_blocks, 132)
+                assert kind == ("resident" if H <= 1008 else "streamed"), \
+                    (D, B, H)
+                if kind == "resident":
+                    Hp, RB, groups, GY = p
+                    assert D * Hp // tlstm.UNITS * GY <= 132
+                    continue
+                Hp, KS, MB, gB, gBr, NU, gN, WGM, WGN, WGK, S = p
+                assert D * gBr * gN <= 132 and gB * MB >= B
+                assert gN * NU >= Hp > (gN - 1) * NU and Hp % KS == 0
+                assert 2 <= S and tlstm.stream_smem(
+                    KS, MB, NU, WGK, S) <= tlstm.SMEM_MAX
+                assert tlstm.warp_grid(MB, NU, KS) == (WGM, WGN, WGK)
+                _lstm_stream_warps(MB, NU // 8, WGM, WGN, WGK)
