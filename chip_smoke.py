@@ -52,7 +52,19 @@ version and timed beside cuDNN's LSTM); and the port's bench (phase 13):
 `bench.measure_ours` on reference_large with rnn_impl "scan" and
 "pallas" (launches counted), `bench.measure_streaming` at Tc=20, and
 `python -m gasr_tpu_torch.bench --small` / `--fault-inject` and
-`python -m gasr_tpu_torch.baseline_compat` as subprocesses.
+`python -m gasr_tpu_torch.baseline_compat` as subprocesses, and one
+`bench.measure_train` call; and training at full width (phase 14,
+`train_phase`): the mixed bf16 matmul's backward against float64, the
+grads of flash_mhsa_rel and fused_stem through their kernel forwards
+bit-equal to their recompute backwards at conformer_l's shapes, the
+bench's two training rows (train_flagship: reference_large float32;
+train_conformer_l_bf16: 17 flash launches a step) on a fixed batch
+with the loss falling, ms a step, MFU, peak memory and the step's split,
+a conformer_l step with stem_impl="pallas", and the conformer_l bf16
+step through the flash kernel held to the same step with the plain
+attention (attn_impl="xla"): loss and grad norm of the first step, then
+7 steps of each (and of the kernel path at a third of the learning rate)
+side by side.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -117,6 +129,16 @@ KERNEL_REL_TOL = 0.02      # flash attention and fused stem against their
                            # bf16 operands summed in another float32 order
                            # flip some bf16 roundings (us, uc, A, B, the
                            # attention; conv2's output), 2^-8 relative each
+TRAIN_STEP_TOL = 5e-3      # the conformer_l bf16 train step through the
+                           # flash kernel against the same step with the
+                           # plain attention: loss and grad norm relative;
+                           # bf16 roundings of the attention differ, and the
+                           # loss and the norm average them over every
+                           # frame and parameter; the CPU tests' bound for
+                           # the port's bf16 step against JAX's
+                           # (tests/test_torch_train.py BF16_STEP), ten times
+                           # tighter than the 5% the JAX package holds its
+                           # bf16 step to against float32
 FWD_SEEDS = (1, 2, 3)      # weights and inputs of the small forward check
 FWD_CARD_CPU_TOL = {       # small forward, card against CPU, same weights
     "scan": 1e-5,          # float32 all through (TF32 off): only the
@@ -166,6 +188,297 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def train_phase(card, zero_counts, read_counts):
+    """Phase 14, training on the card at full width: the mixed matmul's
+    backward against a float64 reference; flash_mhsa_rel's and
+    fused_stem's grads through their kernel forwards bit-equal to their
+    recompute backwards (the VJPs of the plain versions) at conformer_l's
+    shapes; then the bench's two training rows (`bench.TRAIN_ROWS`) as
+    `bench.measure_train` runs them on a fixed batch (the loss must fall
+    and stay finite; launches counted; ms a step, MFU, peak memory) with
+    the step's split (`bench.measure_train_split`), one conformer_l
+    step with stem_impl="pallas", and the conformer_l bf16 step through
+    the flash kernel against the same step with the plain attention.
+    Returns (report, launches by run)."""
+    import torch
+    import gasr_tpu_torch.ops.linear  # noqa: F401  (the module, not the
+    #                                   function the package re-exports)
+    from gasr_tpu_torch import bench
+    from gasr_tpu_torch.config import PRESETS
+    from gasr_tpu_torch.models import model_init
+    from gasr_tpu_torch.models.conformer import _preset
+    from gasr_tpu_torch.ops.cuda import flash_mhsa, stem
+    from gasr_tpu_torch.runtime.flops import (device_peak_flops,
+                                              model_train_flops)
+    from gasr_tpu_torch.train import (make_optimizer, make_train_step,
+                                      synthetic_batch)
+    lin = sys.modules["gasr_tpu_torch.ops.linear"]
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # 14a. the bf16 product's backward (torch.mm / bmm with out_dtype has
+    # no derivative in torch; ops/linear.py's Function gives the JAX
+    # transpose): float32 products of the float32 cotangent, rounded to
+    # bf16 once; held to float64 products at 2^-8 of their largest
+    # magnitude (half a bf16 ulp of rounding, plus float32 sums)
+    mm_err = {}
+    for what, a_shape, b_shape in (("mm", (64 * 300, 512), (512, 2048)),
+                                   ("bmm", (64, 300, 64), (64, 64, 300))):
+        a = randn(*a_shape).to(bf).requires_grad_()
+        b = randn(*b_shape, scale=0.05).to(bf).requires_grad_()
+        y = lin._TensorCoreMatmul.apply(a, b)
+        gy = randn(*y.shape)
+        ga, gb = torch.autograd.grad(y, (a, b), gy)
+        with torch.no_grad():
+            ra = torch.matmul(gy.double(), b.double().transpose(-1, -2))
+            rb = torch.matmul(a.double().transpose(-1, -2), gy.double())
+        for name, got, ref in (("a", ga, ra), ("b", gb, rb)):
+            err = float((got.double() - ref).abs().max())
+            tol = 2.0 ** -8 * float(ref.abs().max())
+            check(got.dtype == bf and err <= tol,
+                  f"_TensorCoreMatmul {what} d{name}: {err} > {tol}")
+            mm_err[f"{what}_d{name}"] = err / float(ref.abs().max())
+        del a, b, y, gy, ga, gb, ra, rb
+    print(f"mixed bf16 matmul backward (float32 products of the float32 "
+          f"cotangent, bf16 grads) against float64, error over max|ref|: "
+          f"{mm_err}", flush=True)
+    out["matmul_backward_rel_err"] = mm_err
+
+    # 14b. flash_mhsa_rel's grads at conformer_l's shape (q, k, v as
+    # mhsa_rel passes them: bf16 views of one qkv product; full lengths,
+    # as training passes them) through the kernel forward == its recompute
+    # backward, bit for bit: the backward never reads the forward's output
+    B, H, T, dh = 64, 8, 300, 64
+    D = H * dh
+    qkv = randn(T, B, 3 * D).to(bf).requires_grad_()
+    q, k, v = (qkv[:, :, i * D:(i + 1) * D].reshape(T, B, H, dh)
+               .permute(1, 2, 0, 3) for i in range(3))
+    wr = randn(D, D, scale=D ** -0.5).requires_grad_()
+    u = randn(H, dh, scale=0.1).requires_grad_()
+    vb = randn(H, dh, scale=0.1).requires_grad_()
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    g = randn(B, H, T, dh).to(bf)
+    prims = (q, k, v, wr, u, vb)
+    n0 = flash_mhsa.launches
+    o = flash_mhsa.flash_mhsa_rel(*prims, lens)
+    got = torch.autograd.grad(o, prims, g)
+    check(flash_mhsa.launches == n0 + 1, "flash forward under autograd "
+          "did not launch its kernel")
+    with torch.no_grad():
+        want = flash_mhsa.flash_mhsa_rel_vjp(*prims, lens, g)
+    for name, a_, b_ in zip(("q", "k", "v", "wr", "u", "vb"), got, want):
+        check(a_.dtype == b_.dtype and torch.equal(a_, b_),
+              f"flash grad d{name} through the kernel differs from the "
+              f"recompute backward")
+    # beside it, the unchunked autograd of the plain version: the chunks
+    # sum wr's, u's and vb's grads in another order (bf16 tolerance)
+    whole = torch.autograd.grad(flash_mhsa.flash_mhsa_rel_plain(
+        *prims, lens), prims, g)
+    fl_gerr = {}
+    for name, a_, b_ in zip(("q", "k", "v", "wr", "u", "vb"), got, whole):
+        err = float((a_.float() - b_.float()).abs().max())
+        tol = KERNEL_REL_TOL * max(1.0, float(b_.float().abs().max()))
+        check(err <= tol, f"flash grad d{name}: chunked against whole "
+              f"{err} > {tol}")
+        fl_gerr[name] = err
+    bwd_ms = cuda_events_ms(lambda: flash_mhsa.flash_mhsa_rel_vjp(
+        *prims, lens, g), iters=3)
+    print(f"flash_mhsa_rel grads [{B}, {H}, {T}, {dh}] through the kernel "
+          f"forward == flash_mhsa_rel_vjp bit for bit (q, k, v, wr, u, vb); "
+          f"against the unchunked plain autograd: max |diff| {fl_gerr}; "
+          f"the recompute backward {bwd_ms:.3f} ms "
+          f"({-(-(B * H * T * T * 4) // flash_mhsa._BWD_SCORE_BYTES)} "
+          f"chunks) on {card}", flush=True)
+    out["flash_backward"] = dict(ms=bwd_ms, grad_err_vs_unchunked=fl_gerr)
+    del qkv, q, k, v, got, want, whole, o, prims
+
+    # 14c. fused_stem's grads at conformer_l's shape through the kernels'
+    # forward == its recompute backward, bit for bit (cuDNN's
+    # deterministic algorithms for the comparison only)
+    cfg_l = dataclasses.replace(PRESETS["conformer_l"], mesh_shape={})
+    pl = model_init(cfg_l, torch.Generator().manual_seed(0))
+    sw = [t.requires_grad_() for t in (
+        pl["sub1"]["w"], pl["sub1"]["b"], pl["sub2"]["w"], pl["sub2"]["b"],
+        pl["sub_proj"]["w"], pl["sub_proj"]["b"])]
+    xs = torch.rand((64, 1200, 80), generator=gen, device=dev)
+    gs = randn(64, 300, 512).to(bf)
+    torch.backends.cudnn.deterministic = True
+    try:
+        n0 = stem.launches
+        got = torch.autograd.grad(stem.fused_stem(xs, *sw), sw, gs)
+        check(stem.launches == n0 + 1, "stem forward under autograd did "
+              "not launch its kernels")
+        with torch.no_grad():
+            want = stem.fused_stem_vjp(xs, *sw, gs,
+                                       needs=(False,) + (True,) * 6)[1:]
+        for name, a_, b_ in zip(("w1", "b1", "w2", "b2", "wproj", "bproj"),
+                                got, want):
+            check(torch.equal(a_, b_), f"stem grad d{name} through the "
+                  f"kernels differs from the recompute backward")
+        st_bwd_ms = cuda_events_ms(lambda: stem.fused_stem_vjp(
+            xs, *sw, gs, needs=(False,) + (True,) * 6), iters=2)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"fused_stem grads [64, 1200, 80] -> [64, 300, 512] through the "
+          f"kernels' forward == fused_stem_vjp bit for bit (w1, b1, w2, b2, "
+          f"wproj, bproj); the recompute backward {st_bwd_ms:.3f} ms "
+          f"(float32 convolution backward, cuDNN deterministic) on {card}",
+          flush=True)
+    out["stem_backward"] = dict(ms=st_bwd_ms)
+    del pl, sw, xs, gs, got, want
+
+    # 14d. the bench's training rows at full width
+    peak = device_peak_flops()
+    runs = {}
+    for row, preset, cd in bench.TRAIN_ROWS:
+        cfg = bench._degrade_mesh(PRESETS[preset])
+        iters, reps = 2, 3
+        zero_counts()
+        st = bench.measure_train(cfg, iters=iters, reps=reps,
+                                 compute_dtype=cd)
+        torch.cuda.synchronize()
+        runs[row] = read_counts()
+        steps = 1 + iters * reps
+        losses = st["losses"]
+        # one fixed batch: Adam's early steps overshoot and come back
+        # (a later loss may spike near the first; 14f shows the spike on
+        # the plain attention path too, and none at a third of the
+        # learning rate), so the loss falls when the median of the later
+        # steps lies below the first
+        check(len(losses) == steps and all(np.isfinite(losses))
+              and float(np.median(losses[1:])) < losses[0],
+              f"{row}: losses {losses} do not fall or are not finite")
+        n_flash = (_preset(cfg)["num_blocks"] * steps
+                   if cfg.model == "conformer_l" else 0)
+        want_ = {"flash_mhsa_rel": n_flash}
+        check(runs[row]["flash_mhsa_rel"] == n_flash
+              and sum(runs[row].values()) == n_flash,
+              f"{row}: launches {runs[row]}, expected {want_}")
+        split = bench.measure_train_split(cfg, compute_dtype=cd)
+        flops = model_train_flops(cfg)
+        out[row] = dict(
+            ms=st["median"] * 1e3, ms_range=[st["min"] * 1e3, st["max"] * 1e3],
+            mfu=flops / st["median"] / peak, train_tflop=flops / 1e12,
+            peak_gb=st["peak_bytes"] / 1e9, split_ms=split, losses=losses,
+            launches=runs[row])
+        print(f"{row} ({preset}, {cd or cfg.compute_dtype}, B="
+              f"{cfg.batch_size}, T={cfg.seg_len}) on {card}: "
+              f"{st['median'] * 1e3:.3f} ms a step (median of {reps} loops of "
+              f"{iters}, range {st['min'] * 1e3:.3f}-{st['max'] * 1e3:.3f}), "
+              f"MFU {100 * out[row]['mfu']:.2f}% of the bf16 peak "
+              f"({flops / 1e12:.3f} TFLOP a step), peak memory "
+              f"{out[row]['peak_gb']:.2f} GB; split (CUDA events, ms) "
+              f"{ {k: round(v, 3) for k, v in split.items()} }; losses "
+              f"{[round(x, 4) for x in losses]}; launches {runs[row]}",
+              flush=True)
+
+    # 14e. one conformer_l step with stem_impl="pallas": the stem kernels'
+    # forward and the flash kernel's under the step
+    cfg = bench._degrade_mesh(PRESETS["conformer_l"])
+    params = model_init(cfg, torch.Generator().manual_seed(0))
+    opt = make_optimizer()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, compute_dtype="bfloat16",
+                           stem_impl="pallas")
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1))
+    zero_counts()
+    _, _, m = step(params, state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    runs["train_conformer_l_stem_pallas"] = read_counts()
+    got_ = runs["train_conformer_l_stem_pallas"]
+    check(np.isfinite(loss) and got_["fused_stem"] == 1
+          and got_["flash_mhsa_rel"] == 17
+          and sum(got_.values()) == 18,
+          f"conformer_l step with stem_impl='pallas': loss {loss}, "
+          f"launches {got_}")
+    first = out["train_conformer_l_bf16"]["losses"][0]
+    print(f"conformer_l train step with stem_impl='pallas': loss {loss} "
+          f"(the 'auto' stem's first step {first}; not gated: bf16 "
+          f"roundings differ); launches {got_}", flush=True)
+    del params, state, step, batch, opt
+    torch.cuda.empty_cache()
+
+    # 14f. the conformer_l bf16 step through the flash kernel against the
+    # same step with the plain attention (attn_impl="xla", no kernel),
+    # from the bench row's params (seed 0) and fixed batch (seed 1): the
+    # first step's loss and grad norm agree at TRAIN_STEP_TOL; then 7
+    # steps of each path, and of the kernel path at a third of the
+    # learning rate, each step's loss and grad norm (does the bench row's
+    # later spike come from the kernel path, or from the optimizer's
+    # steps on one fixed batch?)
+    def seven(attn_impl, learning_rate=3e-4):
+        params = model_init(cfg, torch.Generator().manual_seed(0))
+        opt = make_optimizer(learning_rate=learning_rate)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, compute_dtype="bfloat16",
+                               attn_impl=attn_impl)
+        batch = synthetic_batch(cfg, torch.Generator().manual_seed(1))
+        zero_counts()
+        ms = [step(params, state, batch)[2] for _ in range(7)]
+        seq = [(float(m["loss"]), float(m["grad_norm"])) for m in ms]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        del params, state, step, batch, opt, ms
+        torch.cuda.empty_cache()
+        return seq, counts
+
+    seq_k, counts_k = seven("auto")
+    seq_x, counts_x = seven("xla")
+    seq_lr, _ = seven("auto", learning_rate=1e-4)
+    check(counts_k["flash_mhsa_rel"] == 7 * 17
+          and sum(counts_x.values()) == 0,
+          f"conformer_l steps: kernel path launches {counts_k}, plain "
+          f"attention path launches {counts_x}")
+    check(all(np.isfinite(v) for seq in (seq_k, seq_x, seq_lr)
+              for pair in seq for v in pair),
+          f"conformer_l steps not finite: {seq_k} {seq_x} {seq_lr}")
+    (loss_k, gn_k), (loss_x, gn_x) = seq_k[0], seq_x[0]
+    err_loss = abs(loss_k - loss_x) / abs(loss_x)
+    err_gn = abs(gn_k - gn_x) / abs(gn_x)
+    check(err_loss <= TRAIN_STEP_TOL and err_gn <= TRAIN_STEP_TOL,
+          f"conformer_l bf16 step through the flash kernel against the "
+          f"plain attention: loss {loss_k} / {loss_x}, grad norm {gn_k} / "
+          f"{gn_x} (relative {err_loss}, {err_gn} > {TRAIN_STEP_TOL})")
+
+    def fmt(seq):
+        return [(round(a, 4), round(b, 4)) for a, b in seq]
+
+    print(f"conformer_l bf16 step, flash kernel against the plain attention "
+          f"(attn_impl='xla') from the same params and batch: loss "
+          f"{loss_k} / {loss_x}, grad norm {gn_k} / {gn_x}, relative "
+          f"differences {err_loss:.3e} / {err_gn:.3e} (tolerance "
+          f"{TRAIN_STEP_TOL}); 7 steps (loss, unclipped grad norm): kernel "
+          f"{fmt(seq_k)}; plain attention {fmt(seq_x)}; kernel at lr 1e-4 "
+          f"{fmt(seq_lr)} on {card}", flush=True)
+    out["conformer_l_kernel_vs_plain"] = dict(
+        loss=[loss_k, loss_x], grad_norm=[gn_k, gn_x],
+        rel_err=[err_loss, err_gn], kernel=seq_k, plain=seq_x,
+        kernel_lr_1e_4=seq_lr)
+    return out, runs
+
+
+def cuda_events_ms(fn, iters=10, warmup=1):
+    """Mean ms of `iters` calls between two CUDA events, after warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def main() -> int:
@@ -2262,6 +2575,32 @@ def main() -> int:
     print("python -m gasr_tpu_torch.bench --fault-inject: detected; "
           "python -m gasr_tpu_torch.baseline_compat on two configs "
           "(device cuda): the three lines each", flush=True)
+    # one measure_train call: the bench's train_flagship row (float32,
+    # rnn_impl "scan": no kernel of the port runs in it)
+    zero_counts()
+    tr13 = bench.measure_train(cfg13, iters=1, reps=3)
+    torch.cuda.synchronize()
+    btr_launches = read_counts()
+    check(set(tr13) == {"median", "min", "max", "iqr", "reps", "peak_bytes",
+                        "losses"} and len(tr13["losses"]) == 4
+          and all(np.isfinite(tr13["losses"]))
+          and sum(btr_launches.values()) == 0,
+          f"bench.measure_train reference_large: {tr13}, launches "
+          f"{btr_launches}")
+    print(f"bench.measure_train reference_large (float32) on {card}: "
+          f"{tr13['median'] * 1e3:.3f} ms a step (median of 3 loops of 1), "
+          f"peak memory {tr13['peak_bytes'] / 1e9:.2f} GB, losses "
+          f"{[round(x, 4) for x in tr13['losses']]}", flush=True)
+
+    # ---- 14. training at full width (train_phase)
+    torch.cuda.empty_cache()
+    print(f"device memory held by the earlier phases: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    train_report, train_runs = train_phase(card, zero_counts, read_counts)
+    report["flash_mhsa_rel"]["training"] = dict(
+        train_report["flash_backward"], grads_bit_equal_to_recompute=True)
+    report["fused_stem"]["training"] = dict(
+        train_report["stem_backward"], grads_bit_equal_to_recompute=True)
 
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
@@ -2293,7 +2632,8 @@ def main() -> int:
     # stem_impl="pallas" for fused_stem, the deepspeech2 transcribe for
     # lstm_scan, the TP batch decodes ("fused" then "fused_frame") for
     # tp_frame and tp_scan, the exchange probe of phase 11c for toy_exchange
-    # (it runs on no serving path: it tests tp_scan's exchange)
+    # (it runs on no serving path: it tests tp_scan's exchange); the
+    # training runs of phases 13-14 are listed by path beside them
     runs = {"transcribe": launches, "streaming": s_launches,
             "conformer": c_launches, "conformer_stem_pallas": cs_launches,
             "deepspeech2": d_launches, "bilstm_2x256": b_launches,
@@ -2305,7 +2645,8 @@ def main() -> int:
             "lstm_streamed": ls_launches,
             "bench_scan": bench_runs["scan"]["launches"],
             "bench_pallas": bench_runs["pallas"]["launches"],
-            "bench_streaming": bst_launches}
+            "bench_streaming": bst_launches, "bench_train": btr_launches,
+            **train_runs}
     # the LM variant's launches: those of the LM stream, per path beside
     lm_report.update(
         launches=lms_launches["fused_prefix_decode_lm"],
@@ -2351,10 +2692,16 @@ def main() -> int:
         for extra in ("library_call", "kernel_launches_per_call", "ms_bidir",
                       "lm", "ms_by_shards", "exchange_bytes", "ms_rounds",
                       "library_ms_rounds", "occupancy", "frame_counted",
-                      "streamed", "wide_f", "more_shapes"):
+                      "streamed", "wide_f", "more_shapes", "training"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
+    for row in ("train_flagship", "train_conformer_l_bf16"):
+        r = train_report[row]
+        print(f"training row {row}: {r['ms']:.3f} ms a step, MFU "
+              f"{100 * r['mfu']:.2f}%, peak {r['peak_gb']:.2f} GB, split "
+              f"{ {k: round(v, 3) for k, v in r['split_ms'].items()} } ms on "
+              f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

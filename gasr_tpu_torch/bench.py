@@ -16,15 +16,21 @@ vs_baseline: the ratio of the PyTorch CPU twin's overall time (torch
 ours, measured in the same process and cached in
 `gasr_tpu_torch/_build/bench_baseline.json` (`.small` for --small).
 
---report benches the five model-family presets and the streaming row and
-writes the table to `gasr_tpu_torch/_build/RESULTS.md`; the training rows
-and --scaling come with the port's training and data-parallel modules.
-Everything runs on the card unless `--device cpu` asks for the CPU.
+--report benches the five model-family presets, the streaming row and the
+two training rows (`TRAIN_ROWS`: one step of forward, CTC loss,
+backward, clip and AdamW, timed as N steps and one fence, median of 5
+loops, with MFU against `runtime/flops.model_train_flops`, the peak
+device memory, the step's split and the TF32 settings it ran under: off
+for matmuls and cuDNN, as `chip_smoke.py` runs the step) and
+writes the table to `gasr_tpu_torch/_build/RESULTS.md`; --scaling comes
+with the port's data-parallel modules. Everything runs on the card
+unless `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -208,6 +214,115 @@ def measure_torch_baseline(cfg: Config, iters: int, cache_path):
     return result
 
 
+def _train_setup(cfg: Config, compute_dtype):
+    """Params (seed 0), optimizer state, step and one fixed batch (seed 1,
+    `synthetic_batch`) at the config's shape, on its device."""
+    from gasr_tpu_torch.models import model_init
+    from gasr_tpu_torch.train import (make_optimizer, make_train_step,
+                                      synthetic_batch)
+    cd = compute_dtype
+    if cd is None and cfg.compute_dtype != "float32":
+        cd = cfg.compute_dtype
+    params = model_init(cfg, torch.Generator().manual_seed(0),
+                        device=cfg.device)
+    opt = make_optimizer()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, compute_dtype=cd)
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1))
+    return params, state, step, batch
+
+
+def measure_train(cfg: Config, iters=None, reps: int = 5,
+                  compute_dtype=None):
+    """Time the training step (forward + CTC loss + backward + clip +
+    AdamW, params updated in place) at the config's shape, on one fixed
+    batch, as the JAX package's `measure_train` does: a warm-up step, then
+    `reps` loops of `iters` steps and one fence (iters=None sizes a loop
+    to about 1 s, 3 to 100 steps). compute_dtype overrides the config's
+    policy. Returns the spread stats (seconds a step) with `peak_bytes`
+    (the peak device memory of the run above what was allocated before
+    it: params, optimizer state, batch, activations; CUDA only) and
+    `losses` (every step's loss, in order)."""
+    dev = resolve_device(cfg.device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    params, state, step, batch = _train_setup(cfg, compute_dtype)
+    losses = []
+
+    def run(n):
+        nonlocal params, state
+        for _ in range(n):
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"])
+        Timer.sync(losses[-1])
+
+    _log("warm-up train step")
+    run(1)
+    if iters is None:
+        t0 = time.perf_counter()
+        run(1)
+        t_est = max(time.perf_counter() - t0, 1e-4)
+        iters = min(100, max(3, math.ceil(1.0 / t_est)))
+        _log(f"adaptive train iters: ~{t_est * 1e3:.1f} ms -> {iters} x "
+             f"{reps} reps")
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run(iters)
+        samples.append((time.perf_counter() - t0) / iters)
+    st = _spread_stats(samples)
+    st["peak_bytes"] = (torch.cuda.max_memory_allocated(dev) - base
+                        if dev.type == "cuda" else None)
+    st["losses"] = [float(v) for v in losses]
+    _log(f"train: {st['median'] * 1e3:.1f} ms/step (range "
+         f"{st['min'] * 1e3:.1f}-{st['max'] * 1e3:.1f})")
+    return st
+
+
+SPLIT_STEPS = 3  # steps averaged by measure_train_split, after one warm-up
+TRAIN_PHASES = ("forward", "ctc", "backward", "optimizer")
+
+
+def measure_train_split(cfg: Config, compute_dtype=None) -> dict:
+    """Where a training step's time goes: the step `measure_train` times,
+    with a CUDA event recorded as each of its phases ends (the forward,
+    the CTC loss, the backward, clip + AdamW: `make_train_step`'s `mark`);
+    ms each, means over SPLIT_STEPS steps after one warm-up step. Device
+    time between the events, so a phase the host holds back (the CTC
+    loss's T-step loop) counts its waits."""
+    dev = resolve_device(cfg.device)
+    if dev.type != "cuda":
+        raise ValueError("measure_train_split times CUDA events: it needs "
+                         "the card")
+    params, state, step, batch = _train_setup(cfg, compute_dtype)
+    totals = dict.fromkeys(TRAIN_PHASES, 0.0)
+    for i in range(SPLIT_STEPS + 1):
+        events = {}
+
+        def mark(phase):
+            events[phase] = torch.cuda.Event(enable_timing=True)
+            events[phase].record()
+
+        mark("start")
+        params, state, _ = step(params, state, batch, mark=mark)
+        events["optimizer"].synchronize()
+        if i:
+            prev = events["start"]
+            for phase in TRAIN_PHASES:
+                totals[phase] += prev.elapsed_time(events[phase])
+                prev = events[phase]
+    return {phase: t / SPLIT_STEPS for phase, t in totals.items()}
+
+
+# training rows for --report: (row name, preset, compute_dtype override),
+# the JAX package's TRAIN_ROWS
+TRAIN_ROWS = [
+    ("train_flagship", "reference_large", None),
+    ("train_conformer_l_bf16", "conformer_l", "bfloat16"),
+]
+
+
 REPORT_PRESETS = ["reference_large", "bilstm_2x256", "deepspeech2",
                   "conformer_s", "conformer_l"]
 
@@ -290,6 +405,20 @@ def _device_line(device: str) -> str:
         return torch.cuda.get_device_name(0)
 
 
+@contextlib.contextmanager
+def _tf32_off():
+    """TF32 off for matmuls and cuDNN inside the block, then as before."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def run_report(args):
     """Bench every model-family preset and the streaming row; write the
     table to gasr_tpu_torch/_build/RESULTS.md and print one JSON line."""
@@ -341,6 +470,45 @@ def run_report(args):
         "reps": st["reps"], "fwd_tflop": None, "mfu_pct": None,
         "audio_s_per_s": round(audio / st["median"], 1),
     })
+    # the training rows: ms a step (in the forward column), MFU against
+    # the 3x-forward count, peak memory and the step's split; float32
+    # GEMMs and convolutions (the flagship, the backward of conv_mixed's
+    # float32 twin) in float32, TF32 off as chip_smoke.py runs them
+    from gasr_tpu_torch.runtime.flops import model_train_flops
+    for row_name, preset, cd_override in TRAIN_ROWS:
+        tcfg = _degrade_mesh(dataclasses.replace(PRESETS[preset],
+                                                 device=args.device))
+        _log(f"=== {row_name} (model={tcfg.model}) ===")
+        with _tf32_off():
+            tf32 = (f"matmul.allow_tf32="
+                    f"{torch.backends.cuda.matmul.allow_tf32}, "
+                    f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+            ts = measure_train(tcfg, iters=args.iters,
+                               compute_dtype=cd_override)
+            split = (measure_train_split(tcfg, compute_dtype=cd_override)
+                     if args.device == "cuda" else None)
+        tflops = model_train_flops(tcfg)
+        tmfu = (tflops / ts["median"] / peak) if peak else None
+        audio = tcfg.batch_size * tcfg.seg_len * FRAME_SHIFT_S
+        rows.append({
+            "preset": row_name, "model": tcfg.model,
+            "batch": tcfg.batch_size, "T": tcfg.seg_len, "beam": None,
+            "dtype": cd_override or tcfg.compute_dtype,
+            "forward_ms": round(ts["median"] * 1e3, 2),
+            "forward_ms_range": [round(ts["min"] * 1e3, 2),
+                                 round(ts["max"] * 1e3, 2)],
+            "decode_ms": None, "decode_ms_range": None,
+            "reps": ts["reps"],
+            "fwd_tflop": round(tflops / 1e12, 3),
+            "mfu_pct": round(tmfu * 100, 1) if tmfu is not None else None,
+            "audio_s_per_s": round(audio / ts["median"], 1),
+            "peak_gb": (round(ts["peak_bytes"] / 1e9, 2)
+                        if ts["peak_bytes"] is not None else None),
+            "split_ms": ({k: round(v, 2) for k, v in split.items()}
+                         if split else None),
+            "loss_first_last": [ts["losses"][0], ts["losses"][-1]],
+            "tf32": tf32,
+        })
     lines = [
         "# Benchmark results of the PyTorch port (per-iteration medians "
         "+- spread)", "",
@@ -354,6 +522,11 @@ def run_report(args):
         "presets too, whose MFU therefore reads low. The streaming row",
         "times the flagship decode fed in Tc=20 chunks (beam and prefix",
         "state carried across streaming_step calls; no forward column).",
+        "train_* rows time the training step (forward + CTC loss + backward",
+        "+ clip + AdamW, params updated in place) on one fixed batch: their",
+        "fwd column is ms a STEP and MFU is against the 3x-forward count;",
+        "peak memory, the step's split (CUDA events) and the TF32 settings",
+        "follow the table.",
         "",
         "| preset | model | B | T | beam | dtype | fwd ms [min,max] | "
         "decode ms [min,max] | TFLOP | MFU% | audio-s/s |",
@@ -377,6 +550,11 @@ def run_report(args):
             f"{r['fwd_tflop'] if r['fwd_tflop'] is not None else '-'} | "
             f"{r['mfu_pct'] if r['mfu_pct'] is not None else '-'} | "
             f"{r['audio_s_per_s']} |")
+    for r in rows:
+        if "split_ms" in r:
+            lines.append(f"- {r['preset']}: peak {r['peak_gb']} GB, split "
+                         f"{r['split_ms']} ms, loss {r['loss_first_last']}"
+                         f" (first, last step), {r['tf32']}")
     BUILD.mkdir(parents=True, exist_ok=True)
     (BUILD / "RESULTS.md").write_text("\n".join(lines) + "\n")
     print("\n".join(lines), file=sys.stderr)

@@ -35,24 +35,10 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv_mixed(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
-               padding: str = "SAME", groups: int = 1) -> torch.Tensor:
-    """Forward of the JAX package's `conv_mixed` with "SAME" padding (the
-    only padding its ported callers use): x [B, *spatial, C] (channels
-    last), w [*kernel, C // groups, O] -> float32 [B, *spatial', O], with
-    the products summed in float32 at the operands' dtype (see the
-    module docstring)."""
-    if x.requires_grad or w.requires_grad:
-        raise NotImplementedError(
-            "conv_mixed is forward only (its VJP comes with training, "
-            "ROADMAP.md Queue 1 item 12)")
+def _conv_forward(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+                  groups: int) -> torch.Tensor:
+    """The reduced-dtype "SAME" convolution (see `conv_mixed`)."""
     n = x.ndim - 2
-    if n not in (1, 2) or w.ndim != n + 2:
-        raise ValueError(f"conv_mixed: x {tuple(x.shape)} and w "
-                         f"{tuple(w.shape)} are not a 1-D or 2-D conv")
-    if padding != "SAME":
-        raise ValueError(f"conv_mixed: padding {padding!r} is not ported "
-                         "(only 'SAME')")
     pads = [same_pads(x.shape[1 + i], w.shape[i], stride[i])
             for i in range(n)]
     xc = x.movedim(-1, 1)                       # [B, C, *spatial]
@@ -71,6 +57,72 @@ def conv_mixed(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     else:
         y = conv(xc.float(), wc.float(), stride=tuple(stride), groups=groups)
     return y.movedim(1, -1).float()
+
+
+def _conv_f32_vjp(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+                  groups: int, g: torch.Tensor, needs: Tuple[bool, bool]):
+    """The VJP of the float32 twin of `_conv_forward` (operands cast to
+    float32, the same pads, stride and groups) at (x, w), by one
+    `convolution_backward`: the input and weight gradients at x's and
+    w's dtypes (None where `needs` says no)."""
+    n = x.ndim - 2
+    pads = [same_pads(x.shape[1 + i], w.shape[i], stride[i])
+            for i in range(n)]
+    xc = F.pad(x.movedim(-1, 1).float(),
+               [p for lo_hi in reversed(pads) for p in lo_hi])
+    wc = w.permute(n + 1, n, *range(n)).float()
+    gc = g.movedim(-1, 1).float()
+    if n == 2:
+        xc = xc.contiguous(memory_format=torch.channels_last)
+        wc = wc.contiguous(memory_format=torch.channels_last)
+        gc = gc.contiguous(memory_format=torch.channels_last)
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        gc, xc, wc, None, list(stride), [0] * n, [1] * n, False, [0] * n,
+        groups, [needs[0], needs[1], False])
+    if gx is not None:
+        for i, (lo, _) in enumerate(pads):       # drop the pad's gradient
+            gx = gx.narrow(2 + i, lo, x.shape[1 + i])
+        gx = gx.movedim(1, -1).to(x.dtype)
+    if gw is not None:
+        gw = gw.permute(*range(2, n + 2), 1, 0).to(w.dtype)
+    return gx, gw
+
+
+class _ConvMixed(torch.autograd.Function):
+    """The JAX package's `conv_mixed` custom_vjp: the reduced-dtype
+    convolution forward, the float32 twin's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, groups):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.groups = tuple(stride), groups
+        return _conv_forward(x, w, stride, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx, gw = _conv_f32_vjp(x, w, ctx.stride, ctx.groups, g,
+                               ctx.needs_input_grad[:2])
+        return gx, gw, None, None
+
+
+def conv_mixed(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+               padding: str = "SAME", groups: int = 1) -> torch.Tensor:
+    """The JAX package's `conv_mixed` with "SAME" padding (the only
+    padding its ported callers use): x [B, *spatial, C] (channels last),
+    w [*kernel, C // groups, O] -> float32 [B, *spatial', O], with the
+    products summed in float32 at the operands' dtype (see the module
+    docstring). Differentiable: the backward is the VJP of the float32
+    twin (the operands cast to float32, then the same convolution),
+    cotangents at the operands' dtypes, as in the JAX package."""
+    n = x.ndim - 2
+    if n not in (1, 2) or w.ndim != n + 2:
+        raise ValueError(f"conv_mixed: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} are not a 1-D or 2-D conv")
+    if padding != "SAME":
+        raise ValueError(f"conv_mixed: padding {padding!r} is not ported "
+                         "(only 'SAME')")
+    return _ConvMixed.apply(x, w, tuple(stride), groups)
 
 
 def conv2d_init(generator: torch.Generator, in_ch: int, out_ch: int,

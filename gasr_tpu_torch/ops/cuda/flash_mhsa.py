@@ -31,9 +31,12 @@ Two forms of the same function:
     the unnormalized probabilities to bf16 before the product with v.
 
 `flash_mhsa_rel` launches the kernel for CUDA tensors and runs
-`flash_mhsa_rel_plain` for CPU tensors. It is forward only: inputs that
-require grad raise (the backward comes with training, ROADMAP.md Queue 1
-item 12).
+`flash_mhsa_rel_plain` for CPU tensors. It is differentiable, as the
+JAX package's custom_vjp is: an autograd Function saves the primals (not
+the output) and its backward, `flash_mhsa_rel_vjp`, is the VJP of
+`flash_mhsa_rel_plain` at them, in batch chunks whose [Bc, H, T, T]
+float32 score tile stays within `_BWD_SCORE_BYTES`. The kernel's output
+therefore never reaches a gradient.
 
 lengths: a length of 0 masks every key; then the kernel and the plain
 version both average v over the T keys, as `flash_ref` does (the JAX
@@ -54,6 +57,10 @@ NEG = -1e30
 
 # kernel launches made by flash_mhsa_rel (one per call)
 launches = 0
+
+# the largest [Bc, H, T, T] float32 score tile the recompute backward
+# holds at once (the JAX package's value); larger batches run in chunks
+_BWD_SCORE_BYTES = 48 * 2**20
 
 
 def flash_eligible(T: int, dh: int, D: int) -> bool:
@@ -133,17 +140,10 @@ def _copy_width(dh: int, tensors) -> int:
     return next(vec for vec in (8, 4, 2, 1) if g % vec == 0)
 
 
-def flash_mhsa_rel(q, k, v, wr, u, vb, lengths,
-                   out_f32: bool = False) -> torch.Tensor:
-    """q, k, v: [B, H, T, dh] (any float dtype, any strides; bf16 inside),
-    wr: [D, D] (D = H * dh), u, vb: [H, dh], lengths: [B] valid key counts.
-    Returns [B, H, T, dh], float32 when out_f32 else bf16; from the kernel
-    it is a view of a [T, B, H, dh] tensor, so that the time-major
-    [T, B, D] caller reshapes it without a copy."""
-    if any(t.requires_grad for t in (q, k, v, wr, u, vb)):
-        raise NotImplementedError(
-            "flash_mhsa_rel is forward only (the backward comes with "
-            "training, ROADMAP.md Queue 1 item 12)")
+def _flash_forward(q, k, v, wr, u, vb, lengths,
+                   out_f32: bool) -> torch.Tensor:
+    """The forward of `flash_mhsa_rel`: the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_mhsa_rel_plain(q, k, v, wr, u, vb, lengths, out_f32)
     if q.device.type != "cuda":
@@ -200,3 +200,61 @@ def flash_mhsa_rel(q, k, v, wr, u, vb, lengths,
     global launches
     launches += 1
     return out.permute(1, 2, 0, 3)
+
+
+def flash_mhsa_rel_vjp(q, k, v, wr, u, vb, lengths, g,
+                       out_f32: bool = False) -> tuple:
+    """The backward of `flash_mhsa_rel` (the JAX package's
+    `_flash_core_bwd`): the VJP of `flash_mhsa_rel_plain` at the primals
+    for the cotangent g (cast to float32 when out_f32, else to bf16).
+    Batches whose [B, H, T, T] float32 score tile passes
+    `_BWD_SCORE_BYTES` run in equal batch chunks; q, k, v grads are
+    concatenated, and wr, u, vb grads summed over the chunks in float32.
+    Returns the grads of (q, k, v, wr, u, vb) at their dtypes."""
+    B, H, T, dh = q.shape
+    g = g.float() if out_f32 else g.to(torch.bfloat16)
+    nchunks = min(B, max(1, -(-(B * H * T * T * 4) // _BWD_SCORE_BYTES)))
+    while B % nchunks:
+        nchunks += 1
+    Bc = B // nchunks
+    parts = []
+    for i in range(nchunks):
+        rows = slice(i * Bc, (i + 1) * Bc)
+        with torch.enable_grad():
+            prim = [t.detach().requires_grad_()
+                    for t in (q[rows], k[rows], v[rows], wr, u, vb)]
+            out = flash_mhsa_rel_plain(*prim, lengths[rows], out_f32)
+            parts.append(torch.autograd.grad(out, prim, g[rows]))
+    if nchunks == 1:
+        return parts[0]
+    dq, dk, dv = (torch.cat([p[j] for p in parts]) for j in range(3))
+    dw = (torch.stack([p[j].float() for p in parts]).sum(0).to(t.dtype)
+          for j, t in zip(range(3, 6), (wr, u, vb)))
+    return (dq, dk, dv, *dw)
+
+
+class _FlashMHSARel(torch.autograd.Function):
+    """The JAX package's `_flash_core` custom_vjp: the kernel forward, the
+    recompute backward (`flash_mhsa_rel_vjp`) from the saved primals."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wr, u, vb, lengths, out_f32):
+        ctx.save_for_backward(q, k, v, wr, u, vb, lengths)
+        ctx.out_f32 = out_f32
+        return _flash_forward(q, k, v, wr, u, vb, lengths, out_f32)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = flash_mhsa_rel_vjp(*ctx.saved_tensors, g, ctx.out_f32)
+        return (*grads, None, None)
+
+
+def flash_mhsa_rel(q, k, v, wr, u, vb, lengths,
+                   out_f32: bool = False) -> torch.Tensor:
+    """q, k, v: [B, H, T, dh] (any float dtype, any strides; bf16 inside),
+    wr: [D, D] (D = H * dh), u, vb: [H, dh], lengths: [B] valid key counts.
+    Returns [B, H, T, dh], float32 when out_f32 else bf16; from the kernel
+    it is a view of a [T, B, H, dh] tensor, so that the time-major
+    [T, B, D] caller reshapes it without a copy. Differentiable in q, k,
+    v, wr, u and vb (`flash_mhsa_rel_vjp`)."""
+    return _FlashMHSARel.apply(q, k, v, wr, u, vb, lengths, out_f32)

@@ -240,8 +240,8 @@ def _forward_only(*tensors) -> None:
     kernel's wrapper under autograd, rather than leave the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "lstm_scan is forward only, as JAX's lstm_scan_pallas_raw (the "
-            "backward comes with training, ROADMAP.md Queue 1 item 12)")
+            "lstm_scan is forward only, as JAX's lstm_scan_pallas_raw, "
+            "which has no VJP: train with rnn_impl='scan'")
 
 
 def _check(xws, ws, h0, c0) -> None:

@@ -223,8 +223,8 @@ def rnn_scan(xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (xw, w_hh, h0)):
         raise NotImplementedError(
-            "rnn_scan is forward only, as JAX's rnn_scan_pallas_raw (the "
-            "backward comes with training, ROADMAP.md Queue 1 item 12)")
+            "rnn_scan is forward only, as JAX's rnn_scan_pallas_raw, "
+            "which has no VJP: train with rnn_impl='scan'")
     if xw.device.type == "cpu":
         return rnn_scan_plain(xw, w_hh, h0, reverse, weight_dtype)
     if xw.device.type != "cuda":

@@ -35,9 +35,11 @@ sum to bf16 before the bias, `ops/conv.py`), the kernel adds b1 to the
 float32 sum, as `stem_ref` does.
 
 `fused_stem` launches the kernels for CUDA tensors and runs
-`fused_stem_plain` for CPU tensors. Forward only: inputs that require
-grad raise (the backward comes with training, ROADMAP.md Queue 1 item
-12). `launches` counts calls on the card (two kernel launches each).
+`fused_stem_plain` for CPU tensors. It is differentiable, as the JAX
+package's custom_vjp is: an autograd Function saves the primals and its
+backward is the VJP of `fused_stem_plain` (`stem_ref`) at them, so the
+kernels' output never reaches a gradient. `launches` counts calls on the
+card (two kernel launches each).
 """
 
 from __future__ import annotations
@@ -127,15 +129,10 @@ def fused_stem_plain(x, w1, b1, w2, b2, wproj, bproj,
     return y.to(out_dtype)
 
 
-def fused_stem(x, w1, b1, w2, b2, wproj, bproj,
-               out_dtype=torch.bfloat16) -> torch.Tensor:
-    """x [B, T, F] float; w1 [3, 3, 1, d], b1 [d]; w2 [3, 3, d, d] (HWIO),
-    b2 [d]; wproj [(F/4) * d, dout] (rows freq-major, f2 * d + c), bproj
-    [dout] -> [B, T/4, dout] at out_dtype (bf16 or float32)."""
-    if any(t.requires_grad for t in (x, w1, b1, w2, b2, wproj, bproj)):
-        raise NotImplementedError(
-            "fused_stem is forward only (the backward comes with training, "
-            "ROADMAP.md Queue 1 item 12)")
+def _stem_forward(x, w1, b1, w2, b2, wproj, bproj,
+                  out_dtype) -> torch.Tensor:
+    """The forward of `fused_stem`: the kernels on CUDA tensors, the plain
+    version on CPU tensors."""
     if x.device.type == "cpu":
         return fused_stem_plain(x, w1, b1, w2, b2, wproj, bproj, out_dtype)
     if x.device.type != "cuda":
@@ -191,3 +188,45 @@ def fused_stem(x, w1, b1, w2, b2, wproj, bproj,
     global launches
     launches += 1
     return out
+
+
+def fused_stem_vjp(x, w1, b1, w2, b2, wproj, bproj, g,
+                   out_dtype=torch.bfloat16, needs=(True,) * 7) -> tuple:
+    """The backward of `fused_stem` (the JAX package's `_stem_core_bwd`):
+    the VJP of `fused_stem_plain` at the primals for the cotangent g; the
+    grads of (x, w1, b1, w2, b2, wproj, bproj) at their dtypes, None
+    where `needs` says no."""
+    with torch.enable_grad():
+        prim = [t.detach().requires_grad_(n)
+                for t, n in zip((x, w1, b1, w2, b2, wproj, bproj), needs)]
+        out = fused_stem_plain(*prim, out_dtype=out_dtype)
+        grads = iter(torch.autograd.grad(
+            out, [p for p in prim if p.requires_grad], g))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _FusedStem(torch.autograd.Function):
+    """The JAX package's `_stem_core` custom_vjp: the kernels' forward,
+    the recompute backward (`fused_stem_vjp`) from the saved primals."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, wproj, bproj, out_dtype):
+        ctx.save_for_backward(x, w1, b1, w2, b2, wproj, bproj)
+        ctx.out_dtype = out_dtype
+        return _stem_forward(x, w1, b1, w2, b2, wproj, bproj, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_stem_vjp(*ctx.saved_tensors, g,
+                               out_dtype=ctx.out_dtype,
+                               needs=ctx.needs_input_grad[:7])
+        return (*grads, None)
+
+
+def fused_stem(x, w1, b1, w2, b2, wproj, bproj,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [B, T, F] float; w1 [3, 3, 1, d], b1 [d]; w2 [3, 3, d, d] (HWIO),
+    b2 [d]; wproj [(F/4) * d, dout] (rows freq-major, f2 * d + c), bproj
+    [dout] -> [B, T/4, dout] at out_dtype (bf16 or float32).
+    Differentiable (`fused_stem_vjp`)."""
+    return _FusedStem.apply(x, w1, b1, w2, b2, wproj, bproj, out_dtype)

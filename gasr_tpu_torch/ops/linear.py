@@ -48,7 +48,7 @@ def linear_init(generator: torch.Generator, in_dim: int, out_dim: int,
             "b": uniform_init(generator, (out_dim,), bound, device)}
 
 
-def _tensor_core_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _tensor_core_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., M, K] @ b [K, N] or [..., K, N] (equal batch dims), 16-bit
     operands on the card -> float32."""
     if b.ndim == 2:
@@ -63,6 +63,33 @@ def _tensor_core_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*batch, a.shape[-2], b.shape[-1])
 
 
+class _TensorCoreMatmul(torch.autograd.Function):
+    """`_tensor_core_product` with the backward of the JAX package's mixed
+    dot: d a = (g @ b^T) and d b = (a^T @ g) as float32 products of the
+    float32 cotangent, each rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _tensor_core_product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.ndim == 2:
+                gb = torch.matmul(a.reshape(-1, a.shape[-1]).float().t(),
+                                  g.reshape(-1, g.shape[-1]))
+            else:
+                gb = torch.matmul(a.float().transpose(-1, -2), g)
+            gb = gb.to(b.dtype)
+        return ga, gb
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor,
            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """a @ b in float32, the operands first rounded to compute_dtype (see
@@ -72,7 +99,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     a, b = a.to(compute_dtype), b.to(compute_dtype)
     if a.device.type == "cuda" and compute_dtype in (torch.bfloat16,
                                                      torch.float16):
-        return _tensor_core_matmul(a, b)
+        return _TensorCoreMatmul.apply(a, b)
     return torch.matmul(a.float(), b.float())
 
 

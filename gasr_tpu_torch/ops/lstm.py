@@ -18,6 +18,9 @@ in float32. The recurrence is:
     impl="scan" runs it (JAX runs a bidirectional layer there as two
     one-direction scans, which its docs call numerically identical to
     the fused loop; the tests hold the two to 1e-5).
+The loops collect their steps in a list and stack them once: under
+autograd a write into a preallocated output is a CopySlices whose
+backward clones the whole output each step.
 """
 
 from __future__ import annotations
@@ -79,13 +82,13 @@ def _scan_one_direction(cell: dict, x: torch.Tensor, h0: torch.Tensor,
                         c0: torch.Tensor, reverse: bool) -> torch.Tensor:
     """One layer and direction in float32: [T, B, in] -> [T, B, H]."""
     xw = _input_projection(cell, x)
-    out = xw.new_empty(xw.shape[0], xw.shape[1], cell["w_hh"].shape[0])
     h, c = h0, c0
     T = xw.shape[0]
+    hs = []
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         h, c = _step(xw[t], h, c, cell["w_hh"])
-        out[t] = h
-    return out
+        hs.append(h)
+    return torch.stack(hs[::-1] if reverse else hs)
 
 
 def _scan_bidir_fused(cell_f: dict, cell_b: dict, x: torch.Tensor,
@@ -96,12 +99,12 @@ def _scan_bidir_fused(cell_f: dict, cell_b: dict, x: torch.Tensor,
     xw = torch.stack([_input_projection(cell_f, x),
                       _input_projection(cell_b, x).flip(0)], dim=1)
     w_hh = torch.stack([cell_f["w_hh"], cell_b["w_hh"]])
-    T, _, B, H4 = xw.shape
-    hs = xw.new_empty(T, 2, B, H4 // 4)
     h, c = torch.stack([h0, h0]), torch.stack([c0, c0])
-    for t in range(T):
+    steps = []
+    for t in range(xw.shape[0]):
         h, c = _step(xw[t], h, c, w_hh)
-        hs[t] = h
+        steps.append(h)
+    hs = torch.stack(steps)                         # [T, 2, B, H]
     return torch.cat([hs[:, 0], hs[:, 1].flip(0)], dim=-1)
 
 

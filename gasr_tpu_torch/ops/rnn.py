@@ -18,6 +18,10 @@ recurrence. The recurrence itself is:
     direction; at any other shape the float32 loop, as JAX does.
 `rnn_forward_streaming` carries the hidden state across chunks with the
 float32 loop, as the JAX package streams with its `lax.scan`.
+
+The loops collect their steps in a list and stack them once: under
+autograd a write into a preallocated output is a CopySlices whose
+backward clones the whole output each step.
 """
 
 from __future__ import annotations
@@ -81,12 +85,13 @@ def _scan_one_direction(cell: dict, x: torch.Tensor, h0: torch.Tensor,
     hidden state [B, H] with return_final)."""
     xw = _input_projection(cell, x)
     w_hh = cell["w_hh"]
-    out = torch.empty_like(xw)
     h = h0
     T = xw.shape[0]
+    hs = []
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         h = torch.tanh(xw[t] + torch.matmul(h, w_hh))
-        out[t] = h
+        hs.append(h)
+    out = torch.stack(hs[::-1] if reverse else hs)
     if return_final:
         return out, h
     return out
@@ -100,11 +105,12 @@ def _scan_bidir_fused(cell_f: dict, cell_b: dict, x: torch.Tensor,
     xw = torch.stack([_input_projection(cell_f, x),
                       _input_projection(cell_b, x).flip(0)], dim=1)
     w_hh = torch.stack([cell_f["w_hh"], cell_b["w_hh"]])
-    hs = torch.empty_like(xw)                       # [T, 2, B, H]
     h = torch.stack([h0, h0])
+    steps = []
     for t in range(xw.shape[0]):
         h = torch.tanh(xw[t] + torch.bmm(h, w_hh))
-        hs[t] = h
+        steps.append(h)
+    hs = torch.stack(steps)                         # [T, 2, B, H]
     return torch.cat([hs[:, 0], hs[:, 1].flip(0)], dim=-1)
 
 

@@ -1,4 +1,5 @@
-"""Checkpoints and the weights bridge from the JAX package.
+"""Checkpoints (npz save / load) and the weights bridge from the JAX
+package.
 
 Params are nested dicts and lists of tensors with the JAX package's
 names and layouts: linear weights are `[in, out]` and RNN weights
@@ -9,11 +10,14 @@ transposes nothing.
 
 The flat key scheme is the JAX package's `save_params` npz: nested keys
 joined with "/", list indices as decimal path parts
-(`mlp1/w`, `rnn/layers/0/w_hh`).
+(`mlp1/w`, `rnn/layers/0/w_hh`), so that each framework reads the
+other's files. The JAX package's Orbax path is a JAX library and has no
+port.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -59,6 +63,37 @@ def unflatten_params(flat: Mapping[str, Any]) -> Any:
         return out
 
     return listify(root)
+
+
+def save_params(path: str, params: Any) -> None:
+    """Write `params` (nested dicts / lists of tensors, arrays or numbers)
+    as the JAX package's flat npz (`checkpoint.py::save_params`)."""
+    flat = flatten_params(params)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_params(path: str, like: Any) -> Any:
+    """Read an npz written by either framework's `save_params` into the
+    structure of `like` (the names must match): each leaf a tensor with
+    the file's dtype and values, on the device of `like`'s leaf (the CPU
+    where that leaf is not a tensor)."""
+    with np.load(path) as data:
+        flat = dict(data)
+
+    def rebuild(template: Any, prefix: str = "") -> Any:
+        if isinstance(template, Mapping):
+            return {k: rebuild(v, f"{prefix}{k}/")
+                    for k, v in template.items()}
+        if isinstance(template, (list, tuple)):
+            out = [rebuild(v, f"{prefix}{i}/")
+                   for i, v in enumerate(template)]
+            return tuple(out) if isinstance(template, tuple) else out
+        dev = (template.device if isinstance(template, torch.Tensor)
+               else torch.device("cpu"))
+        return torch.from_numpy(np.array(flat[prefix[:-1]])).to(dev)
+
+    return rebuild(like)
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:

@@ -33,6 +33,7 @@ DETAIL_KEYS = {"ours", "baseline", "config", "rtf_per_chip"}
 ROW_KEYS = {"preset", "model", "batch", "T", "beam", "dtype", "forward_ms",
             "forward_ms_range", "decode_ms", "decode_ms_range", "reps",
             "fwd_tflop", "mfu_pct", "audio_s_per_s"}
+TRAIN_KEYS = {"peak_gb", "split_ms", "loss_first_last", "tf32"}
 
 
 def _jax_bench():
@@ -130,19 +131,48 @@ def test_report_rows_with_stubbed_measures(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(bench, "measure_ours", fake_ours)
     monkeypatch.setattr(bench, "measure_streaming",
                         lambda cfg, chunk_frames, iters=None: stats)
+    trained = []
+
+    def fake_train(cfg, iters=None, reps=5, compute_dtype=None):
+        trained.append((cfg.model, cfg.device, cfg.mesh_shape,
+                        compute_dtype, torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32))
+        return dict(stats, median=0.25, peak_bytes=None, losses=[3.0, 2.5])
+
+    monkeypatch.setattr(bench, "measure_train", fake_train)
     monkeypatch.setattr(bench, "BUILD", tmp_path)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     root_results = open(os.path.join(REPO, "RESULTS.md")).read()
     bench.run_report(argparse.Namespace(iters=None, no_decode=False,
                                         device="cpu"))
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     rows = line["rows"]
     assert line["metric"] == "report"
+    train_names = [name for name, _, _ in bench.TRAIN_ROWS]
+    assert train_names == ["train_flagship", "train_conformer_l_bf16"]
     assert [r["preset"] for r in rows] == bench.REPORT_PRESETS + [
-        "streaming_Tc20"]
+        "streaming_Tc20"] + train_names
     for r in rows:
-        assert set(r) == ROW_KEYS
+        assert set(r) == (ROW_KEYS | TRAIN_KEYS if r["preset"] in train_names
+                          else ROW_KEYS)
         assert r["mfu_pct"] is None                # no peak on the CPU
+    # the training rows: ms a step in the forward column, the 3x-forward
+    # FLOP count, conformer_l at bf16 with its mesh degraded; no split or
+    # peak memory on the CPU; TF32 off while they run, restored after
+    assert trained == [("deepspeech", "cpu", {}, None, False, False),
+                       ("conformer_l", "cpu", {}, "bfloat16", False, False)]
+    assert torch.backends.cudnn.allow_tf32
+    for r, (_, preset, cd) in zip(rows[-2:], bench.TRAIN_ROWS):
+        cfg = PRESETS[preset]
+        assert r["forward_ms"] == 250.0 and r["decode_ms"] is None
+        assert r["dtype"] == (cd or cfg.compute_dtype)
+        assert r["fwd_tflop"] == round(tflops.model_train_flops(cfg) / 1e12,
+                                       3)
+        assert r["peak_gb"] is None and r["split_ms"] is None
+        assert r["loss_first_last"] == [3.0, 2.5]
+        assert r["tf32"] == ("matmul.allow_tf32=False, "
+                             "cudnn.allow_tf32=False")
     for r, name in zip(rows, bench.REPORT_PRESETS):
         cfg = PRESETS[name]
         assert (r["batch"], r["T"], r["beam"]) == (
@@ -153,7 +183,7 @@ def test_report_rows_with_stubbed_measures(monkeypatch, tmp_path, capsys):
                                        3)
         assert r["audio_s_per_s"] == round(
             cfg.batch_size * cfg.seg_len * 0.01 / 0.03, 1)
-    stream = rows[-1]
+    stream = rows[len(bench.REPORT_PRESETS)]
     assert stream["decode_ms"] == 20.0 and stream["audio_s_per_s"] == round(
         256 * 200 * 0.01 / 0.02, 1)
     # every preset on the asked device, conformer_l's mesh degraded
@@ -161,7 +191,7 @@ def test_report_rows_with_stubbed_measures(monkeypatch, tmp_path, capsys):
                for _, dev, _, iters, adaptive in seen)
     assert all(mesh == {} for _, _, mesh, _, _ in seen)
     table = (tmp_path / "RESULTS.md").read_text()
-    assert "Device: cpu" in table and table.count("\n| ") == 7
+    assert "Device: cpu" in table and table.count("\n| ") == 9
     assert open(os.path.join(REPO, "RESULTS.md")).read() == root_results
 
 

@@ -299,16 +299,23 @@ def test_fused_stem_plain_matches_pallas_interpret():
 
 
 def test_wrappers_refuse_inputs_that_require_grad():
+    # the three custom_vjp ops no longer refuse: inputs that require grad
+    # get grads (tests/test_torch_train.py holds them to the plain
+    # versions and to JAX); the recurrence kernels still refuse
+    # (tests/test_torch_cuda.py::test_recurrence_kernels_raise_under_autograd)
     ins = [torch.from_numpy(a) for a in _flash_inputs(1, 2, 4, 8, 0, False)]
     ins[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tflash.flash_mhsa_rel(*ins)
+    out = tflash.flash_mhsa_rel(*ins)
+    assert out.requires_grad
+    out.float().sum().backward()
+    assert ins[0].grad is not None and ins[0].grad.shape == ins[0].shape
     w = [_t(a) for a in _stem_weights(8, 128, 128, 0)]
     w[2].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tstem.fused_stem(torch.zeros(1, 8, 8), *w)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tconv.conv_mixed(torch.zeros(1, 4, 4, 1), w[2][:, :, :1], (1, 1))
+    tstem.fused_stem(torch.zeros(1, 8, 8), *w).float().sum().backward()
+    assert w[2].grad is not None
+    wc = w[2].detach()[:, :, :1].clone().requires_grad_(True)
+    tconv.conv_mixed(torch.zeros(1, 4, 4, 1), wc, (1, 1)).sum().backward()
+    assert wc.grad is not None and wc.grad.shape == wc.shape
 
 
 # ------------------------------------------------------------------ model

@@ -916,9 +916,9 @@ def test_kernel_wrappers_refuse(dev):
                                                  False))
     with pytest.raises(ValueError, match="one device"):
         flash_mhsa.flash_mhsa_rel(*ins[:-1], ins[-1].cpu())
-    with pytest.raises(NotImplementedError, match="forward only"):
-        flash_mhsa.flash_mhsa_rel(ins[0].clone().requires_grad_(True),
-                                  *ins[1:])
+    # differentiable now: the kernel forward records the recompute backward
+    assert flash_mhsa.flash_mhsa_rel(ins[0].clone().requires_grad_(True),
+                                     *ins[1:]).requires_grad
     w = [torch.zeros(s, device=dev) for s in
          ((3, 3, 1, 128), (128,), (3, 3, 128, 128), (128,), (256, 128),
           (128,))]
@@ -927,9 +927,8 @@ def test_kernel_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="one device"):
         stem.fused_stem(torch.zeros(1, 16, 8, device=dev), *w[:-1],
                         w[-1].cpu())
-    with pytest.raises(NotImplementedError, match="forward only"):
-        stem.fused_stem(torch.zeros(1, 16, 8, device=dev,
-                                    requires_grad=True), *w)
+    assert stem.fused_stem(torch.zeros(1, 16, 8, device=dev,
+                                       requires_grad=True), *w).requires_grad
     # no frequency axis is refused for shared memory: the conv kernel's
     # block asks for the same bytes at every F (f2 windows of at most
     # WINDOW_MAX columns)
@@ -1234,3 +1233,112 @@ def test_tp_scan_and_decode_with_shards_on_several_cards(dev):
                                                max_len=16, tp_impl=impl)
             for f in single._fields:
                 assert torch.equal(getattr(got, f), getattr(single, f)), f
+
+
+# ------------------------------------------------------------- training
+
+def test_flash_and_stem_grads_through_the_kernels(dev):
+    # the kernel forwards under autograd; the grads are the recompute
+    # backwards' (the VJPs of the plain versions), bit for bit
+    ins = _flash_inputs(dev, 4, 2, 40, 16, 3, True)
+    prims = [t.clone().requires_grad_() for t in ins[:-1]]
+    g = torch.randn((4, 2, 40, 16), device=dev)
+    for out_f32 in (False, True):
+        n0 = flash_mhsa.launches
+        got = torch.autograd.grad(flash_mhsa.flash_mhsa_rel(
+            *prims, ins[-1], out_f32=out_f32), prims, g)
+        assert flash_mhsa.launches == n0 + 1
+        want = flash_mhsa.flash_mhsa_rel_vjp(*prims, ins[-1], g,
+                                             out_f32=out_f32)
+        for a, b, p in zip(got, want, prims):
+            assert a.dtype == p.dtype and torch.equal(a, b)
+    rng = np.random.default_rng(5)
+    w = [torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32))
+         .to(dev).requires_grad_() for s, sc in (
+             ((3, 3, 1, 128), 0.2), ((128,), 0.1), ((3, 3, 128, 128), 0.05),
+             ((128,), 0.1), ((4 * 128, 128), 0.05), ((128,), 0.1))]
+    x = torch.rand((2, 16, 16), device=dev)
+    gs = torch.randn((2, 4, 128), device=dev).to(torch.bfloat16)
+    torch.backends.cudnn.deterministic = True
+    try:
+        n0 = stem.launches
+        got = torch.autograd.grad(stem.fused_stem(x, *w), w, gs)
+        assert stem.launches == n0 + 1
+        want = stem.fused_stem_vjp(x, *w, gs, needs=(False,) + (True,) * 6)
+        for a, b in zip(got, want[1:]):
+            assert torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_tensor_core_matmul_backward(dev, batched):
+    # torch.mm / bmm(out_dtype=float32) have no derivative in torch: the
+    # port's Function gives JAX's transpose (float32 products of the
+    # float32 cotangent, rounded to bf16), held to float64 products
+    a = torch.randn((3, 40, 64), device=dev).to(torch.bfloat16)
+    b = (torch.randn((3, 64, 24) if batched else (64, 24), device=dev)
+         * 0.1).to(torch.bfloat16)
+    a.requires_grad_()
+    b.requires_grad_()
+    y = matmul(a, b, torch.bfloat16)
+    assert y.dtype == torch.float32
+    gy = torch.randn(y.shape, device=dev)
+    ga, gb = torch.autograd.grad(y, (a, b), gy)
+    ra = torch.matmul(gy.double(), b.detach().double().transpose(-1, -2))
+    rb = torch.matmul(a.detach().double().transpose(-1, -2), gy.double())
+    if not batched:
+        rb = rb.sum(0)
+    for got, ref in ((ga, ra), (gb, rb)):
+        assert got.dtype == torch.bfloat16
+        assert float((got.double() - ref).abs().max()) <= \
+            2.0 ** -8 * float(ref.abs().max())
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    # a float32 deepspeech step (TF32 off) on the card and on the CPU from
+    # the same params and batch: only summation orders differ
+    from gasr_tpu_torch.config import Config
+    from gasr_tpu_torch.runtime.checkpoint import flatten_params
+    from gasr_tpu_torch.train import (make_optimizer, make_train_step,
+                                      synthetic_batch)
+    cfg = Config(batch_size=4, input_size=6, n_context=0, linear_size=32,
+                 rnn_hidden_size=32, vocab_size=10, seg_len=24, device="cpu")
+    res = {}
+    for where in ("cpu", "cuda"):
+        c = dataclasses.replace(cfg, device=where)
+        params = model_init(c, torch.Generator().manual_seed(0))
+        opt = make_optimizer()
+        state = opt.init(params)
+        batch = synthetic_batch(c, torch.Generator().manual_seed(1),
+                                max_label_len=6)
+        params, _, m = make_train_step(c, opt)(params, state, batch)
+        res[where] = (flatten_params(params), float(m["loss"]),
+                      float(m["grad_norm"]))
+    (pc, lc, nc), (pg, lg, ng) = res["cpu"], res["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(ng, nc, rtol=1e-5)
+    for k in pc:
+        np.testing.assert_allclose(pg[k], pc[k], rtol=0, atol=1e-6)
+
+
+def test_conformer_train_step_takes_the_kernels(dev):
+    # a two-block bf16 conformer step on the card: the flash kernel's
+    # forward in each block, the stem kernels' with stem_impl="pallas"
+    from gasr_tpu_torch.train import (make_optimizer, make_train_step,
+                                      synthetic_batch)
+    cfg = dataclasses.replace(PRESETS["conformer_s"], linear_size=128,
+                              num_blocks=2, batch_size=2, seg_len=64,
+                              input_size=16, vocab_size=12)
+    params = model_init(cfg, torch.Generator().manual_seed(0))
+    opt = make_optimizer()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, compute_dtype="bfloat16",
+                           stem_impl="pallas")
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1),
+                            max_label_len=4)
+    f0, s0 = flash_mhsa.launches, stem.launches
+    losses = [float(step(params, state, batch)[2]["loss"])
+              for _ in range(4)]
+    assert flash_mhsa.launches == f0 + 8 and stem.launches == s0 + 4
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
