@@ -64,7 +64,16 @@ a conformer_l step with stem_impl="pallas", and the conformer_l bf16
 step through the flash kernel held to the same step with the plain
 attention (attn_impl="xla"): loss and grad norm of the first step, then
 7 steps of each (and of the kernel path at a third of the learning rate)
-side by side.
+side by side; and multi-card training and the graft entries (phase
+15, `parallel_phase`): the sharded train step (one process a card,
+`train.make_sharded_train_step`) on reference_large at full width, a
+world of one card bit-equal to `make_train_step` (with 4 or more cards
+also {"data": 2, "model": 2} within the CPU tests' tolerance), ms a step
+and peak memory, a sharded checkpoint round trip, `dryrun_multichip` over
+every card (tp_frame, tp_scan, traceback, traceback_overlay launched by
+its decode checks), `measure_dp_scaling` of reference_large with each
+rank's launches, and with 2 or more cards `tp_scan` with its shards on
+separate cards.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -80,6 +89,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -175,6 +185,30 @@ FWD_LSTM_CARD_CPU_TOL = {  # small DS2 / BiLSTM forwards, card against CPU
                            # to 2^-8 in h) and the flip reaches the
                            # log-probs through the layers above
 }
+
+
+SHARDED_STEP_RTOL = 1e-5   # the sharded float32 step on {"data": 2,
+                           # "model": 2} against the single-card step: loss
+                           # and grad norm; the same ops summed in other
+                           # orders (split products, the all-reduces); the
+                           # CPU tests' bound (tests/test_torch_parallel.py)
+SHARDED_PARAM_ATOL = 1e-6  # its updated params: Adam's first step moves an
+                           # element by about lr = 3e-4 times g / (|g| +
+                           # 1e-8), so an ulp of g moves it far less; the
+                           # CPU tests' bound
+ADAM_WELL_CONDITIONED = 0.99  # at full width SHARDED_PARAM_ATOL holds the
+                           # params whose single-card first update is at
+                           # least 0.99 lr: Adam's first step moves an
+                           # element by lr g / (|g| + eps), which for a
+                           # clipped grad |g| >= 99 eps changes by at most
+                           # 3 times a change of g; for grads within 99 eps
+                           # (1e-6) of zero, a sum-order difference of g in
+                           # its last bits (relative to the large terms that
+                           # cancel in it) moves the update by up to lr
+                           # (1.07e-4 measured on 4 x H100, PERF.md); those
+                           # are counted and reported
+SHARDED_TIMED_STEPS = 3    # sharded steps timed after the first
+DP_ITERS = 3               # calls a rank in measure_dp_scaling
 
 
 def check(cond, msg):
@@ -465,6 +499,251 @@ def train_phase(card, zero_counts, read_counts):
     return out, runs
 
 
+def parallel_phase(card, zero_counts, read_counts, report):
+    """Phase 15, multi-card training and the graft entries: the sharded
+    train step (`train.make_sharded_train_step`, one process a card) on
+    reference_large at full width (float32, B=256, T=200, H=2048, one fixed
+    `synthetic_batch`; TF32 off, as in the ranks by default): a world of
+    one card, {"data": 1, "model": 1} over NCCL, bit-equal to
+    `make_train_step` from the same params and batch in loss, grad norm
+    and every updated param (both first steps in torch's deterministic
+    mode: by default the backward's scatter-adds are atomic and the
+    single-card step differs from itself in the last bits), and with 4 or
+    more cards {"data": 2, "model": 2} within the CPU tests' tolerance;
+    ms a step (default mode) and peak memory of each;
+    a sharded checkpoint (DCP) round trip in the same world; then
+    `dryrun_multichip` over every card (launches counted: tp_frame,
+    tp_scan, traceback, traceback_overlay and the decode, as its decode
+    checks run them); `measure_dp_scaling` of reference_large over 1, 2,
+    4 ... cards with each rank's launches (one decode and one traceback a
+    call); with 2 or more cards, `tp_scan` at the flagship decode shape
+    with its shards on separate cards beside all on one card. Returns
+    (report, launches by run)."""
+    import tempfile
+    import torch
+    from gasr_tpu_torch.config import PRESETS
+    from gasr_tpu_torch.decoder.beam_search import _init_beam
+    from gasr_tpu_torch.graft_entry import dryrun_multichip
+    from gasr_tpu_torch.models import model_init
+    from gasr_tpu_torch.ops.cuda import fused_decode
+    from gasr_tpu_torch.parallel import checks, distributed, scaling
+    from gasr_tpu_torch.runtime._tree import tree_map
+    from gasr_tpu_torch.runtime.checkpoint import (flatten_params,
+                                                   load_params_dcp)
+    from gasr_tpu_torch.runtime.timer import Timer
+    from gasr_tpu_torch.train import (make_optimizer, make_train_step,
+                                      sharded_train_run, synthetic_batch)
+
+    cards = torch.cuda.device_count()
+    dev = torch.device("cuda", 0)
+    out, runs = {"cards": cards, "host_cpus": os.cpu_count()}, {}
+    print(f"phase 15 on {cards} card(s) of {card}, {os.cpu_count()} host "
+          f"CPUs", flush=True)
+
+    # 15a. the sharded step at full width against the single-card step
+    cfg = dataclasses.replace(PRESETS["reference_large"], device="cpu")
+    params = model_init(cfg)                        # seed 0, on the CPU
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(0))
+    p1 = tree_map(lambda t: t.to(dev), params)
+    opt = make_optimizer()
+    st = opt.init(p1)
+    step = make_train_step(dataclasses.replace(cfg, device="cuda"), opt)
+    batch_d = {k: v.to(dev) for k, v in batch.items()}
+    # the bit-for-bit comparison runs in torch's deterministic mode on
+    # both sides: by default the backward's scatter-adds are atomic, and
+    # two runs of the single-card step differ in the grads' last bits.
+    # Deterministic cuBLAS asks for a fixed workspace
+    # (CUBLAS_WORKSPACE_CONFIG), which ranks read as they start: the timed
+    # steps run in ranks started without it, as a user's ranks would
+    saved_ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    _, _, m1 = step(p1, st, batch_d)
+    want = {k: v.copy() for k, v in flatten_params(p1).items()}
+    loss1, gn1 = float(m1["loss"]), float(m1["grad_norm"])
+    torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_TIMED_STEPS):
+        _, _, m = step(p1, st, batch_d)
+    Timer.sync(m)
+    out["single_card_ms"] = (time.perf_counter() - t0) \
+        / SHARDED_TIMED_STEPS * 1e3
+    del p1, st, batch_d
+    torch.cuda.empty_cache()
+    worlds = [(1, {"data": 1, "model": 1}, {"model": 1})]
+    if cards >= 4:
+        worlds.append((4, {"data": 2, "model": 2}, {"model": 4}))
+    with tempfile.TemporaryDirectory(prefix="phase15_") as tmp:
+        for world, shape, load_shape in worlds:
+            ck = os.path.join(tmp, f"ckpt{world}")
+            ranks = distributed.spawn(
+                checks.run_each, world, "cuda",
+                [(torch.use_deterministic_algorithms, (True,)),
+                 (sharded_train_run, (cfg, shape, batch, params)),
+                 (checks.checkpoint_run, (ck, params, shape, load_shape))])
+            run = ranks[0][1]
+            got = flatten_params(run["params"])
+            if world == 1:
+                check(run["loss"] == loss1 and run["grad_norm"] == gn1,
+                      f"sharded step, world 1: loss {run['loss']} / grad "
+                      f"norm {run['grad_norm']} against make_train_step's "
+                      f"{loss1} / {gn1}")
+                diff = [k for k in want if not np.array_equal(got[k],
+                                                              want[k])]
+                check(not diff, f"sharded step, world 1: params {diff} "
+                      f"differ from make_train_step's")
+                err = 0.0
+            else:
+                check(abs(run["loss"] - loss1) <= SHARDED_STEP_RTOL
+                      * abs(loss1) and abs(run["grad_norm"] - gn1)
+                      <= SHARDED_STEP_RTOL * abs(gn1),
+                      f"sharded step {shape}: loss {run['loss']} / grad "
+                      f"norm {run['grad_norm']} against {loss1} / {gn1}")
+                # the params where the single card's first update is
+                # well conditioned (ADAM_WELL_CONDITIONED), at the CPU
+                # tests' bound; the rest counted and reported
+                p0 = flatten_params(params)
+                well = {k: np.abs(want[k] - p0[k])
+                        >= ADAM_WELL_CONDITIONED * opt.learning_rate
+                        for k in want}
+                diff = {k: np.abs(got[k] - want[k]) for k in want}
+                err = max(float(diff[k][well[k]].max(initial=0.0))
+                          for k in want)
+                ill = sum(int((~well[k]).sum()) for k in want)
+                ill_over = sum(int((diff[k][~well[k]]
+                                    > SHARDED_PARAM_ATOL).sum())
+                               for k in want)
+                err_ill = max(float(diff[k][~well[k]].max(initial=0.0))
+                              for k in want)
+                check(err <= SHARDED_PARAM_ATOL, f"sharded step {shape}: "
+                      f"params with a well-conditioned first update differ "
+                      f"from make_train_step's by {err}")
+                n_params = sum(v.size for v in want.values())
+                ill_eps = ADAM_WELL_CONDITIONED / (1
+                                                   - ADAM_WELL_CONDITIONED)
+                print(f"sharded step {shape}: of {n_params} params, {ill} "
+                      f"have a single-card "
+                      f"first update under {ADAM_WELL_CONDITIONED} lr (a "
+                      f"clipped grad within {ill_eps:.0f} eps of zero); "
+                      f"{ill_over} "
+                      f"of them differ by more than {SHARDED_PARAM_ATOL}, "
+                      f"at most {err_ill}", flush=True)
+            whole = flatten_params(load_params_dcp(
+                ck, tree_map(torch.zeros_like, params)))
+            check(all(r[2]["equal"] for r in ranks)
+                  and all(np.array_equal(whole[k], w)
+                                       for k, w in flatten_params(
+                                           params).items()),
+                  f"sharded checkpoint {shape} -> {load_shape}: the loaded "
+                  f"params differ from the saved ones")
+            out[f"world{world}"] = dict(
+                mesh=run["mesh"], loss=run["loss"], loss_1card=loss1,
+                grad_norm=run["grad_norm"], grad_norm_1card=gn1,
+                max_param_err=err)
+            print(f"sharded train step {shape} (reference_large, float32, "
+                  f"B=256) on {card}: loss {run['loss']:.6f} (one card "
+                  f"{loss1:.6f}), grad norm {run['grad_norm']:.6f} "
+                  f"({gn1:.6f}), max |param - one card's| {err}"
+                  + (" (bit-equal)" if world == 1 else "")
+                  + f" (deterministic mode); checkpoint {shape} -> "
+                  f"{load_shape} and into one process whole: bit-equal",
+                  flush=True)
+    if saved_ws is None:
+        del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_ws
+    for world, shape, _ in worlds:
+        timed = distributed.spawn(sharded_train_run, world, "cuda", cfg,
+                                  shape, batch, params,
+                                  SHARDED_TIMED_STEPS)[0]
+        out[f"world{world}"].update(ms_per_step=timed["ms_per_step"],
+                                    peak_gb=timed["peak_bytes"] / 1e9)
+        print(f"sharded train step {shape} on {card}: "
+              f"{timed['ms_per_step']:.3f} ms a step (host clock, "
+              f"{SHARDED_TIMED_STEPS} steps after the first, between "
+              f"barriers; make_train_step {out['single_card_ms']:.3f}), "
+              f"peak {timed['peak_bytes'] / 1e9:.2f} GB a rank", flush=True)
+
+    # 15b. dryrun_multichip over every card, its launches counted
+    zero_counts()
+    dryrun_multichip(cards)
+    torch.cuda.synchronize()
+    runs["dryrun"] = read_counts()
+    for name in ("fused_prefix_decode", "traceback", "traceback_overlay",
+                 "tp_frame", "tp_scan"):
+        check(runs["dryrun"][name] > 0, f"dryrun_multichip({cards}) "
+              f"launched no {name}: {runs['dryrun']}")
+    print(f"dryrun_multichip({cards}) on {card}: OK; launches "
+          f"{ {k: v for k, v in runs['dryrun'].items() if v} }", flush=True)
+
+    # 15c. data-parallel serving across the cards (one rank a card)
+    counts = [n for n in (1, 2, 4, 8) if n <= cards]
+    rows = scaling.measure_dp_scaling(
+        dataclasses.replace(PRESETS["reference_large"], device="cuda"),
+        counts, iters=DP_ITERS, decode=True)
+    dp_total = {}
+    for r in rows:
+        for rank, launches in enumerate(r["launches"]):
+            check(launches.get("fused_prefix_decode") == r["calls"]
+                  and launches.get("traceback") == r["calls"],
+                  f"measure_dp_scaling n={r['devices']} rank {rank}: "
+                  f"launches {launches} in {r['calls']} calls (one decode "
+                  f"and one traceback a call)")
+            for k, v in launches.items():
+                dp_total[k] = dp_total.get(k, 0) + v
+    runs["dp_scaling"] = {k: dp_total.get(k, 0) for k in runs["dryrun"]}
+    out["dp_scaling"] = [{k: r[k] for k in ("devices", "global_batch",
+                                            "iter_s", "audio_s_per_s",
+                                            "efficiency")} for r in rows]
+    print(f"measure_dp_scaling reference_large (B=256 a card, forward + "
+          f"decode, {DP_ITERS} calls) on {card}: " + "; ".join(
+              f"{r['devices']} card(s) {r['iter_s'] * 1e3:.3f} ms, "
+              f"{r['audio_s_per_s']:.1f} audio-s/s, efficiency "
+              f"{r['efficiency']:.4f}" for r in rows), flush=True)
+
+    # 15d. tp_scan with its shards on separate cards
+    if cards >= 2:
+        rng = np.random.default_rng(15)
+        z = rng.standard_normal((200, 256, 47)).astype(np.float32)
+        lp = torch.from_numpy(z - np.log(np.exp(z).sum(-1, keepdims=True))
+                              ).to(dev)
+        init = fused_decode.pack_state(_init_beam(256, 100, dev))
+        n = min(4, cards)
+        spread = [torch.device("cuda", i) for i in range(n)]
+        fins1, ys1 = fused_decode.tp_scan(lp, init, [dev] * n)
+        fins2, ys2 = fused_decode.tp_scan(lp, init, spread)
+        for d in spread:
+            torch.cuda.synchronize(d)
+        check(torch.equal(ys1, ys2) and torch.equal(fins1, fins2),
+              f"tp_scan with {n} shards on {n} cards differs from all on "
+              f"one card")
+
+        def host_ms(devices, iters=3):
+            fused_decode.tp_scan(lp, init, devices)
+            for d in spread:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fused_decode.tp_scan(lp, init, devices)
+            for d in spread:
+                torch.cuda.synchronize(d)
+            return (time.perf_counter() - t0) / iters * 1e3
+
+        ms = {"one card": [], "separate cards": []}
+        for key in ("one card", "separate cards", "separate cards",
+                    "one card"):                  # in turns
+            ms[key].append(host_ms([dev] * n if key == "one card"
+                                   else spread))
+        out["tp_scan_cards"] = {k: min(v) for k, v in ms.items()}
+        report["tp_scan"][f"ms_n{n}_by_cards"] = out["tp_scan_cards"]
+        print(f"tp_scan T=200 B=256 V=47 W=100 n={n} on {card}: shards on "
+              f"one card {out['tp_scan_cards']['one card']:.4f} ms, on {n} "
+              f"cards {out['tp_scan_cards']['separate cards']:.4f} ms (host "
+              f"clock around 3 calls and every card's fence, best of 2 "
+              f"turns); equal results", flush=True)
+    return out, runs
+
+
 def cuda_events_ms(fn, iters=10, warmup=1):
     """Mean ms of `iters` calls between two CUDA events, after warm-up."""
     import torch
@@ -504,12 +783,12 @@ def main() -> int:
     from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
     from gasr_tpu_torch.ops.attention import _rel_shift, _sinusoid_pos
     from gasr_tpu_torch.ops.conv import conv2d
-    from gasr_tpu_torch.ops.cuda import (_lib, exchange_probe, flash_mhsa,
-                                         fused_decode, lstm_scan, rnn_scan,
-                                         stem, topk)
+    from gasr_tpu_torch.ops.cuda import (COUNTERS, _lib, exchange_probe,
+                                         flash_mhsa, fused_decode, lstm_scan,
+                                         rnn_scan, stem, topk)
     from gasr_tpu_torch.ops.linear import linear
     from gasr_tpu_torch.ops.lstm import _input_projection
-    from gasr_tpu_torch.parallel import decode_tp, make_mesh
+    from gasr_tpu_torch.parallel import decode_tp, distributed, make_mesh
     from scripts.torch_decode_probe import (frame_counts, load_build,
                                             start_count_build)
 
@@ -550,20 +829,9 @@ def main() -> int:
         return start.elapsed_time(end) / iters
 
     # every kernel's launch counter: (module, attribute)
-    counters = {"topk": (topk, "launches"),
-                "fused_prefix_decode": (fused_decode, "decode_launches"),
-                # the decode launches of its shallow-fusion instantiation
-                "fused_prefix_decode_lm": (fused_decode,
-                                           "decode_lm_launches"),
-                "traceback": (fused_decode, "traceback_launches"),
-                "traceback_overlay": (fused_decode, "overlay_launches"),
-                "rnn_scan": (rnn_scan, "launches"),
-                "flash_mhsa_rel": (flash_mhsa, "launches"),
-                "fused_stem": (stem, "launches"),
-                "lstm_scan": (lstm_scan, "launches"),
-                "tp_frame": (fused_decode, "tp_frame_launches"),
-                "tp_scan": (fused_decode, "tp_scan_launches"),
-                "toy_exchange": (exchange_probe, "toy_exchange_launches")}
+    counters = {name: (importlib.import_module(
+                    f"gasr_tpu_torch.ops.cuda.{mod}"), attr)
+                for name, (mod, attr) in COUNTERS.items()}
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -2602,6 +2870,12 @@ def main() -> int:
     report["fused_stem"]["training"] = dict(
         train_report["stem_backward"], grads_bit_equal_to_recompute=True)
 
+    # ---- 15. multi-card training and the graft entries
+    torch.cuda.empty_cache()
+    par_report, par_runs = parallel_phase(card, zero_counts, read_counts,
+                                          report)
+    train_runs.update(par_runs)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -2702,8 +2976,14 @@ def main() -> int:
               f"{100 * r['mfu']:.2f}%, peak {r['peak_gb']:.2f} GB, split "
               f"{ {k: round(v, 3) for k, v in r['split_ms'].items()} } ms on "
               f"{card}")
+    # every process the phases started (nvcc, the bench's subprocesses,
+    # the ranks) has ended: none outlives the script
+    card_end = card_line()
+    kids = distributed.live_children()
+    check(not kids, f"processes started here still run: {kids}")
+    print(json.dumps({"parallel": par_report}))
     print(json.dumps({"kernels": kernels}))
-    print(f"card: {card_line()}")
+    print(f"card: {card_end}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,9 +19,11 @@ from typing import Optional
 import torch
 
 from gasr_tpu_torch.config import Config
-from gasr_tpu_torch.ops.linear import linear, linear_init
+from gasr_tpu_torch.ops.linear import linear, linear_init, matmul
 from gasr_tpu_torch.ops.rnn import (rnn_forward, rnn_forward_streaming,
-                                    rnn_init)
+                                    rnn_forward_tp, rnn_init)
+from gasr_tpu_torch.parallel.collectives import (all_gather, all_reduce,
+                                                 copy_to_group)
 
 
 def deepspeech_init(generator: torch.Generator, config: Config,
@@ -58,6 +60,35 @@ def deepspeech_apply(params: dict, x: torch.Tensor, *,
     logits = linear(params["mlp6"], h, None, compute_dtype)
     if compat_final_relu:
         return torch.relu(logits)
+    return torch.log_softmax(logits, dim=-1)
+
+
+def deepspeech_apply_tp(params: dict, x: torch.Tensor,
+                        group) -> torch.Tensor:
+    """`deepspeech_apply` (float32, rnn_impl="scan") on a tensor-parallel
+    group: `params` holds this rank's shards per
+    `parallel/sharding.py::deepspeech_param_specs`, and x [B, T, feat] and
+    the log-probs [T, B, vocab+1] are whole on every rank of `group`.
+
+    mlp1-3 are column parallel, each output all-gathered; the RNN splits
+    H (`ops/rnn.py::rnn_forward_tp`); mlp5 is row parallel: this rank's
+    partial product, summed over the group, then the bias and ReLU; mlp6
+    and the log-softmax are replicated. The collectives' backwards are
+    `parallel/collectives.py`'s. With one rank every product, sum and
+    layout is `deepspeech_apply`'s."""
+    n = torch.distributed.get_world_size(group)
+    rank = torch.distributed.get_rank(group)
+
+    def gather(h):
+        return all_gather(h, group, dim=-1)
+
+    h = copy_to_group(x.transpose(0, 1), group)
+    for name in ("mlp1", "mlp2", "mlp3"):
+        h = gather(linear(params[name], h, "relu"))
+    h = rnn_forward_tp(params["rnn"], h, gather, rank, n)
+    h = torch.relu(all_reduce(matmul(h, params["mlp5"]["w"]), group)
+                   + params["mlp5"]["b"])
+    logits = linear(params["mlp6"], h, None)
     return torch.log_softmax(logits, dim=-1)
 
 

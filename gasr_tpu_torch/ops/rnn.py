@@ -26,7 +26,7 @@ backward clones the whole output each step.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -80,16 +80,20 @@ def _input_projection(cell: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _scan_one_direction(cell: dict, x: torch.Tensor, h0: torch.Tensor,
-                        reverse: bool = False, return_final: bool = False):
+                        reverse: bool = False, return_final: bool = False,
+                        gather: Optional[Callable] = None):
     """One layer and direction: [T, B, in] -> [T, B, H] (and the last
-    hidden state [B, H] with return_final)."""
+    hidden state [B, H] with return_final). With `gather`, the cell holds
+    one rank's columns of H (`rnn_forward_tp`): each step gathers the
+    ranks' h into the whole h before the product."""
     xw = _input_projection(cell, x)
     w_hh = cell["w_hh"]
     h = h0
     T = xw.shape[0]
     hs = []
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        h = torch.tanh(xw[t] + torch.matmul(h, w_hh))
+        h = torch.tanh(xw[t] + torch.matmul(
+            h if gather is None else gather(h), w_hh))
         hs.append(h)
     out = torch.stack(hs[::-1] if reverse else hs)
     if return_final:
@@ -154,6 +158,37 @@ def rnn_forward(params: dict, x: torch.Tensor,
         else:
             out = _scan_one_direction(cell, out, h_init)
     return out
+
+
+def rnn_forward_tp(params: dict, x: torch.Tensor, gather: Callable,
+                   rank: int, n: int) -> torch.Tensor:
+    """`rnn_forward(impl="scan")` with every cell's H split over n ranks
+    (`parallel/sharding.py::deepspeech_param_specs`: w_ih, w_hh and the
+    biases hold this rank's columns).
+
+    x: [T, B, input_size], whole on every rank. `gather(h)` concatenates
+    the ranks' [..., H/n] along the last dim, in rank order. Each step
+    gathers h (T gathers of [B, H/n] a layer and direction), and a layer's
+    whole output is gathered once as the next layer's input. Returns this
+    rank's slice of the top layer's history [T, B, H * n_dir] along the
+    last dim, the rows of a row-parallel weight that this rank holds: its
+    own columns when unidirectional, a slice of the gathered [forward,
+    reverse] history when bidirectional."""
+    layers_rev = params.get("layers_rev")
+    B = x.shape[1]
+    h_init = torch.zeros(B, params["layers"][0]["w_hh"].shape[1],
+                         dtype=x.dtype, device=x.device)
+    out = x
+    for l, cell in enumerate(params["layers"]):
+        local = [_scan_one_direction(cell, out, h_init, gather=gather)]
+        if layers_rev is not None:
+            local.append(_scan_one_direction(layers_rev[l], out, h_init,
+                                             reverse=True, gather=gather))
+        if l == len(params["layers"]) - 1 and layers_rev is None:
+            return local[0]
+        out = torch.cat([gather(o) for o in local], dim=-1)
+    size = out.shape[-1] // n
+    return out.narrow(-1, rank * size, size)
 
 
 def rnn_forward_streaming(params: dict, x: torch.Tensor,

@@ -47,6 +47,27 @@ def _all_cards():
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def mesh_sizes(mesh_shape: Optional[Dict[str, int]],
+               n_devices: int) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """`make_mesh`'s sizing rule: (axis names, sizes) of `mesh_shape` over
+    `n_devices`. Empty/None -> all devices on 'data'; -1 for one axis
+    fills it with the remaining devices; more devices than there are
+    raises."""
+    if not mesh_shape:
+        mesh_shape = {"data": n_devices}
+    names = list(mesh_shape.keys())
+    sizes = list(mesh_shape.values())
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        sizes[sizes.index(-1)] = n_devices // known
+    total = int(np.prod(sizes))
+    if total > n_devices:
+        raise ValueError(
+            f"mesh {dict(zip(names, sizes))} needs {total} devices, "
+            f"have {n_devices}")
+    return tuple(names), tuple(sizes)
+
+
 def make_mesh(mesh_shape: Optional[Dict[str, int]] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """Build a Mesh from {axis: size}. Empty/None -> all devices on 'data'.
@@ -57,18 +78,8 @@ def make_mesh(mesh_shape: Optional[Dict[str, int]] = None,
     """
     devices = [torch.device(d) for d in
                (devices if devices is not None else _all_cards())]
-    if not mesh_shape:
-        mesh_shape = {"data": len(devices)}
-    names = list(mesh_shape.keys())
-    sizes = list(mesh_shape.values())
-    if -1 in sizes:
-        known = int(np.prod([s for s in sizes if s != -1]))
-        sizes[sizes.index(-1)] = len(devices) // known
+    names, sizes = mesh_sizes(mesh_shape, len(devices))
     total = int(np.prod(sizes))
-    if total > len(devices):
-        raise ValueError(
-            f"mesh {dict(zip(names, sizes))} needs {total} devices, "
-            f"have {len(devices)}")
     grid = np.empty(total, dtype=object)
     grid[:] = devices[:total]
     return Mesh(grid.reshape(sizes), axis_names=tuple(names))

@@ -11,8 +11,10 @@ transposes nothing.
 The flat key scheme is the JAX package's `save_params` npz: nested keys
 joined with "/", list indices as decimal path parts
 (`mlp1/w`, `rnn/layers/0/w_hh`), so that each framework reads the
-other's files. The JAX package's Orbax path is a JAX library and has no
-port.
+other's files. The JAX package's Orbax path (`save_params_orbax` /
+`load_params_orbax`, each host writing its shards) becomes
+`save_params_dcp` / `load_params_dcp` on `torch.distributed.checkpoint`,
+under the same keys.
 """
 
 from __future__ import annotations
@@ -23,21 +25,28 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from gasr_tpu_torch.runtime._tree import tree_map
+
+
+def flat_leaves(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict/list -> {"a/b/0/c": leaf}, the leaves as they are."""
+    flat: Dict[str, Any] = {}
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            flat.update(flat_leaves(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            flat.update(flat_leaves(v, f"{prefix}{i}/"))
+    else:
+        flat[prefix[:-1]] = tree
+    return flat
+
 
 def flatten_params(params: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested dict/list of tensors or arrays -> {"a/b/0/c": ndarray}."""
-    flat: Dict[str, np.ndarray] = {}
-    if isinstance(params, Mapping):
-        for k, v in params.items():
-            flat.update(flatten_params(v, f"{prefix}{k}/"))
-    elif isinstance(params, (list, tuple)):
-        for i, v in enumerate(params):
-            flat.update(flatten_params(v, f"{prefix}{i}/"))
-    elif isinstance(params, torch.Tensor):
-        flat[prefix[:-1]] = params.detach().cpu().numpy()
-    else:
-        flat[prefix[:-1]] = np.asarray(params)
-    return flat
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+            for k, v in flat_leaves(params, prefix).items()}
 
 
 def unflatten_params(flat: Mapping[str, Any]) -> Any:
@@ -81,19 +90,83 @@ def load_params(path: str, like: Any) -> Any:
     with np.load(path) as data:
         flat = dict(data)
 
-    def rebuild(template: Any, prefix: str = "") -> Any:
-        if isinstance(template, Mapping):
-            return {k: rebuild(v, f"{prefix}{k}/")
-                    for k, v in template.items()}
-        if isinstance(template, (list, tuple)):
-            out = [rebuild(v, f"{prefix}{i}/")
-                   for i, v in enumerate(template)]
-            return tuple(out) if isinstance(template, tuple) else out
+    def leaf(arr, template):
         dev = (template.device if isinstance(template, torch.Tensor)
                else torch.device("cpu"))
-        return torch.from_numpy(np.array(flat[prefix[:-1]])).to(dev)
+        return torch.from_numpy(np.array(arr)).to(dev)
 
-    return rebuild(like)
+    return tree_map(leaf, unflatten_like(like, flat), like)
+
+
+# ---------------- sharded checkpoints (torch.distributed.checkpoint) ------
+
+# torch.distributed.checkpoint and DTensor are imported where the sharded
+# functions run: importing them costs about a second, which every user of
+# the npz functions would pay
+
+def _placements(spec, mesh):
+    from torch.distributed.tensor import Replicate, Shard
+    dims = {axis: d for d, axis in enumerate(spec) if axis is not None}
+    return [Shard(dims[name]) if name in dims else Replicate()
+            for name in mesh.mesh_dim_names]
+
+
+def _dtensors(params: Any, specs: Any, mesh) -> Dict[str, Any]:
+    from torch.distributed.tensor import DTensor
+    # each rank's shard goes in as its part of one global tensor (DCP
+    # takes a plain tensor as replicated: the ranks' shards would
+    # overwrite one another under one key)
+    return flat_leaves(tree_map(
+        lambda t, s: DTensor.from_local(t.detach(), mesh,
+                                        _placements(s, mesh),
+                                        run_check=False), params, specs))
+
+
+def save_params_dcp(path: str, params: Any, specs: Any, mesh) -> None:
+    """The sharded checkpoint, the counterpart of the JAX package's
+    `save_params_orbax`: every rank of `mesh` (a DeviceMesh) calls it with
+    its shards of `params` per `specs` (`parallel/sharding.py`), and each
+    writes its part into the directory `path` with
+    `torch.distributed.checkpoint`; replicated leaves are written once.
+    The keys are `save_params`' ("mlp1/w", "rnn/layers/0/w_hh")."""
+    import torch.distributed.checkpoint as dcp
+    dcp.save(_dtensors(params, specs, mesh),
+             checkpoint_id=os.path.abspath(path))
+
+
+def load_params_dcp(path: str, like: Any, specs: Any = None,
+                    mesh=None) -> Any:
+    """Read a `save_params_dcp` directory into the structure of `like`,
+    the counterpart of `load_params_orbax`. With `mesh` and `specs`, every
+    rank of `mesh` calls it with `like` holding its shards of the layout
+    it wants, and gets its shards back: the mesh may differ from the one
+    that saved (DCP re-shards). Without them, in one process with no
+    process group, `like` holds whole tensors and so does the result.
+    Leaves keep `like`'s devices and dtypes."""
+    import torch.distributed.checkpoint as dcp
+    if mesh is None:
+        state = {k: v.detach().clone() for k, v in flat_leaves(like).items()}
+        dcp.load(state, checkpoint_id=os.path.abspath(path), no_dist=True)
+        out = state
+    else:
+        state = _dtensors(tree_map(lambda t: t.detach().clone(), like),
+                          specs, mesh)
+        dcp.load(state, checkpoint_id=os.path.abspath(path))
+        out = {k: v.to_local() for k, v in state.items()}
+    return unflatten_like(like, out)
+
+
+def unflatten_like(like: Any, flat: Mapping[str, Any], prefix: str = ""):
+    """The leaves of `flat` (keys as `flat_leaves` makes them) in the
+    structure of `like`."""
+    if isinstance(like, Mapping):
+        return {k: unflatten_like(v, flat, f"{prefix}{k}/")
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        out = [unflatten_like(v, flat, f"{prefix}{i}/")
+               for i, v in enumerate(like)]
+        return tuple(out) if isinstance(like, tuple) else out
+    return flat[prefix[:-1]]
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:

@@ -15,12 +15,16 @@ The step is in place: AdamW updates the parameter tensors that
 `Optimizer.init` registered (the JAX step returns new arrays and donates
 the old ones), and it returns its metrics as tensors without waiting for
 the device; the caller synchronises (`Timer.sync`) when it reads them.
-`make_sharded_train_step` (data / tensor parallel) is not ported yet.
+
+`make_sharded_train_step` is the data- and tensor-parallel step of the
+deepspeech family, one process per card (`parallel/distributed.py`):
+each rank holds its shards of the params and its share of the batch.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -30,8 +34,13 @@ from gasr_tpu_torch.config import Config, resolve_device
 from gasr_tpu_torch.data.augment import spec_augment
 from gasr_tpu_torch.models import model_apply, model_init
 from gasr_tpu_torch.models.conformer import _dtype
+from gasr_tpu_torch.models.deepspeech import deepspeech_apply_tp
 from gasr_tpu_torch.ops.ctc_loss import ctc_loss
-from gasr_tpu_torch.runtime._tree import tensors
+from gasr_tpu_torch.parallel.distributed import global_mesh, rank_device
+from gasr_tpu_torch.parallel.sharding import (
+    batch_specs, deepspeech_param_specs, gather_tree, shard_tree)
+from gasr_tpu_torch.runtime._tree import leaves, tensors, tree_map
+from gasr_tpu_torch.runtime.timer import Timer
 
 
 class Optimizer:
@@ -59,19 +68,36 @@ class Optimizer:
                                  weight_decay=self.weight_decay)
 
     @staticmethod
-    def update(opt_state: torch.optim.AdamW, grads) -> torch.Tensor:
-        """Clip `grads` (in the order of the state's parameters) and take
-        one AdamW step in place; returns the unclipped grads' global norm
-        (no host sync)."""
+    def update(opt_state: torch.optim.AdamW, grads,
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Clip `grads` (in the order of the state's parameters) by their
+        global norm (`global_norm(grads)` unless `g_norm` is given) and
+        take one AdamW step in place; returns the unclipped grads' global
+        norm (no host sync)."""
         grads = list(grads)
-        # optax.global_norm: the 2-norm of every element together
-        g_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+        if g_norm is None:
+            g_norm = global_norm(grads)
         torch._foreach_div_(grads, torch.clamp(g_norm, min=1.0))
         for p, g in zip(opt_state.param_groups[0]["params"], grads):
             p.grad = g
         opt_state.step()
         opt_state.zero_grad(set_to_none=True)
         return g_norm
+
+
+def global_norm(grads, sharded=None, group=None) -> torch.Tensor:
+    """optax.global_norm, the 2-norm of every element together, as the
+    square root of the sum of the leaves' squared norms. With `group`,
+    the leaves flagged in `sharded` are this rank's shards of a leaf split
+    over the group: their squares are summed over its ranks, and every
+    other leaf (replicated) counts once."""
+    sq = torch.stack(torch._foreach_norm(grads)) ** 2
+    if group is not None:
+        whole = sq.clone()
+        torch.distributed.all_reduce(whole, group=group)
+        mask = torch.tensor(sharded, device=sq.device)
+        sq = torch.where(mask, whole, sq)
+    return sq.sum().sqrt()
 
 
 def make_optimizer(learning_rate: float = 3e-4,
@@ -160,6 +186,117 @@ def make_train_step(config: Config, optimizer: Optimizer,
     return train_step
 
 
+def make_sharded_train_step(config: Config, mesh, optimizer=None,
+                            params: Any = None):
+    """The data- and tensor-parallel step, the port of JAX's
+    `make_sharded_train_step`: returns (step, this rank's params,
+    opt_state). Every rank of `mesh` (a DeviceMesh with axes "data" and
+    "model", `parallel.distributed.global_mesh`) calls it alike.
+
+    `params` is the whole params tree, alike on every rank (e.g. from
+    `runtime.checkpoint.params_from_jax`); by default `model_init` from
+    config.seed, drawn on the CPU and so alike everywhere (JAX draws them
+    inside from `PRNGKey(config.seed)`). Each rank keeps its shards per
+    `deepspeech_param_specs`, so the step serves the deepspeech family
+    only, as JAX's does.
+
+    step(params, opt_state, batch, mark=None) -> (params, opt_state,
+    {"loss", "grad_norm"}), params updated in place and the metrics 0-d
+    tensors not waited for; `mark`, where given, is called with each
+    phase's name as it ends: "forward", "ctc", "backward", "allreduce"
+    (the grads' all-reduce over "data"), "optimizer". `batch` is this
+    rank's share
+    (`shard_tree(batch, batch_specs(), mesh)`). The forward is
+    `deepspeech_apply_tp` over "model" (float32, rnn_impl "scan"); the
+    loss is the mean over the "data" ranks of their batch means (equal
+    shares: the global batch's mean), and every grad is averaged over
+    "data" with it in one all-reduce. The global norm counts each sharded
+    leaf's squares over "model" and each replicated leaf once; the clip
+    and AdamW then run on the shards."""
+    if config.model != "deepspeech":
+        raise ValueError("make_sharded_train_step shards the deepspeech "
+                         f"family only, got model={config.model!r}")
+    optimizer = optimizer or make_optimizer()
+    if params is None:
+        params = model_init(config, torch.Generator().manual_seed(
+            config.seed), device="cpu")
+    specs = deepspeech_param_specs(params)
+    local = shard_tree(params, specs, mesh)
+    opt_state = optimizer.init(local)
+    sharded = list(leaves(tree_map(lambda p, s: s.sharded, local, specs)))
+    tp, dp = mesh.get_group("model"), mesh.get_group("data")
+    n_dp = torch.distributed.get_world_size(dp)
+
+    def step(params, opt_state, batch, mark=None):
+        mark = mark or (lambda phase: None)
+        leaves_ = opt_state.param_groups[0]["params"]
+        with torch.enable_grad():
+            log_probs = deepspeech_apply_tp(params, batch["inputs"], tp)
+            mark("forward")
+            loss = batch_loss(log_probs, batch, config.blank_id)
+            mark("ctc")
+            grads = torch.autograd.grad(loss, leaves_, materialize_grads=True)
+            mark("backward")
+        flat = torch.cat([loss.detach().reshape(1)]
+                         + [g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=dp)
+        flat /= n_dp
+        mark("allreduce")
+        parts = flat[1:].split([g.numel() for g in grads])
+        grads = [part.view_as(g) for part, g in zip(parts, grads)]
+        g_norm = optimizer.update(opt_state, grads,
+                                  global_norm(grads, sharded, tp))
+        mark("optimizer")
+        return params, opt_state, {"loss": flat[0], "grad_norm": g_norm}
+
+    return step, local, opt_state
+
+
+def sharded_train_run(config: Config, mesh_shape: Dict[str, int],
+                      batch: Dict[str, torch.Tensor], params: Any = None,
+                      timed_steps: int = 0) -> Dict[str, Any]:
+    """One rank's side of a sharded training run, for
+    `parallel.distributed.spawn(sharded_train_run, world, device, ...)`:
+    the global mesh of `mesh_shape`, `make_sharded_train_step` from
+    `params` (default: config.seed), one step on this rank's share of the
+    whole `batch`, then `timed_steps` more, timed between barriers.
+
+    Returns {"loss", "grad_norm"} of the first step (floats), "params"
+    (after the first step, whole, on the CPU; rank 0 only, else None),
+    "ms_per_step" (host clock over the timed steps and a device fence;
+    None without them), "peak_bytes" (the rank's peak device memory on a
+    card, else None), "mesh"."""
+    mesh = global_mesh(mesh_shape)
+    dev = rank_device()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    step, local, opt_state = make_sharded_train_step(config, mesh,
+                                                     params=params)
+    local_batch = shard_tree(batch, batch_specs(), mesh)
+    local, opt_state, m = step(local, opt_state, local_batch)
+    out: Dict[str, Any] = {"loss": float(m["loss"]),
+                           "grad_norm": float(m["grad_norm"]),
+                           "mesh": dict(zip(mesh.mesh_dim_names,
+                                            mesh.mesh.shape))}
+    whole = gather_tree(tree_map(lambda t: t.detach(), local),
+                        deepspeech_param_specs(local), mesh)
+    out["params"] = (tree_map(lambda t: t.to("cpu", copy=True), whole)
+                     if torch.distributed.get_rank() == 0 else None)
+    del whole
+    out["ms_per_step"] = None
+    if timed_steps:
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            local, opt_state, m = step(local, opt_state, local_batch)
+        Timer.sync(m)
+        torch.distributed.barrier()
+        out["ms_per_step"] = (time.perf_counter() - t0) / timed_steps * 1e3
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    return out
+
+
 def synthetic_batch(config: Config, generator: torch.Generator,
                     max_label_len: int = 20) -> Dict[str, torch.Tensor]:
     """A random batch in the training schema (the JAX package's
@@ -190,7 +327,6 @@ def train_loop(config: Config, num_steps: int = 20,
     JAX package's key scheme); the optimizer state starts anew on resume,
     as in the JAX package. Returns (params, the losses logged)."""
     from gasr_tpu_torch.runtime.checkpoint import load_params, save_params
-    from gasr_tpu_torch.runtime.timer import Timer
 
     optimizer = make_optimizer()
     params = model_init(config, torch.Generator().manual_seed(config.seed))

@@ -1342,3 +1342,52 @@ def test_conformer_train_step_takes_the_kernels(dev):
               for _ in range(4)]
     assert flash_mhsa.launches == f0 + 8 and stem.launches == s0 + 4
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ------------------------------------------------------- several cards
+
+def test_sharded_train_step_with_ranks_on_several_cards(dev):
+    # {"data": 2, "model": 2} over NCCL, one rank a card, against the
+    # single-card step from the same params and batch (the CPU tests'
+    # tolerances, tests/test_torch_parallel.py)
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four or more CUDA cards")
+    from gasr_tpu_torch.config import Config
+    from gasr_tpu_torch.parallel.distributed import spawn
+    from gasr_tpu_torch.runtime._tree import tree_map
+    from gasr_tpu_torch.runtime.checkpoint import flatten_params
+    from gasr_tpu_torch.train import (make_optimizer, make_train_step,
+                                      sharded_train_run, synthetic_batch)
+    cfg = Config(batch_size=8, input_size=6, n_context=1, linear_size=64,
+                 rnn_hidden_size=64, vocab_size=9, seg_len=20, device="cpu")
+    params = model_init(cfg)
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1),
+                            max_label_len=4)
+    run = spawn(sharded_train_run, 4, "cuda", cfg, {"data": 2, "model": 2},
+                batch, params)[0]
+    p1 = tree_map(lambda t: t.to(dev), params)
+    opt = make_optimizer()
+    _, _, m = make_train_step(dataclasses.replace(cfg, device="cuda"), opt)(
+        p1, opt.init(p1), {k: v.to(dev) for k, v in batch.items()})
+    np.testing.assert_allclose(run["loss"], float(m["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(run["grad_norm"], float(m["grad_norm"]),
+                               rtol=1e-5)
+    want = flatten_params(p1)
+    for k, v in flatten_params(run["params"]).items():
+        np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_dryrun_and_dp_scaling_on_several_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from gasr_tpu_torch.graft_entry import dryrun_multichip
+    from gasr_tpu_torch.parallel.scaling import measure_dp_scaling
+    dryrun_multichip(torch.cuda.device_count())
+    cfg = dataclasses.replace(PRESETS["reference_large"], batch_size=16,
+                              rnn_hidden_size=256, linear_size=256)
+    rows = measure_dp_scaling(cfg, [1, 2], iters=2, decode=True)
+    assert [r["devices"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["launches"] == [{"fused_prefix_decode": 2,
+                                  "traceback": 2}] * r["devices"]

@@ -225,7 +225,8 @@ bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
 # the audio front end, the native library, evaluation and the LM tables;
 # the meshes, the vocab-sharded decode and the exchange probe; the bench,
 # the reference harness shim, the runtime modules and the utilities;
-# training, its CTC loss and SpecAugment
+# training, its CTC loss and SpecAugment; the multi-process modules, the
+# sharded checkpoints, the graft entries and the NumPy oracles
 missing = sorted({"gasr_tpu_torch.data", "gasr_tpu_torch.data.dataset",
                   "gasr_tpu_torch.data.features", "gasr_tpu_torch.native",
                   "gasr_tpu_torch.eval", "gasr_tpu_torch.decoder.lm",
@@ -240,10 +241,17 @@ missing = sorted({"gasr_tpu_torch.data", "gasr_tpu_torch.data.dataset",
                   "gasr_tpu_torch.runtime.validation",
                   "gasr_tpu_torch.runtime.checkpoint",
                   "gasr_tpu_torch.train", "gasr_tpu_torch.ops.ctc_loss",
-                  "gasr_tpu_torch.data.augment"}
+                  "gasr_tpu_torch.data.augment",
+                  "gasr_tpu_torch.parallel.distributed",
+                  "gasr_tpu_torch.parallel.sharding",
+                  "gasr_tpu_torch.parallel.collectives",
+                  "gasr_tpu_torch.parallel.checks",
+                  "gasr_tpu_torch.parallel.scaling",
+                  "gasr_tpu_torch.graft_entry",
+                  "gasr_tpu_torch.decoder.numpy_oracle"}
                  - set(names))
 print(len(names), "modules;", "bad:", bad, "missing:", missing)
-sys.exit(1 if bad or missing or len(names) < 48 else 0)
+sys.exit(1 if bad or missing or len(names) < 55 else 0)
 """
 
 
