@@ -36,14 +36,17 @@ card's log-mel held to the native one, and `eval.evaluate_batch` with a
 bigram table; and the vocab-sharded (tensor-parallel) decode on meshes
 whose shards all sit on the one card (phase 11): `tp_frame` against its
 plain version on every shard (the flagship decode shape at n = 4 and 1,
-conformer_l's at n = 2 and 4), `tp_scan` at n = 1, 2, 4 against
-`fused_prefix_decode` (and its plain version at T=40), the exchange toy at
-n = 2, 4, 8 against its numpy oracle, `ctc_beam_search_tp` on the
-reference_large log-probs with {"model": 4} ("fused": 1 tp_scan launch,
-"fused_frame": 800 tp_frame launches, "xla" on 40 frames) and on
-conformer_l's log-probs with its {"data": 2, "model": 4} mesh, each equal
-to the single-card decode, and `streaming_step_tp` in 10 chunks of 20
-frames equal to the TP batch decode; the shapes past the earlier
+conformer_l's at n = 2 and 4), `tp_scan` in its cluster and push designs
+at n = 1, 2, 4, 8 (flagship) and 2, 4, 8 (conformer_l) against
+`fused_prefix_decode` and its plain version at T=40, timed beside row 2,
+the exchange toy at n = 2, 4, 8 in both transports against its numpy
+oracle, `ctc_beam_search_tp` on the reference_large log-probs with
+{"model": 4} ("fused": 1 tp_scan launch, "fused_frame": 201 tp_frame
+launches and, by torch.profiler, no other device kernel between the
+first and the last; "xla" on 40 frames) and on conformer_l's log-probs
+with its {"data": 2, "model": 4} mesh, each equal to the single-card
+decode, and `streaming_step_tp` in 10 chunks of 20 frames equal to the TP
+batch decode; the shapes past the earlier
 kernels' limits (phase 12): the streamed Elman design, the stem at wide
 F, the traceback at more shapes, and bidirectional LSTM layers past the
 resident limit ((B, H, T) = (32, 1024, 300), (8, 1536, 200), (256, 2048,
@@ -72,8 +75,10 @@ also {"data": 2, "model": 2} within the CPU tests' tolerance), ms a step
 and peak memory, a sharded checkpoint round trip, `dryrun_multichip` over
 every card (tp_frame, tp_scan, traceback, traceback_overlay launched by
 its decode checks), `measure_dp_scaling` of reference_large with each
-rank's launches, and with 2 or more cards `tp_scan` with its shards on
-separate cards.
+rank's launches, and with 2 or more cards the vocab-sharded decode with
+one shard a card (`tp_scan`'s push design and the "fused_frame" loop,
+beside all shards on one card) and the exchange toy's push transport
+across the cards.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -516,9 +521,10 @@ def parallel_phase(card, zero_counts, read_counts, report):
     tp_scan, traceback, traceback_overlay and the decode, as its decode
     checks run them); `measure_dp_scaling` of reference_large over 1, 2,
     4 ... cards with each rank's launches (one decode and one traceback a
-    call); with 2 or more cards, `tp_scan` at the flagship decode shape
-    with its shards on separate cards beside all on one card. Returns
-    (report, launches by run)."""
+    call); with 2 or more cards, at the flagship decode shape, `tp_scan`
+    and the "fused_frame" loop with one shard a card beside all shards on
+    one card, and the exchange toy across the cards. Returns (report,
+    launches by run)."""
     import tempfile
     import torch
     from gasr_tpu_torch.config import PRESETS
@@ -701,8 +707,12 @@ def parallel_phase(card, zero_counts, read_counts, report):
               f"{r['audio_s_per_s']:.1f} audio-s/s, efficiency "
               f"{r['efficiency']:.4f}" for r in rows), flush=True)
 
-    # 15d. tp_scan with its shards on separate cards
+    # 15d. the vocab-sharded decode with one shard a card: tp_scan's push
+    # design beside all shards on one card (both designs), the
+    # "fused_frame" loop across the cards, and the exchange toy's push
+    # transport across the cards; each bit-equal to one card's
     if cards >= 2:
+        from gasr_tpu_torch.ops.cuda import exchange_probe
         rng = np.random.default_rng(15)
         z = rng.standard_normal((200, 256, 47)).astype(np.float32)
         lp = torch.from_numpy(z - np.log(np.exp(z).sum(-1, keepdims=True))
@@ -710,38 +720,129 @@ def parallel_phase(card, zero_counts, read_counts, report):
         init = fused_decode.pack_state(_init_beam(256, 100, dev))
         n = min(4, cards)
         spread = [torch.device("cuda", i) for i in range(n)]
-        fins1, ys1 = fused_decode.tp_scan(lp, init, [dev] * n)
-        fins2, ys2 = fused_decode.tp_scan(lp, init, spread)
+        fins0, ys0 = fused_decode.tp_scan(lp, init, [dev] * n,
+                                          design="cluster")
+        runs15 = {
+            "one card, cluster": lambda: fused_decode.tp_scan(
+                lp, init, [dev] * n, design="cluster"),
+            "one card, push": lambda: fused_decode.tp_scan(
+                lp, init, [dev] * n, design="push"),
+            f"{n} cards, push": lambda: fused_decode.tp_scan(lp, init,
+                                                            spread),
+            f"'fused_frame' {n} cards": lambda: fused_decode.tp_frames(
+                lp, init, spread),
+            "'fused_frame' one card": lambda: fused_decode.tp_frames(
+                lp, init, [dev] * n)}
+        for key, fn in runs15.items():
+            got = fn()
+            for d in spread:
+                torch.cuda.synchronize(d)
+            fins_ = [got[0]] if "fused_frame" in key else list(got[0])
+            check(torch.equal(got[1], ys0) and all(
+                torch.equal(f_, fins0[0]) for f_ in fins_),
+                  f"TP decode {key} (n={n}) differs from all on one card")
+        keys_t = np.sort(rng.integers(-1000, 1000, (n, 6, 256, 128)),
+                         axis=-1)[..., ::-1].astype(np.int32).copy()
+        zero_counts()
+        toy = exchange_probe.toy_exchange_scan(torch.from_numpy(keys_t).to(
+            dev), n, devices=spread)
         for d in spread:
             torch.cuda.synchronize(d)
-        check(torch.equal(ys1, ys2) and torch.equal(fins1, fins2),
-              f"tp_scan with {n} shards on {n} cards differs from all on "
-              f"one card")
+        runs["toy_across_cards"] = read_counts()
+        want_t = exchange_probe.toy_exchange_oracle(keys_t)
+        check(runs["toy_across_cards"]["toy_exchange"] == n and all(
+            np.array_equal(toy[s_].cpu().numpy(), want_t) for s_ in range(n)),
+            f"toy_exchange push across {n} cards differs from the oracle")
 
-        def host_ms(devices, iters=3):
-            fused_decode.tp_scan(lp, init, devices)
+        def host_ms(fn, iters=3):
+            fn()
             for d in spread:
                 torch.cuda.synchronize(d)
             t0 = time.perf_counter()
             for _ in range(iters):
-                fused_decode.tp_scan(lp, init, devices)
+                fn()
             for d in spread:
                 torch.cuda.synchronize(d)
             return (time.perf_counter() - t0) / iters * 1e3
 
-        ms = {"one card": [], "separate cards": []}
-        for key in ("one card", "separate cards", "separate cards",
-                    "one card"):                  # in turns
-            ms[key].append(host_ms([dev] * n if key == "one card"
-                                   else spread))
+        ms = {k: [] for k in runs15}
+        for key in list(runs15) + list(reversed(runs15)):      # in turns
+            ms[key].append(host_ms(runs15[key]))
         out["tp_scan_cards"] = {k: min(v) for k, v in ms.items()}
         report["tp_scan"][f"ms_n{n}_by_cards"] = out["tp_scan_cards"]
-        print(f"tp_scan T=200 B=256 V=47 W=100 n={n} on {card}: shards on "
-              f"one card {out['tp_scan_cards']['one card']:.4f} ms, on {n} "
-              f"cards {out['tp_scan_cards']['separate cards']:.4f} ms (host "
-              f"clock around 3 calls and every card's fence, best of 2 "
-              f"turns); equal results", flush=True)
+        print(f"TP decode T=200 B=256 V=47 W=100 n={n} on {card}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in out["tp_scan_cards"].items())
+            + " (host clock around 3 calls and every card's fence, best of 2 "
+            f"turns); all bit-equal; the toy's push transport across {n} "
+            "cards == the oracle", flush=True)
     return out, runs
+
+
+def tp_profile_run(T, B, V, W, L):
+    """The "fused_frame" TP decode's device kernels (n = 4 on cuda:0) in
+    time order and the single tp_frame call's device time, by
+    torch.profiler in a child process (this script run with --tp-profile),
+    which the caller waits for. Returns its JSON report."""
+    r = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--tp-profile",
+         json.dumps([T, B, V, W, L])], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"the profiler's process failed: "
+          f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def tp_profile_main(T, B, V, W, L) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gasr_tpu_torch.decoder.beam_search import _init_beam
+    from gasr_tpu_torch.ops.cuda import fused_decode
+    from gasr_tpu_torch.parallel import decode_tp, make_mesh
+    dev = torch.device("cuda", 0)
+    z = np.random.default_rng(11).standard_normal((T, B, V))
+    z = z - z.max(-1, keepdims=True)
+    lp = torch.from_numpy((z - np.log(np.exp(z).sum(-1, keepdims=True)))
+                          .astype(np.float32)).to(dev)
+    mesh = make_mesh({"model": 4}, devices=[dev] * 4)
+
+    def decode():
+        return decode_tp.ctc_beam_search_tp(lp, beam_width=W, mesh=mesh,
+                                            max_len=L, tp_impl="fused_frame")
+
+    decode()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                key=lambda e: e.time_range.start)
+    idx = [i for i, e in enumerate(ev) if "tp_frame_kernel" in e.name]
+    between = ev[idx[0]:idx[-1] + 1] if idx else []
+    us = [e.time_range.elapsed_us() for e in between]
+    # the JAX-shaped single frame: one window of the flagship's n = 4
+    beam, _ = fused_decode.fused_prefix_decode(lp[:5], _init_beam(B, W, dev))
+    st = fused_decode.pack_state(beam)
+    f = lp[5]
+    lo, hi = fused_decode.shard_bounds(V, 4)[1]
+    args = (f[:, lo:hi], torch.gather(f, 1, st[4].long().clamp(0, V - 1)),
+            f[:, 0].contiguous(), st, lo, hi, V, 0)
+    fused_decode.tp_frame(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fused_decode.tp_frame(*args)
+        torch.cuda.synchronize()
+    one = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type.name == "CUDA" and "tp_frame_kernel" in e.name]
+    print(json.dumps(dict(
+        tp_frame_launches=len(idx),
+        others=sorted({e.name for e in between
+                       if "tp_frame_kernel" not in e.name}),
+        loop_launch_us=float(np.mean(us[:-1])) if len(us) > 1 else None,
+        closing_merge_us=us[-1] if us else None,
+        single_call_us=float(np.mean(one)) if one else None,
+        single_calls=len(one))))
+    return 0 if idx and len(one) == 20 else 1
 
 
 def cuda_events_ms(fn, iters=10, warmup=1):
@@ -2240,106 +2341,131 @@ def main() -> int:
                          iters=3, warmup=1),
         library_ms=None, max_abs_err=tpf_err, bound_ms=b_ms, bound_by=b_by)
 
-    # 11b. tp_scan: n = 1 at the flagship shape against fused_prefix_decode
-    # (JAX's mesh-of-1 probe), n = 2 and 4 against tp_scan_plain at T = 40
-    # and against fused_prefix_decode at T = 200; V = 129 (the full row of
-    # 256 lanes on the TPU) at n = 4
+    # 11b. tp_scan in both designs where they apply on the one card (the
+    # cluster design up to its limit, the push design at any n): each at
+    # the flagship shape with n = 1, 2, 4 (and 8) against
+    # fused_prefix_decode (n = 1: JAX's mesh-of-1 probe) and against
+    # tp_scan_plain at T = 40; conformer_l's decode shape (V = 129, W = 16:
+    # n = 2, 4, 8) likewise; ms per design and shard count beside row 2, in
+    # turns
     init_p = fused_decode.pack_state(init_r)
     fin1, ys1 = fused_decode.fused_prefix_decode(lp_r, init_r)
+    init_c = _init_beam(lp_c.shape[1], 16, dev)
+    fin_c1, ys_c1 = fused_decode.fused_prefix_decode(lp_c, init_c)
     tps_err = 0.0
-    for lp_in, init_in, n_, tag in (
-            (lp_r, init_r, 1, "T=200 B=256 V=47 W=100 n=1"),
-            (lp_r, init_r, 2, "T=200 B=256 V=47 W=100 n=2"),
-            (lp_r, init_r, 4, "T=200 B=256 V=47 W=100 n=4"),
-            (lp_c, _init_beam(lp_c.shape[1], 16, dev), 4,
-             "T=300 B=64 V=129 W=16 n=4")):
+    tp_limit = {}
+    for lp_in, init_in, (beam, ys_s), ns, tag in (
+            (lp_r, init_r, (fin1, ys1), (1, 2, 4, 8),
+             "T=200 B=256 V=47 W=100"),
+            (lp_c, init_c, (fin_c1, ys_c1), (2, 4, 8),
+             "T=300 B=64 V=129 W=16")):
         pk = fused_decode.pack_state(init_in)
-        if n_ > 1:
-            got = fused_decode.tp_scan(lp_in[:40], pk, [dev] * n_)
+        W_, V_ = init_in.s1.shape[1], lp_in.shape[2]
+        limit = tp_limit[tag] = fused_decode.tp_cluster_limit(dev, W_, V_)
+        check(limit >= 8, f"tp_scan cluster limit {limit} at {tag}")
+        for n_ in ns:
             want = fused_decode.tp_scan_plain(lp_in[:40], pk, n_)
-            torch.cuda.synchronize()
-            for x, y, what in zip(got, want, ("final states", "ys")):
-                check(torch.equal(x, y), f"tp_scan {what} differ from the "
-                      f"plain version ({tag}, T=40)")
-            tps_err = max(tps_err, max_err(got, want))
-        fins, ys_tp = fused_decode.tp_scan(lp_in, pk, [dev] * n_)
-        beam, ys_s = (fin1, ys1) if lp_in is lp_r else \
-            fused_decode.fused_prefix_decode(lp_in, init_in)
-        torch.cuda.synchronize()
-        check(torch.equal(ys_tp, ys_s), f"tp_scan ys differ from "
-              f"fused_prefix_decode ({tag})")
-        for s_ in range(n_):
-            check(torch.equal(fins[s_], fused_decode.pack_state(beam)),
-                  f"tp_scan shard {s_}'s final state differs from "
-                  f"fused_prefix_decode's ({tag})")
-        print(f"tp_scan ({tag}): ys and every shard's final state bit-equal "
-              f"to fused_prefix_decode" + (", and to tp_scan_plain at T=40"
-                                           if n_ > 1 else ""), flush=True)
-    scan_ms = {}
-    for n_ in (1, 4, 2, 1, 4):                   # in turns with row 2
-        scan_ms.setdefault(n_, []).append(cuda_ms(
-            lambda: fused_decode.tp_scan(lp_r, init_p, [dev] * n_), iters=3,
-            warmup=1))
-        scan_ms.setdefault("single", []).append(cuda_ms(
-            lambda: fused_decode.fused_prefix_decode(lp_r, init_r), iters=3,
-            warmup=1))
-    ms_by = {f"n={k}" if k != "single" else "fused_prefix_decode (row 2)":
-             min(v) for k, v in scan_ms.items()}
+            for design in ("cluster", "push"):
+                what = f"{tag} n={n_} {design}"
+                got = fused_decode.tp_scan(lp_in[:40], pk, [dev] * n_,
+                                           design=design)
+                torch.cuda.synchronize()
+                for x, y, name_ in zip(got, want, ("final states", "ys")):
+                    check(torch.equal(x, y), f"tp_scan {name_} differ from "
+                          f"the plain version ({what}, T=40)")
+                tps_err = max(tps_err, max_err(got, want))
+                fins, ys_tp = fused_decode.tp_scan(lp_in, pk, [dev] * n_,
+                                                   design=design)
+                torch.cuda.synchronize()
+                check(torch.equal(ys_tp, ys_s), f"tp_scan ys differ from "
+                      f"fused_prefix_decode ({what})")
+                for s_ in range(n_):
+                    check(torch.equal(fins[s_], fused_decode.pack_state(beam)),
+                          f"tp_scan shard {s_}'s final state differs from "
+                          f"fused_prefix_decode's ({what})")
+        print(f"tp_scan ({tag}; cluster limit {limit}) cluster and push "
+              f"designs at n={list(ns)}: ys and every shard's final state "
+              f"bit-equal to fused_prefix_decode and to tp_scan_plain at T=40",
+              flush=True)
+    scan_runs = {"fused_prefix_decode (row 2)":
+                 lambda: fused_decode.fused_prefix_decode(lp_r, init_r)}
+    for n_ in (1, 2, 4, 8):
+        for design in ("cluster", "push"):
+            scan_runs[f"{design} n={n_}"] = (
+                lambda n_=n_, design=design: fused_decode.tp_scan(
+                    lp_r, init_p, [dev] * n_, design=design))
+    scan_ms = {k: [] for k in scan_runs}
+    for _ in range(2):                           # in turns with row 2
+        for k in list(scan_runs) + list(reversed(scan_runs)):
+            scan_ms[k].append(cuda_ms(scan_runs[k], iters=3, warmup=1))
+    ms_by = {k: min(v) for k, v in scan_ms.items()}
+    auto4 = fused_decode.pick_design(4, 1, W, V, tp_limit[
+        "T=200 B=256 V=47 W=100"])
     # the bound counts what the function needs in device memory: log-probs
     # and the initial state in, ys and every shard's final state out. The
-    # shards' exchanged keys (each list written once, read by the 3 peers)
-    # stay apart: on one card they pass through L2, for which the data
-    # sheet gives no rate, and across cards through NVLink
+    # shards' exchanged keys (each list written once into each of the 3
+    # peers' inboxes) stay apart: on one card they pass through L2 or
+    # shared memory, for which the data sheet gives no rate, and across
+    # cards through NVLink
     nb = T * B * V * 4 + 9 * B * W * 4 + T * B * W * 4 + 4 * 9 * B * W * 4
     b_ms, b_by = bound(nb, T * B * (2 * W * V + 30 * W * 4), F32_FLOPS)
     report["tp_scan"] = dict(
-        ms=ms_by["n=4"], ms_by_shards=ms_by,
-        exchange_bytes=T * B * 4 * W * 8 * 4,
+        ms=ms_by[f"{auto4} n=4"], design_n4=auto4, ms_by_design=ms_by,
+        exchange_bytes=T * B * 4 * 3 * W * 16,
         plain_ms=cuda_ms(lambda: fused_decode.tp_scan_plain(lp_r, init_p, 4),
                          iters=1, warmup=0),
         library_ms=None, max_abs_err=tps_err, bound_ms=b_ms, bound_by=b_by)
     print(f"tp_scan T=200 B=256 V=47 W=100 on {card}: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms_by.items()) + " (CUDA events, best "
-        f"of the turns' means of 3)", flush=True)
+        f"of 2 turns' means of 3); \"auto\" at n=4: {auto4}", flush=True)
 
-    # 11c. the exchange protocol's toy at n = 2, 4, 8 (Bt=256, T=6) against
-    # the numpy oracle, every step and every shard
+    # 11c. the exchange's toy at n = 2, 4, 8 (Bt=256, T=6) in both
+    # transports on the one card against the numpy oracle, every step and
+    # every shard (the push transport across cards: phase 15d)
     toy_keys = {n_: np.sort(rng.integers(-1000, 1000, (n_, 6, 256, 128)),
                             axis=-1)[..., ::-1].astype(np.int32).copy()
                 for n_ in (2, 4, 8)}
     zero_counts()
-    toy_out = {n_: exchange_probe.toy_exchange_scan(
-        torch.from_numpy(k).to(dev), n_) for n_, k in toy_keys.items()}
+    toy_out = {(n_, design): exchange_probe.toy_exchange_scan(
+        torch.from_numpy(k).to(dev), n_, design=design)
+        for n_, k in toy_keys.items() for design in ("cluster", "push")}
     torch.cuda.synchronize()
     toy_launches = read_counts()
-    check(toy_launches["toy_exchange"] == 3,
+    check(toy_launches["toy_exchange"] == 6,
           f"toy_exchange launches {toy_launches['toy_exchange']}")
     toy_err = 0
-    for n_, k in toy_keys.items():
-        want = exchange_probe.toy_exchange_oracle(k)
-        got = toy_out[n_].cpu().numpy()
+    for (n_, design), got in toy_out.items():
+        want = exchange_probe.toy_exchange_oracle(toy_keys[n_])
+        got = got.cpu().numpy()
         for s_ in range(n_):
             check(np.array_equal(got[s_], want), f"toy_exchange n={n_} "
-                  f"shard {s_} differs from the oracle")
+                  f"{design} shard {s_} differs from the oracle")
             toy_err = max(toy_err, int(np.abs(got[s_] - want).max()))
-    print("toy_exchange n=2, 4, 8 (Bt=256, T=6) == the numpy oracle on every "
-          "step and shard", flush=True)
+    print("toy_exchange n=2, 4, 8 (Bt=256, T=6), cluster and push "
+          "transports == the numpy oracle on every step and shard",
+          flush=True)
     k4 = torch.from_numpy(toy_keys[4]).to(dev)
     # keys in and out; the exchanged lists (tp_scan's note) stay apart
     b_ms, b_by = bound(2 * k4.numel() * 4, k4.numel() * 2 * 8 * 4, F32_FLOPS)
+    toy_ms = {d: cuda_ms(lambda d=d: exchange_probe.toy_exchange_scan(
+        k4, 4, design=d)) for d in ("cluster", "push")}
     report["toy_exchange"] = dict(
-        exchange_bytes=k4.numel() * 8 * 4,
-        ms=cuda_ms(lambda: exchange_probe.toy_exchange_scan(k4, 4)),
+        exchange_bytes=k4.numel() * 16 * 3, ms=toy_ms["cluster"],
+        ms_by_design=toy_ms,
         plain_ms=cuda_ms(lambda: exchange_probe.toy_exchange_scan_plain(k4,
                                                                         4),
                          iters=1, warmup=1),
         library_ms=None, max_abs_err=float(toy_err), bound_ms=b_ms,
         bound_by=b_by)
+    print(f"toy_exchange n=4 (T=6, Bt=256) on {card}: cluster "
+          f"{toy_ms['cluster']:.4f} ms, push {toy_ms['push']:.4f} ms (CUDA "
+          f"events, mean of 10)", flush=True)
 
     # 11d. ctc_beam_search_tp on phase 6's log-probs with {"model": 4} on
-    # cuda:0 x 4: "fused" (1 tp_scan launch), "fused_frame" (T x n = 800
-    # tp_frame launches), each equal to the single-card kernel decode;
-    # "xla" (the plain frame on every shard) on the first TP_XLA_T frames
+    # cuda:0 x 4: "fused" (1 tp_scan launch), "fused_frame" (one tp_frame
+    # launch a frame for the card's 4 shards and the closing merge: T + 1),
+    # each equal to the single-card kernel decode; "xla" (the plain frame
+    # on every shard) on the first TP_XLA_T frames
     mesh4 = tp_mesh({"model": 4})
 
     def tp_decode(lp_in, mesh, impl, **kw):
@@ -2355,7 +2481,7 @@ def main() -> int:
     torch.cuda.synchronize()
     tpb_launches = read_counts()
     want_tp = {name: 0 for name in counters}
-    want_tp.update(tp_scan=1, tp_frame=T * 4, traceback=2)
+    want_tp.update(tp_scan=1, tp_frame=T + 1, traceback=2)
     for name, n_ in want_tp.items():
         check(tpb_launches[name] == n_, f"TP batch launches of {name}: "
               f"{tpb_launches[name]}, expected {n_}")
@@ -2383,6 +2509,28 @@ def main() -> int:
     print(f"TP decode reference_large on {card} (host clock, median of 5, "
           f"synchronised; decode + traceback, no lists): " + ", ".join(
               f"{k} {v:.3f} ms" for k, v in tp_ms.items()), flush=True)
+    # the "fused_frame" decode's device kernels in time order, by
+    # torch.profiler in a fresh process (`tp_profile_run`: in this one,
+    # after phases 9-10, the profiler recorded no kernel of the port): one
+    # tp_frame launch a frame and the closing merge, nothing between
+    prof = tp_profile_run(T, B, V, W, L)
+    check(prof["tp_frame_launches"] == T + 1 and not prof["others"],
+          f"'fused_frame' n=4 device kernels: {prof['tp_frame_launches']} "
+          f"tp_frame (expected {T + 1}), others in the loop "
+          f"{prof['others']}")
+    report["tp_frame"].update(
+        device_ms=prof["single_call_us"] / 1e3,
+        loop_launch_ms=prof["loop_launch_us"] / 1e3,
+        closing_merge_ms=prof["closing_merge_us"] / 1e3,
+        fused_frame_n4_ms=tp_ms["fused_frame n=4"])
+    print(f"'fused_frame' n=4 on {card} (torch.profiler, a fresh process, "
+          f"random log-probs of the same shape): {prof['tp_frame_launches']} "
+          f"tp_frame launches and no other device kernel, copy or fill "
+          f"between the first and the last; a frame's launch (4 shards, "
+          f"merge + frame) {prof['loop_launch_us']:.2f} us on the device, "
+          f"the closing merge {prof['closing_merge_us']:.2f} us; the "
+          f"JAX-shaped single call (one window of 12) "
+          f"{prof['single_call_us']:.2f} us", flush=True)
 
     # 11e. conformer_l: phase 8's log-probs (B=64, T'=300, V=129, W=16) on
     # the preset's own mesh {"data": 2, "model": 4}, one model row
@@ -2402,7 +2550,7 @@ def main() -> int:
     torch.cuda.synchronize()
     tpc_launches = read_counts()
     T4 = lp_c.shape[0]
-    check(tpc_launches["tp_scan"] == 1 and tpc_launches["tp_frame"] == T4 * 4,
+    check(tpc_launches["tp_scan"] == 1 and tpc_launches["tp_frame"] == T4 + 1,
           f"conformer TP launches {tpc_launches}")
     for impl, r in c_res.items():
         same_result(r, res_c, f"conformer_l ctc_beam_search_tp '{impl}'")
@@ -2429,7 +2577,7 @@ def main() -> int:
 
     tps_launches = {name: 0 for name in counters}
     per_chunk_of = {"fused": ("tp_scan", 1),
-                    "fused_frame": ("tp_frame", 4 * STREAM_TC)}
+                    "fused_frame": ("tp_frame", STREAM_TC + 1)}
     for impl, (kernel, per_chunk) in per_chunk_of.items():
         tp_stream(impl)                                      # warm-up
         torch.cuda.synchronize()
@@ -2964,7 +3112,10 @@ def main() -> int:
         if name in inside:
             entry["inside"] = inside[name]
         for extra in ("library_call", "kernel_launches_per_call", "ms_bidir",
-                      "lm", "ms_by_shards", "exchange_bytes", "ms_rounds",
+                      "lm", "ms_by_design", "design_n4", "device_ms",
+                      "loop_launch_ms", "closing_merge_ms",
+                      "fused_frame_n4_ms", "ms_n2_by_cards", "ms_n4_by_cards",
+                      "exchange_bytes", "ms_rounds",
                       "library_ms_rounds", "occupancy", "frame_counted",
                       "streamed", "wide_f", "more_shapes", "training"):
             if extra in r:
@@ -2991,4 +3142,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-profile":
+        sys.exit(tp_profile_main(*json.loads(sys.argv[2])))
     sys.exit(main())

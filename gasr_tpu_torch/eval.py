@@ -74,9 +74,12 @@ def parity_check(log_probs: np.ndarray, beam_width: int = 16,
 
 def evaluate_librispeech(config: Config, params, root: str,
                          split: str = "test-clean",
-                         limit: Optional[int] = 50) -> Dict[str, float]:
+                         limit: Optional[int] = 50,
+                         sample_rate: int = 16000) -> Dict[str, float]:
     """End-to-end WER on a local LibriSpeech split (features via the
-    native front end, one utterance at a time, on `config.device`)."""
+    native front end, one utterance at a time, on `config.device`).
+    `sample_rate` is taken and unused, as in the JAX package: each file's
+    own rate goes to the front end."""
     dev = resolve_device(config.device)
     wers = []
     for audio, sr, text in LibriSpeechDataset(root, split).utterances(

@@ -16,15 +16,15 @@ from gasr_tpu_torch.ops.lstm import lstm_forward, lstm_init
 
 
 def bilstm_init(generator: torch.Generator, config: Config,
-                device="cpu") -> dict:
+                device="cpu", dtype=torch.float32) -> dict:
     H = config.rnn_hidden_size
     n_dir = 2 if config.bidirectional else 1
     return {
         "lstm": lstm_init(generator, config.feat_size, H,
                           config.rnn_num_layers, config.bidirectional,
-                          device),
+                          device, dtype),
         "proj": linear_init(generator, H * n_dir, config.output_size,
-                            device),
+                            device, dtype),
     }
 
 

@@ -158,21 +158,24 @@ def conformer_output_length(input_length):
 
 
 def conformer_init(generator: torch.Generator, config: Config,
-                   device="cpu") -> dict:
+                   device="cpu", dtype=torch.float32) -> dict:
     """Params with the JAX package's names and layouts (conv weights HWIO,
-    `dw` [K, 1, D], `sub_proj` rows freq-major), drawn from `generator`."""
+    `dw` [K, 1, D], `sub_proj` rows freq-major), drawn from `generator`;
+    the stem and the output projection in `dtype`, the blocks in float32
+    (JAX's `conformer_init` passes its dtype to those four alone)."""
     hp = _preset(config)
     d = hp["d_model"]
     f_sub = conformer_output_length(config.feat_size)   # freq also / 4
     return {
-        "sub1": conv2d_init(generator, 1, d, (3, 3), device),
-        "sub2": conv2d_init(generator, d, d, (3, 3), device),
-        "sub_proj": linear_init(generator, d * f_sub, d, device),
+        "sub1": conv2d_init(generator, 1, d, (3, 3), device, dtype),
+        "sub2": conv2d_init(generator, d, d, (3, 3), device, dtype),
+        "sub_proj": linear_init(generator, d * f_sub, d, device, dtype),
         "blocks": [
             _block_init(generator, d, hp["num_heads"], hp["ff_mult"],
                         hp["conv_kernel"], device)
             for _ in range(hp["num_blocks"])],
-        "proj": linear_init(generator, d, config.output_size, device),
+        "proj": linear_init(generator, d, config.output_size, device,
+                            dtype),
     }
 
 

@@ -27,19 +27,19 @@ from gasr_tpu_torch.parallel.collectives import (all_gather, all_reduce,
 
 
 def deepspeech_init(generator: torch.Generator, config: Config,
-                    device="cpu") -> dict:
+                    device="cpu", dtype=torch.float32) -> dict:
     feat = config.feat_size
     L = config.linear_size
     H = config.rnn_hidden_size
     n_dir = 2 if config.bidirectional else 1
     return {
-        "mlp1": linear_init(generator, feat, L, device),
-        "mlp2": linear_init(generator, L, L, device),
-        "mlp3": linear_init(generator, L, H, device),
+        "mlp1": linear_init(generator, feat, L, device, dtype),
+        "mlp2": linear_init(generator, L, L, device, dtype),
+        "mlp3": linear_init(generator, L, H, device, dtype),
         "rnn": rnn_init(generator, H, H, config.rnn_num_layers,
-                        config.bidirectional, device),
-        "mlp5": linear_init(generator, H * n_dir, L, device),
-        "mlp6": linear_init(generator, L, config.output_size, device),
+                        config.bidirectional, device, dtype),
+        "mlp5": linear_init(generator, H * n_dir, L, device, dtype),
+        "mlp6": linear_init(generator, L, config.output_size, device, dtype),
     }
 
 

@@ -30,20 +30,21 @@ def ds2_output_length(input_length):
 
 
 def ds2_init(generator: torch.Generator, config: Config,
-             device="cpu") -> dict:
+             device="cpu", dtype=torch.float32) -> dict:
     f1 = -(-config.feat_size // _CONV1_STRIDE[1])
     f2 = -(-f1 // _CONV2_STRIDE[1])
     H = config.rnn_hidden_size
     n_dir = 2 if config.bidirectional else 1
     return {
-        "conv1": conv2d_init(generator, 1, _CHANNELS, _CONV1_KERNEL, device),
+        "conv1": conv2d_init(generator, 1, _CHANNELS, _CONV1_KERNEL, device,
+                             dtype),
         "conv2": conv2d_init(generator, _CHANNELS, _CHANNELS, _CONV2_KERNEL,
-                             device),
+                             device, dtype),
         "lstm": lstm_init(generator, f2 * _CHANNELS, H,
                           config.rnn_num_layers, config.bidirectional,
-                          device),
+                          device, dtype),
         "proj": linear_init(generator, H * n_dir, config.output_size,
-                            device),
+                            device, dtype),
     }
 
 

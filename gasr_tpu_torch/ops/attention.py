@@ -39,15 +39,15 @@ def _sinusoid_pos(n: int, d: int, device="cpu") -> torch.Tensor:
 
 
 def mhsa_rel_init(generator: torch.Generator, d_model: int, num_heads: int,
-                  device="cpu") -> dict:
+                  device="cpu", dtype=torch.float32) -> dict:
     """N(0, 1/d) projections wq, wk, wv, wo, wr [D, D]; zero biases u, v
     [H, dh] (the JAX package's names and layouts)."""
     dh = d_model // num_heads
     s = 1.0 / (d_model ** 0.5)
-    p = {name: normal_init(generator, (d_model, d_model), s, device)
+    p = {name: normal_init(generator, (d_model, d_model), s, device, dtype)
          for name in ("wq", "wk", "wv", "wo", "wr")}
-    p["u"] = torch.zeros((num_heads, dh), device=device)
-    p["v"] = torch.zeros((num_heads, dh), device=device)
+    p["u"] = torch.zeros((num_heads, dh), device=device, dtype=dtype)
+    p["v"] = torch.zeros((num_heads, dh), device=device, dtype=dtype)
     return p
 
 

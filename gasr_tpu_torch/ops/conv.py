@@ -126,12 +126,13 @@ def conv_mixed(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
 
 
 def conv2d_init(generator: torch.Generator, in_ch: int, out_ch: int,
-                kernel: Tuple[int, int], device="cpu") -> dict:
+                kernel: Tuple[int, int], device="cpu",
+                dtype=torch.float32) -> dict:
     """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) HWIO weight and bias."""
     bound = (1.0 / (in_ch * kernel[0] * kernel[1])) ** 0.5
     return {"w": uniform_init(generator, tuple(kernel) + (in_ch, out_ch),
-                              bound, device),
-            "b": uniform_init(generator, (out_ch,), bound, device)}
+                              bound, device, dtype),
+            "b": uniform_init(generator, (out_ch,), bound, device, dtype)}
 
 
 def conv2d(params: dict, x: torch.Tensor, stride: Tuple[int, int],

@@ -59,14 +59,20 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                      _P, _P, _P],
     },
     "decode_tp": {
-        "tp_frame_launch": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P] * 4,
-        "tp_scan_capacity": [_I, _I, _I, _IP],
-        "tp_scan_launch": [_P, _P] + [_I] * 6 + [_P, _I, _I] + [_P] * 5,
+        "tp_frame_launch": [_P, _L, _I] + [_P] * 5 + [_I, _P, _P, _P]
+        + [_I] * 4 + [_P] + [_I] * 5 + [_P],
+        "tp_scan_cluster_limit": [_I, _I, _IP],
+        "tp_scan_cluster_launch": [_P, _P] + [_I] * 6 + [_P] * 3,
+        "tp_scan_push_capacity": [_I, _I, _I, _IP],
+        "tp_scan_push_launch": [_P, _P] + [_I] * 6 + [_P, _I, _I]
+        + [_P] * 4,
         "enable_peer_access": [_I],
     },
     "exchange_probe": {
-        "toy_exchange_capacity": [_IP],
-        "toy_exchange_launch": [_P] + [_I] * 4 + [_P] * 4,
+        "toy_cluster_limit": [_IP],
+        "toy_cluster_launch": [_P, _I, _I, _I, _P, _P],
+        "toy_push_capacity": [_I, _IP],
+        "toy_push_launch": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P],
     },
     "rnn_scan": {"rnn_scan_launch": [_P] * 3 + [_I] * 9 + [_P] * 5,
                  "rnn_scan_smem": [_I] * 3,

@@ -32,12 +32,18 @@ into fresh output buffers.
 `tp_frame` replaces `fused_decode.py::fused_tp_frame` (`_tp_kernel`):
 one frame of the vocab-sharded decode on one shard's window [lo, hi),
 the shard's W local winners in (score desc, global index asc) order with
-their keys and updated fields. `tp_scan` replaces
-`fused_decode.py::fused_tp_scan` (`_tp_scan_kernel`, `_merge2_top`): all
-T frames of every shard of a model group, the per-frame winner exchange
-and merge inside the kernel (`csrc/decode_tp.cu`, `csrc/exchange.cuh`).
-Their plain versions are `tp_frame_plain` and `tp_scan_plain` (the plain
-frame on every shard, then an in-process exchange and merge).
+their keys and updated fields. `tp_frames` ("fused_frame") runs the same
+kernel once a card a frame: each block merges the previous frame's n
+lists first (a parity buffer on its card), so the loop holds nothing but
+launches. `tp_scan` replaces `fused_decode.py::fused_tp_scan`
+(`_tp_scan_kernel`, `_merge2_top`): all T frames of every shard of a
+model group, the per-frame winner exchange and merge inside the kernel
+(`csrc/decode_tp.cu`, `csrc/exchange.cuh`), in the design `pick_design`
+names by placement and shard count: clusters of n blocks on one card, or
+a persistent grid that pushes its lists into the peers' inboxes. Their
+plain versions are `tp_frame_plain`, `tp_frame_merged_plain` /
+`tp_frames_plain` (the merged frame on every shard, frame by frame) and
+`tp_scan_plain`.
 
 For CUDA tensors each launches its kernel (`csrc/fused_decode.cu`,
 `csrc/decode_tp.cu`); the
@@ -49,7 +55,7 @@ outside JAX's (`parallel/decode_tp.py:391-397`): W <= 128 and windows of
 at most 128 ids, and for `tp_scan` also n <= V <= 256. For CPU tensors
 they run their plain versions, the eager decoder of
 `decoder/beam_search.py` (`_matched_scan`, `_traceback`) and
-`tp_frame_plain` / `tp_scan_plain`.
+`tp_frame_plain` / `tp_frames_plain` / `tp_scan_plain`.
 """
 
 from __future__ import annotations
@@ -303,6 +309,14 @@ def traceback_overlay(packed_ys: torch.Tensor, final_lengths: torch.Tensor,
 
 TP_MAX_WINDOW = 128     # vocab ids per shard (JAX: ceil(V/n) <= 128)
 TP_SCAN_MAX_V = 256     # tp_scan keeps the whole frame row (JAX: V <= 256)
+TP_CLUSTER_PORTABLE = 8  # blocks a cluster on every sm_90 card
+TP_CLUSTER_MAX = 16     # with the non-portable cluster size allowed
+# the most shards "auto" gives the cluster design: on an H100 it is the
+# faster design at n <= 2 and the push design at n >= 4 (PERF.md §6:
+# `scripts/torch_tp_designs.py`, three shapes)
+TP_CLUSTER_PICK = 2
+TP_MAX_CARDS = 8        # cards a tp_frame launch writes its lists to
+TP_DESIGNS = ("cluster", "push")
 _LOW32 = 0xFFFFFFFF
 
 
@@ -421,7 +435,8 @@ def tp_frame(f_loc: torch.Tensor, f_last: torch.Tensor,
     best candidates in (score desc, global index asc) order, their packed
     backpointers, their `rank_keys` (`key_index` gives w*V + v) and their
     updated state fields. V is the full vocab: any V with hi - lo <= 128
-    (JAX's envelope, `decode_tp.py:391`)."""
+    (JAX's envelope, `decode_tp.py:391`). On the card this is the frame
+    kernel of `tp_frames` with one input list, the state itself."""
     if state.device.type == "cpu":
         return tp_frame_plain(f_loc, f_last, f_blank, state, lo, hi, V,
                               blank_id)
@@ -457,60 +472,220 @@ def tp_frame(f_loc: torch.Tensor, f_last: torch.Tensor,
     if B == 0:
         return ys, keys, fin
     lib = _lib.load("decode_tp")
-    err = lib.tp_frame_launch(
-        _lib.ptr(f_loc), f_loc.stride(0), _lib.ptr(f_last), _lib.ptr(f_blank),
-        _lib.ptr(state), B, W, V, lo, hi, blank_id, _lib.ptr(ys),
-        _lib.ptr(keys), _lib.ptr(fin), _lib.stream(dev))
+    outs = (ctypes.c_void_p * 3)(keys.data_ptr(), ys.data_ptr(),
+                                 fin.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.tp_frame_launch(
+            f_loc.data_ptr(), f_loc.stride(0), lo, f_last.data_ptr(),
+            f_blank.data_ptr(), None, None, state.data_ptr(), 1, None, None,
+            None, 1, 1, lo, hi, outs, 1, B, W, V, blank_id, _lib.stream(dev))
     _lib.check(err, "tp_frame")
     global tp_frame_launches
     tp_frame_launches += 1
     return ys, keys, fin
 
 
-def tp_exchange(outs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The exchange and merge of one frame: `outs`, every shard's (ys,
-    keys, fin) from `tp_frame`, -> (the global beam [NF, B, W], its ys
-    [B, W]): the W largest keys of the union of the shards' lists, on the
-    first shard's device (the all_gather + global top-W of JAX's
-    `_make_fused_run`, `decode_tp.py:262-284`)."""
-    dev = outs[0][0].device
-    W = outs[0][0].shape[1]
-    keys = torch.cat([k.to(dev) for _, k, _ in outs], dim=1)
-    sel = torch.sort(keys, dim=1, descending=True).indices[:, :W]
-    fin = torch.cat([f.to(dev) for _, _, f in outs], dim=2)
-    ys = torch.cat([y.to(dev) for y, _, _ in outs], dim=1)
+def tp_merge_plain(keys, ys, fins) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernels' merge: the m lists keys [m, B, W]
+    (`rank_keys`), ys [m, B, W], fins [m, NF, B, W] -> (the global beam
+    [NF, B, W], its ys [B, W]): the W largest keys of their union (JAX's
+    all_gather + global top-W, `decode_tp.py:262-284`)."""
+    m, B, W = keys.shape
+    sel = torch.sort(keys.permute(1, 0, 2).reshape(B, m * W), dim=1,
+                     descending=True).indices[:, :W]
+    fin = fins.permute(1, 2, 0, 3).reshape(fins.shape[1], B, m * W)
     return (torch.gather(fin, 2, sel.expand(fin.shape[0], -1, -1)),
-            torch.gather(ys, 1, sel))
+            torch.gather(ys.permute(1, 0, 2).reshape(B, m * W), 1, sel))
+
+
+def tp_frame_merged_plain(f, keys, ys, fins, lo: int, hi: int, V: int,
+                          blank_id: int = 0):
+    """Plain version of the frame kernel of `tp_frames`: merge the
+    previous frame's m lists (`tp_merge_plain`; keys None: fins[0] is the
+    state), then `tp_frame_plain` on the window [lo, hi) of the full rows
+    f [B, V]. Returns (the merged ys [B, W], or None without input keys;
+    the shard's (ys, keys, fin))."""
+    if keys is None:
+        st, ys_prev = fins[0], None
+    else:
+        st, ys_prev = tp_merge_plain(keys, ys, fins)
+    last = st[FIELDS.index("last")].long().clamp(0, V - 1)
+    return ys_prev, tp_frame_plain(f[:, lo:hi], torch.gather(f, 1, last),
+                                   f[:, blank_id].contiguous(), st, lo, hi,
+                                   V, blank_id)
+
+
+def tp_frames_plain(log_probs: torch.Tensor, init: torch.Tensor, n: int,
+                    blank_id: int = 0):
+    """Plain version of `tp_frames` on log_probs' device: every frame,
+    every shard with a window merges the previous frame's lists and runs
+    its frame (`tp_frame_merged_plain`); a shard with an empty window (n >
+    V) has no candidate and sits out; a closing merge. Returns (final
+    packed state [NF, B, W], ys [T, B, W])."""
+    T, B, V = log_probs.shape
+    W = init.shape[2]
+    dev = log_probs.device
+    ys = torch.empty(T, B, W, dtype=torch.int32, device=dev)
+    lists = (None, None, init.to(dev)[None])
+    bounds = [b for b in shard_bounds(V, n) if b[0] < b[1]]
+    for t in range(T):
+        outs = [tp_frame_merged_plain(log_probs[t], *lists, lo, hi, V,
+                                      blank_id) for lo, hi in bounds]
+        if t > 0:
+            ys[t - 1] = outs[0][0]
+        lists = tuple(torch.stack([o[1][i] for o in outs]) for i in (1, 0, 2))
+    if T == 0:
+        return lists[2][0].clone(), ys
+    st, ys[T - 1] = tp_merge_plain(*lists)
+    return st, ys
+
+
+def enable_peers(cards) -> None:
+    """Let every card of `cards` read and write the others' memory."""
+    lib = _lib.load("decode_tp")
+    for d in cards:
+        with torch.cuda.device(d):
+            for e in cards:
+                if e != d:
+                    _lib.check(lib.enable_peer_access(e.index),
+                               f"peer access {d} -> {e}")
+
+
+def push_inboxes(devices, G: int, words: int):
+    """The push exchange's inboxes: shard s's [2, G, n, words] zeroed
+    int64 words on its card, zeroed on every card before anything later
+    on any card's stream (peers write them), with peer access enabled
+    where the group spans cards."""
+    n = len(devices)
+    inbox = [torch.zeros(2, G, n, words, dtype=torch.int64, device=d)
+             for d in devices]
+    cards = list(dict.fromkeys(devices))
+    if len(cards) > 1:
+        enable_peers(cards)
+        ready = {}
+        for d in cards:
+            with torch.cuda.device(d):
+                ready[d] = torch.cuda.Event()
+                ready[d].record()
+        for d in cards:
+            for e in cards:
+                torch.cuda.current_stream(d).wait_event(ready[e])
+    return inbox
+
+
+def _cuda_group(log_probs: torch.Tensor, init: torch.Tensor, devices,
+                what: str):
+    """Checks of the TP kernels' inputs -> (devices, T, B, V, W)."""
+    devices = [torch.device(d) for d in devices]
+    kinds = {d.type for d in devices} | {log_probs.device.type}
+    if kinds != {"cuda"}:
+        raise ValueError(f"{what}: the shards' devices {devices} and "
+                         f"log_probs on {log_probs.device} must all be CUDA "
+                         f"or all be the CPU")
+    if log_probs.ndim != 3 or log_probs.dtype != torch.float32:
+        raise ValueError(f"{what}: log_probs must be float32 [T, B, V]")
+    T, B, V = log_probs.shape
+    if init.ndim != 3 or init.shape[:2] != (len(FIELDS), B) or \
+            init.dtype != torch.int32:
+        raise ValueError(f"{what}: init must be int32 [NF, {B}, W]")
+    return devices, T, B, V, init.shape[2]
 
 
 def tp_frames(log_probs: torch.Tensor, init: torch.Tensor,
-              devices: Sequence[torch.device], blank_id: int, frame):
-    """The vocab-sharded scan, frame by frame: on every shard s of
-    `devices` (in model-axis order) `frame` (tp_frame or tp_frame_plain)
-    on its window, then `tp_exchange`; a shard with an empty window
-    (n > V) has no candidate and sits out. Returns (final packed state
-    [NF, B, W], ys [T, B, W]) on the first shard's device."""
-    T, B, V = log_probs.shape
-    W = init.shape[2]
+              devices: Sequence[torch.device], blank_id: int = 0):
+    """The vocab-sharded scan frame by frame ("fused_frame") of the group
+    whose shards sit on `devices` (in model-axis order; a device may
+    repeat). log_probs [T, B, V] float32, init [NF, B, W] int32 packed.
+    Returns (final packed state [NF, B, W], ys [T, B, W]) on the first
+    shard's device, bit-equal to `fused_prefix_decode`'s.
+
+    On CUDA tensors: one tp_frame launch a card a frame (grid B x the
+    card's shards), each merging the previous frame's lists from a
+    [2, n, ...] parity buffer on its card, reading its frame row and
+    writing its lists into every card's buffer; then one merge-only launch
+    for the final state and the last frame's ys. Everything is allocated
+    before the loop, which issues only those launches and, across cards,
+    an event record a card a frame and the other cards' waits on it
+    (peer writes land before the next frame reads them; the host orders,
+    no kernel spins). Envelope: W <= 128, n <= V, ceil(V/n) <= 128 (JAX's
+    `frame_ok`), at most 8 cards. On CPU tensors: `tp_frames_plain`."""
+    if {torch.device(d).type for d in devices} | {log_probs.device.type} \
+            == {"cpu"}:
+        return tp_frames_plain(log_probs, init, len(devices), blank_id)
+    devices, T, B, V, W = _cuda_group(log_probs, init, devices, "tp_frames")
     n = len(devices)
-    bounds = shard_bounds(V, n)
+    if W < 1 or not tp_envelope(W, V, n, scan=False):
+        raise ValueError(f"tp_frames: W={W}, V={V}, n={n} is outside the "
+                         f"kernel's envelope (W <= 128, n <= V, ceil(V/n) "
+                         f"<= {TP_MAX_WINDOW})")
+    if not 0 <= blank_id < V:
+        raise ValueError(f"blank_id {blank_id} out of range for V={V}")
+    cards = list(dict.fromkeys(devices))          # in first-shard order
+    if len(cards) > TP_MAX_CARDS:
+        raise ValueError(f"tp_frames: {len(cards)} cards; a launch writes "
+                         f"its lists to at most {TP_MAX_CARDS}")
     dev0 = devices[0]
-    lps = {d: log_probs.to(d) for d in set(devices)}
-    st = init.to(dev0)
     ys = torch.empty(T, B, W, dtype=torch.int32, device=dev0)
+    fin = torch.empty(len(FIELDS), B, W, dtype=torch.int32, device=dev0)
+    if T * B == 0:
+        fin.copy_(init)
+        return fin, ys
+    lib = _lib.load("decode_tp")
+    if len(cards) > 1:
+        enable_peers(cards)
+    NF = len(FIELDS)
+    lp = {d: log_probs.to(d).contiguous() for d in cards}
+    st0 = {d: init.to(d).contiguous() for d in cards}
+    shards = {d: torch.tensor([s for s in range(n) if devices[s] == d],
+                              dtype=torch.int32, device=d) for d in cards}
+    buf = {d: (torch.empty(2, n, B, W, dtype=torch.int64, device=d),
+               torch.empty(2, n, B, W, dtype=torch.int32, device=d),
+               torch.empty(2, n, NF, B, W, dtype=torch.int32, device=d))
+           for d in cards}
+    outs = [(ctypes.c_void_p * (3 * len(cards)))(
+        *[t[par].data_ptr() for d in cards for t in buf[d]])
+        for par in (0, 1)]
+    streams = {d: torch.cuda.current_stream(d) for d in cards}
+    events = {d: torch.cuda.Event() for d in cards}
+    row = B * V * 4                                 # bytes a frame
+    ys_row = B * W * 4
+    fixed = {d: (shards[d].data_ptr(), len(shards[d]), n, 0, 0)
+             for d in cards}
+    tail = (B, W, V, blank_id)
+    global tp_frame_launches
     for t in range(T):
-        last_clip = st[FIELDS.index("last")].long().clamp(0, V - 1)
-        outs = []
-        for d, (lo, hi) in zip(devices, bounds):
-            if lo == hi:
-                continue
-            f = lps[d][t]
-            st_d = st.to(d)
-            outs.append(frame(f[:, lo:hi], torch.gather(f, 1, last_clip.to(d)),
-                              f[:, blank_id].contiguous(), st_d, lo, hi, V,
-                              blank_id))
-        st, ys[t] = tp_exchange(outs)
-    return st, ys
+        for d in cards:
+            if t == 0:
+                ins = (None, None, st0[d].data_ptr(), 1)
+            else:
+                k_in, y_in, f_in = (x[(t - 1) & 1] for x in buf[d])
+                ins = (k_in.data_ptr(), y_in.data_ptr(), f_in.data_ptr(), n)
+            ys_merged = ys.data_ptr() + (t - 1) * ys_row \
+                if t > 0 and d == dev0 else None
+            with torch.cuda.device(d):
+                err = lib.tp_frame_launch(
+                    lp[d].data_ptr() + t * row, V, 0, None, None, *ins,
+                    ys_merged, None, *fixed[d], outs[t & 1], len(cards),
+                    *tail, ctypes.c_void_p(streams[d].cuda_stream))
+            _lib.check(err, f"tp_frame (frame {t} on {d})")
+            tp_frame_launches += 1
+            if len(cards) > 1:
+                events[d].record(streams[d])
+        if len(cards) > 1:
+            for d in cards:
+                for e in cards:
+                    if e != d:
+                        streams[d].wait_event(events[e])
+    k_in, y_in, f_in = (x[(T - 1) & 1] for x in buf[dev0])
+    with torch.cuda.device(dev0):
+        err = lib.tp_frame_launch(
+            lp[dev0].data_ptr(), V, 0, None, None, k_in.data_ptr(),
+            y_in.data_ptr(), f_in.data_ptr(), n,
+            ys.data_ptr() + (T - 1) * ys_row, fin.data_ptr(), None, 1, n, 0,
+            1, outs[0], 0, *tail, ctypes.c_void_p(streams[dev0].cuda_stream))
+    _lib.check(err, "tp_frame (the closing merge)")
+    tp_frame_launches += 1
+    return fin, ys
 
 
 def tp_envelope(W: int, V: int, n: int, scan: bool) -> bool:
@@ -521,12 +696,49 @@ def tp_envelope(W: int, V: int, n: int, scan: bool) -> bool:
 
 def tp_scan_plain(log_probs: torch.Tensor, init: torch.Tensor, n: int,
                   blank_id: int = 0):
-    """Plain PyTorch version: `tp_frame_plain` on every shard, then the
-    in-process exchange and merge, frame by frame. Returns (fins
-    [n, NF, B, W], ys [T, B, W]) like `tp_scan`."""
-    dev = log_probs.device
-    fin, ys = tp_frames(log_probs, init, [dev] * n, blank_id, tp_frame_plain)
+    """Plain version: `tp_frames_plain`, every shard's final state the
+    merged one. Returns (fins [n, NF, B, W], ys [T, B, W]) like
+    `tp_scan`."""
+    fin, ys = tp_frames_plain(log_probs, init, n, blank_id)
     return fin.unsqueeze(0).expand(n, -1, -1, -1).contiguous(), ys
+
+
+def pick_design(n: int, cards: int, W: int, V: int,
+                cluster_limit: int = TP_CLUSTER_PORTABLE) -> str:
+    """`tp_scan`'s design for n shards on `cards` cards: "cluster" where
+    every shard sits on one card and n <= min(TP_CLUSTER_PICK,
+    cluster_limit) (cluster_limit: the largest cluster of the kernel the
+    card holds, `tp_cluster_limit`; 8 blocks portably, up to 16), "push"
+    otherwise. Raises where no design admits the shape: outside JAX's
+    `scan_ok` (W <= 128, n <= V <= 256, ceil(V/n) <= 128), or more cards
+    than shards. `tp_scan(design="cluster")` takes the cluster design up to
+    cluster_limit."""
+    if n < 1 or cards < 1 or cards > n:
+        raise ValueError(f"tp_scan: {n} shards on {cards} cards")
+    if W < 1 or not tp_envelope(W, V, n, scan=True):
+        raise ValueError(f"tp_scan: W={W}, V={V}, n={n} is outside the "
+                         f"kernel's envelope (W <= 128, n <= V <= 256, "
+                         f"ceil(V/n) <= 128)")
+    if cards == 1 and n <= min(cluster_limit, TP_CLUSTER_PICK):
+        return "cluster"
+    return "push"
+
+
+_cluster_limits = {}
+
+
+def tp_cluster_limit(device, W: int, V: int) -> int:
+    """The largest cluster (at most 16 blocks) of tp_scan's cluster design
+    at n = its size that `device` holds at least once."""
+    dev = torch.device(device)
+    key = (dev.index, W, V)
+    if key not in _cluster_limits:
+        c = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _lib.check(_lib.load("decode_tp").tp_scan_cluster_limit(
+                W, V, ctypes.byref(c)), "tp_scan_cluster_limit")
+        _cluster_limits[key] = c.value
+    return _cluster_limits[key]
 
 
 def _pointer_table(tensors, dev) -> torch.Tensor:
@@ -535,7 +747,8 @@ def _pointer_table(tensors, dev) -> torch.Tensor:
 
 
 def tp_scan(log_probs: torch.Tensor, init: torch.Tensor,
-            devices: Sequence[torch.device], blank_id: int = 0):
+            devices: Sequence[torch.device], blank_id: int = 0,
+            design: str = None):
     """The whole vocab-sharded scan of one model group.
 
     log_probs [T, B, V] float32 (replicated onto every shard's device);
@@ -545,102 +758,91 @@ def tp_scan(log_probs: torch.Tensor, init: torch.Tensor,
     device: every shard's final packed beam (equal on every shard) and the
     packed backpointers, bit-equal to `fused_prefix_decode`'s.
 
-    On CUDA tensors: one cooperative launch per card that holds shards,
-    each card's shards x G blocks (G: as many as every card holds at once,
-    at most B), all issued before any synchronisation;
-    shards on other cards are reached through peer pointers. A grid that
-    cannot be resident at once raises, never runs. Envelope: W <= 128,
-    n <= V <= 256, ceil(V/n) <= 128 (JAX's `scan_ok`)."""
-    devices = [torch.device(d) for d in devices]
+    On CUDA tensors the design is `pick_design`'s (or `design`, which the
+    placement must admit): "cluster", one launch of clusters of n blocks
+    on the one card (as many as it holds at once, each walking
+    utterances; n up to `tp_cluster_limit`); "push", one cooperative
+    launch per card that holds shards, each card's shards x G blocks (G:
+    as many as every card holds at once, at most B), all issued before
+    any synchronisation, shards on other cards reached through peer
+    pointers; a grid that cannot be resident at once raises, never runs.
+    Envelope: W <= 128, n <= V <= 256, ceil(V/n) <= 128 (JAX's
+    `scan_ok`)."""
     n = len(devices)
-    kinds = {d.type for d in devices} | {log_probs.device.type}
-    if kinds == {"cpu"}:
+    if {torch.device(d).type for d in devices} | {log_probs.device.type} \
+            == {"cpu"}:
         return tp_scan_plain(log_probs, init, n, blank_id)
-    if kinds != {"cuda"}:
-        raise ValueError(f"tp_scan: the shards' devices {devices} and "
-                         f"log_probs on {log_probs.device} must all be CUDA "
-                         f"or all be the CPU")
-    if log_probs.ndim != 3 or log_probs.dtype != torch.float32:
-        raise ValueError("tp_scan: log_probs must be float32 [T, B, V]")
-    T, B, V = log_probs.shape
-    if init.ndim != 3 or init.shape[:2] != (len(FIELDS), B) or \
-            init.dtype != torch.int32:
-        raise ValueError(f"tp_scan: init must be int32 [NF, {B}, W]")
-    W = init.shape[2]
-    if W < 1 or not tp_envelope(W, V, n, scan=True):
-        raise ValueError(f"tp_scan: W={W}, V={V}, n={n} is outside the "
-                         f"kernel's envelope (W <= 128, n <= V <= 256, "
-                         f"ceil(V/n) <= 128)")
+    devices, T, B, V, W = _cuda_group(log_probs, init, devices, "tp_scan")
+    cards = list(dict.fromkeys(devices))          # in first-shard order
+    dev0 = devices[0]
+    limit = tp_cluster_limit(dev0, W, V) \
+        if len(cards) == 1 and 1 <= W <= 128 else 0
+    picked = pick_design(n, len(cards), W, V, limit)
+    if design is None:
+        design = picked
+    elif design not in TP_DESIGNS or (design == "cluster" and (
+            len(cards) > 1 or n > limit)):
+        raise ValueError(f"tp_scan: design {design!r} does not admit {n} "
+                         f"shards on {len(cards)} card(s) (cluster limit "
+                         f"{limit}); {picked!r} does")
     if not 0 <= blank_id < V:
         raise ValueError(f"blank_id {blank_id} out of range for V={V}")
-    cards = list(dict.fromkeys(devices))          # in first-shard order
-    local = {d: [s for s in range(n) if devices[s] == d] for d in cards}
-    dev0 = devices[0]
     fins = torch.empty(n, len(FIELDS), B, W, dtype=torch.int32, device=dev0)
     ys = torch.empty(T, B, W, dtype=torch.int32, device=dev0)
     if T * B == 0:
         fins[:] = init.to(dev0)
         return fins, ys
     lib = _lib.load("decode_tp")
+    global tp_scan_launches
+    if design == "cluster":
+        lp = log_probs.to(dev0).contiguous()
+        init_d = init.to(dev0).contiguous()
+        with torch.cuda.device(dev0):
+            err = lib.tp_scan_cluster_launch(
+                lp.data_ptr(), init_d.data_ptr(), T, B, W, V, blank_id, n,
+                ys.data_ptr(), fins.data_ptr(), _lib.stream(dev0))
+        _lib.check(err, f"tp_scan ({B} clusters of {n} blocks on {dev0})")
+        tp_scan_launches += 1
+        return fins, ys
+    local = {d: [s for s in range(n) if devices[s] == d] for d in cards}
     cap = {}
     for d in cards:
         c = ctypes.c_int(0)
         with torch.cuda.device(d):
-            _lib.check(lib.tp_scan_capacity(W, V, n, ctypes.byref(c)),
-                       "tp_scan_capacity")
+            _lib.check(lib.tp_scan_push_capacity(W, V, n, ctypes.byref(c)),
+                       "tp_scan_push_capacity")
         cap[d] = c.value
     G = min(B, min(cap[d] // len(local[d]) for d in cards))
     if G < 1:
         raise ValueError(
             f"tp_scan: {n} shards cannot be resident at once on "
             f"{[str(d) for d in cards]}, which hold {list(cap.values())} "
-            f"blocks; the exchange needs every block of a group resident")
-    # per card: its shards' outboxes [2, G, W] keys and zeroed flags [G]
-    outbox = {d: torch.empty(len(local[d]), 2, G, W, dtype=torch.int64,
-                             device=d) for d in cards}
-    flags = {d: torch.zeros(len(local[d]), G, dtype=torch.int32, device=d)
-             for d in cards}
-    box_of = [outbox[devices[s]][local[devices[s]].index(s)]
-              for s in range(n)]
-    flag_of = [flags[devices[s]][local[devices[s]].index(s)]
-               for s in range(n)]
-    if len(cards) > 1:
-        ready = {}
-        for d in cards:
-            with torch.cuda.device(d):
-                for e in cards:
-                    if e != d:
-                        _lib.check(lib.enable_peer_access(e.index),
-                                   f"tp_scan: peer access {d} -> {e}")
-                ready[d] = torch.cuda.Event()
-                ready[d].record()
-        for d in cards:                    # every card's flags zeroed first
-            for e in cards:
-                torch.cuda.current_stream(d).wait_event(ready[e])
+            f"blocks; the push exchange needs every block of a group "
+            f"resident")
+    inbox = push_inboxes(devices, G, 2 * W)
     args = []
     for d in cards:
         args.append((d, log_probs.to(d).contiguous(), init.to(d).contiguous(),
                      torch.tensor(local[d], dtype=torch.int32, device=d),
-                     _pointer_table(box_of, d), _pointer_table(flag_of, d),
+                     _pointer_table(inbox, d),
                      torch.empty(len(local[d]), len(FIELDS), B, W,
                                  dtype=torch.int32, device=d)))
-    global tp_scan_launches
-    for d, lp_d, init_d, shards_d, box_d, flag_d, fin_d in args:
+    for d, lp_d, init_d, shards_d, box_d, fin_d in args:
         with torch.cuda.device(d):
-            err = lib.tp_scan_launch(
-                _lib.ptr(lp_d), _lib.ptr(init_d), T, B, W, V, blank_id, n,
-                _lib.ptr(shards_d), len(local[d]), G, _lib.ptr(box_d),
-                _lib.ptr(flag_d), _lib.ptr(ys) if d == dev0 else None,
-                _lib.ptr(fin_d), _lib.stream(d))
+            err = lib.tp_scan_push_launch(
+                lp_d.data_ptr(), init_d.data_ptr(), T, B, W, V, blank_id, n,
+                shards_d.data_ptr(), len(local[d]), G, box_d.data_ptr(),
+                ys.data_ptr() if d == dev0 else None, fin_d.data_ptr(),
+                _lib.stream(d))
         _lib.check(err, f"tp_scan ({len(local[d])} shards x {G} blocks on "
                         f"{d})")
         tp_scan_launches += 1
     if len(cards) > 1:
-        # the outboxes and flags go back to each card's allocator when this
-        # returns, while peers on other cards may still read them
+        # the inboxes go back to each card's allocator when this returns,
+        # while peers on other cards may still write them
         for d in cards:
             torch.cuda.synchronize(d)
-    for d, _, _, _, _, _, fin_d in args:
+    for d, _, _, _, _, fin_d in args:
         for i, s in enumerate(local[d]):
             fins[s] = fin_d[i].to(dev0)
     return fins, ys

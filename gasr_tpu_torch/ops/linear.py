@@ -26,26 +26,27 @@ import torch
 
 
 def uniform_init(generator: torch.Generator, shape, bound: float,
-                 device="cpu") -> torch.Tensor:
-    """U(-bound, bound) float32, drawn on the CPU from `generator` and then
-    moved, so a seed gives the same weights on every device."""
-    x = torch.rand(shape, generator=generator, dtype=torch.float32)
+                 device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """U(-bound, bound) in `dtype`, drawn on the CPU from `generator` and
+    then moved, so a seed gives the same weights on every device."""
+    x = torch.rand(shape, generator=generator, dtype=dtype)
     return (x * (2 * bound) - bound).to(device)
 
 
 def normal_init(generator: torch.Generator, shape, scale: float,
-                device="cpu") -> torch.Tensor:
-    """N(0, 1) * scale float32, drawn on the CPU from `generator`."""
-    x = torch.randn(shape, generator=generator, dtype=torch.float32)
+                device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """N(0, 1) * scale in `dtype`, drawn on the CPU from `generator`."""
+    x = torch.randn(shape, generator=generator, dtype=dtype)
     return (x * scale).to(device)
 
 
 def linear_init(generator: torch.Generator, in_dim: int, out_dim: int,
-                device="cpu") -> dict:
+                device="cpu", dtype=torch.float32) -> dict:
     """U(-1/sqrt(in), 1/sqrt(in)) on w and b (torch.nn.Linear's scale)."""
     bound = 1.0 / (in_dim ** 0.5)
-    return {"w": uniform_init(generator, (in_dim, out_dim), bound, device),
-            "b": uniform_init(generator, (out_dim,), bound, device)}
+    return {"w": uniform_init(generator, (in_dim, out_dim), bound, device,
+                              dtype),
+            "b": uniform_init(generator, (out_dim,), bound, device, dtype)}
 
 
 def _tensor_core_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -35,27 +35,29 @@ from gasr_tpu_torch.ops.linear import uniform_init
 
 
 def lstm_cell_init(generator: torch.Generator, input_size: int,
-                   hidden_size: int, device="cpu") -> dict:
+                   hidden_size: int, device="cpu",
+                   dtype=torch.float32) -> dict:
     """torch.nn.LSTM default init: U(-1/sqrt(H), 1/sqrt(H)) on all tensors."""
     bound = 1.0 / (hidden_size ** 0.5)
     H4 = 4 * hidden_size
     shapes = {"w_ih": (input_size, H4), "w_hh": (hidden_size, H4),
               "b_ih": (H4,), "b_hh": (H4,)}
-    return {k: uniform_init(generator, s, bound, device)
+    return {k: uniform_init(generator, s, bound, device, dtype)
             for k, s in shapes.items()}
 
 
 def lstm_init(generator: torch.Generator, input_size: int, hidden_size: int,
               num_layers: int = 1, bidirectional: bool = False,
-              device="cpu") -> dict:
+              device="cpu", dtype=torch.float32) -> dict:
     n_dir = 2 if bidirectional else 1
     layers, layers_rev = [], []
     for l in range(num_layers):
         in_l = input_size if l == 0 else hidden_size * n_dir
-        layers.append(lstm_cell_init(generator, in_l, hidden_size, device))
+        layers.append(lstm_cell_init(generator, in_l, hidden_size, device,
+                                     dtype))
         if bidirectional:
             layers_rev.append(lstm_cell_init(generator, in_l, hidden_size,
-                                             device))
+                                             device, dtype))
     params = {"layers": layers}
     if bidirectional:
         params["layers_rev"] = layers_rev

@@ -36,13 +36,14 @@ from gasr_tpu_torch.ops.linear import uniform_init
 
 
 def rnn_cell_init(generator: torch.Generator, input_size: int,
-                  hidden_size: int, device="cpu") -> dict:
+                  hidden_size: int, device="cpu",
+                  dtype=torch.float32) -> dict:
     """torch.nn.RNN default init: U(-1/sqrt(H), 1/sqrt(H)) on all tensors."""
     bound = 1.0 / (hidden_size ** 0.5)
     shapes = {"w_ih": (input_size, hidden_size),
               "w_hh": (hidden_size, hidden_size),
               "b_ih": (hidden_size,), "b_hh": (hidden_size,)}
-    return {k: uniform_init(generator, s, bound, device)
+    return {k: uniform_init(generator, s, bound, device, dtype)
             for k, s in shapes.items()}
 
 
@@ -57,17 +58,18 @@ def rnn_cell(params: dict, x_t: torch.Tensor,
 
 def rnn_init(generator: torch.Generator, input_size: int, hidden_size: int,
              num_layers: int = 1, bidirectional: bool = False,
-             device="cpu") -> dict:
+             device="cpu", dtype=torch.float32) -> dict:
     """Params: {'layers': [cell, ...], 'layers_rev': [...] if bidirectional}.
     Layer l > 0 takes H inputs (2H when bidirectional)."""
     n_dir = 2 if bidirectional else 1
     layers, layers_rev = [], []
     for l in range(num_layers):
         in_l = input_size if l == 0 else hidden_size * n_dir
-        layers.append(rnn_cell_init(generator, in_l, hidden_size, device))
+        layers.append(rnn_cell_init(generator, in_l, hidden_size, device,
+                                    dtype))
         if bidirectional:
             layers_rev.append(rnn_cell_init(generator, in_l, hidden_size,
-                                            device))
+                                            device, dtype))
     params = {"layers": layers}
     if bidirectional:
         params["layers_rev"] = layers_rev

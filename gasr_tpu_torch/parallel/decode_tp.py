@@ -14,15 +14,19 @@ index w*V + v ascending).
 
 Three implementations (`tp_impl`), as in JAX:
   * "fused": the whole-scan kernel (`ops/cuda/fused_decode.py::tp_scan`,
-    `csrc/decode_tp.cu`): all T frames of every shard in one cooperative
-    launch per card, the beam state in shared memory, the per-frame
-    exchange of the shards' sorted top-W key lists inside the kernel.
+    `csrc/decode_tp.cu`): all T frames of every shard in one launch per
+    card, the beam state in shared memory, the per-frame exchange of the
+    shards' sorted top-W key lists inside the kernel (`csrc/exchange.cuh`:
+    through distributed shared memory in a thread-block cluster where the
+    group sits on one card, pushed into the peers' inboxes otherwise).
     V <= 256. At n == 1 no exchange code runs.
-  * "fused_frame": the local-frame kernel (`tp_frame`) once per shard and
-    frame, then the exchange and global top-W in PyTorch (`tp_exchange`).
+  * "fused_frame": the frame kernel (`tp_frames`): one launch a card a
+    frame, each block merging the previous frame's lists before it runs
+    its shard's frame, then one closing merge; nothing else in the loop.
     Any V with ceil(V/n) <= 128.
-  * "xla": the plain version of the whole slice: `tp_frame_plain` once
-    per shard and frame, the same exchange, the plain traceback. JAX's
+  * "xla": the plain version of the whole slice (`tp_frames_plain`):
+    `tp_frame_merged_plain` per shard and frame, the same merge, the plain
+    traceback. JAX's
     "xla" shard step offers the stays on shard 0 and ranks them after the
     shard's extends (an exact tie at the W-th local place can then drop
     one, ROADMAP Queue 3); here, as in the kernels, they sit in the blank
@@ -63,8 +67,11 @@ def _scan(impl: str, log_probs: torch.Tensor, init: torch.Tensor,
     if impl == "fused":
         fins, ys = _fd.tp_scan(log_probs, init, devices, blank_id)
         return _fd.unpack_state(fins[0]), ys
-    frame = _fd.tp_frame if impl == "fused_frame" else _fd.tp_frame_plain
-    fin, ys = _fd.tp_frames(log_probs, init, devices, blank_id, frame)
+    if impl == "fused_frame":
+        fin, ys = _fd.tp_frames(log_probs, init, devices, blank_id)
+    else:
+        fin, ys = _fd.tp_frames_plain(log_probs.to(devices[0]), init,
+                                      len(devices), blank_id)
     return _fd.unpack_state(fin), ys
 
 

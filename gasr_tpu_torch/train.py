@@ -321,11 +321,13 @@ def synthetic_batch(config: Config, generator: torch.Generator,
 
 def train_loop(config: Config, num_steps: int = 20,
                checkpoint_path: Optional[str] = None, resume: bool = False,
-               log_every: int = 5):
+               log_every: int = 5, mesh=None):
     """Train on synthetic batches with checkpoint / resume: the params and
     the step counter round-trip through an npz (`runtime.checkpoint`, the
     JAX package's key scheme); the optimizer state starts anew on resume,
-    as in the JAX package. Returns (params, the losses logged)."""
+    as in the JAX package. `mesh` is taken and unused, as in the JAX
+    package (the sharded step is `make_sharded_train_step`). Returns
+    (params, the losses logged)."""
     from gasr_tpu_torch.runtime.checkpoint import load_params, save_params
 
     optimizer = make_optimizer()

@@ -312,9 +312,14 @@ def main() -> int:
         procs.append((name, so, subprocess.Popen(
             _nvcc_cmd(src, inc, so, [*extra, "-Xptxas", "-v"]),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    # each tree's decode_tp.cu (the vocab-sharded kernels), built alongside
+    # each tree's decode_tp.cu (the vocab-sharded kernels), built alongside;
+    # trees from before the merged frame kernel have other C entries
     tp_procs = []
     for name, src in trees.items():
+        if "tp_scan_cluster_launch" not in (src / "decode_tp.cu").read_text():
+            print(f"{name}: decode_tp.cu has an earlier C interface; its "
+                  f"vocab-sharded kernels are not timed", flush=True)
+            continue
         so = out_dir / f"libdecode_tp_{name}.so"
         tp_procs.append((name, so, subprocess.Popen(
             [_lib._nvcc(), *_lib._BASE_FLAGS, *_lib._EXTRA_FLAGS["decode_tp"],

@@ -1069,8 +1069,10 @@ def _resident(lib_name, capacity_fn, *args):
     return cap.value
 
 
-# B=None: one utterance more than the persistent grid holds a shard, so
-# some blocks walk two
+# B=None: one utterance more than the push design's persistent grid holds
+# a shard, so some blocks walk two (the cluster design gives every
+# utterance a cluster of its own)
+@pytest.mark.parametrize("design", ["cluster", "push"])
 @pytest.mark.parametrize("T,B,V,W,n", [
     (12, 3, 47, 1, 4),         # W = 1
     (9, 4, 13, 9, 13),         # n = V
@@ -1078,16 +1080,26 @@ def _resident(lib_name, capacity_fn, *args):
     (6, 2, 256, 64, 8),
     (6, None, 29, 6, 3),       # B not a multiple of the grid
     (3, None, 40, 100, 1),     # n = 1: no exchange
+    (4, 3, 40, 8, 20),         # n past the cluster limit (16)
 ])
-def test_tp_scan_kernel_equals_plain_and_single_card(dev, T, B, V, W, n):
+def test_tp_scan_kernel_equals_plain_and_single_card(dev, T, B, V, W, n,
+                                                      design):
+    limit = fused_decode.tp_cluster_limit(dev, W, V)
+    if design == "cluster" and n > limit:
+        with pytest.raises(ValueError, match="does not admit"):
+            fused_decode.tp_scan(torch.zeros(T, 1, V, device=dev),
+                                 fused_decode.pack_state(
+                                     tbs._init_beam(1, W, dev)),
+                                 [dev] * n, 0, design=design)
+        return
     if B is None:
-        B = _resident("decode_tp", "tp_scan_capacity", W, V, n) // n + 1
+        B = _resident("decode_tp", "tp_scan_push_capacity", W, V, n) // n + 1
     rng = np.random.default_rng(T * B + V)
     lp = torch.from_numpy(_log_softmax(rng.standard_normal((T, B, V)))).to(
         dev)
     init = fused_decode.pack_state(tbs._init_beam(B, W, dev))
     n0 = fused_decode.tp_scan_launches
-    fins, ys = fused_decode.tp_scan(lp, init, [dev] * n, 0)
+    fins, ys = fused_decode.tp_scan(lp, init, [dev] * n, 0, design=design)
     assert fused_decode.tp_scan_launches == n0 + 1
     fp, yp = fused_decode.tp_scan_plain(lp, init, n, 0)
     assert torch.equal(ys, yp) and torch.equal(fins, fp)
@@ -1098,64 +1110,102 @@ def test_tp_scan_kernel_equals_plain_and_single_card(dev, T, B, V, W, n):
         assert torch.equal(fins[s], fused_decode.pack_state(beam))
 
 
-# Bt=None: one row more than the persistent grid holds a shard
-@pytest.mark.parametrize("n,Bt", [(2, 5), (4, 9), (8, None)])
-def test_toy_exchange_kernel_equals_oracle(dev, n, Bt):
+def test_tp_scan_cluster_limit_and_design(dev):
+    # the card admits clusters of the portable 8 at the flagship shape;
+    # "auto" takes the cluster design up to TP_CLUSTER_PICK shards on one
+    # card, push past it and across cards
+    limit = fused_decode.tp_cluster_limit(dev, 100, 47)
+    assert 8 <= limit <= 16
+    assert fused_decode.pick_design(2, 1, 100, 47, limit) == "cluster"
+    assert fused_decode.pick_design(4, 1, 100, 47, limit) == "push"
+    assert fused_decode.pick_design(4, 2, 100, 47, limit) == "push"
+
+
+# Bt=None: one row more than the push grid holds a shard
+@pytest.mark.parametrize("design", ["cluster", "push"])
+@pytest.mark.parametrize("n,Bt", [(2, 5), (4, 9), (8, None), (16, 3)])
+def test_toy_exchange_kernel_equals_oracle(dev, n, Bt, design):
+    if design == "cluster" and n > exchange_probe.toy_cluster_limit(dev):
+        pytest.skip(f"the card holds no toy cluster of {n}")
     if Bt is None:
-        Bt = _resident("exchange_probe", "toy_exchange_capacity") // n + 1
+        Bt = _resident("exchange_probe", "toy_push_capacity", n) // n + 1
     rng = np.random.default_rng(n * Bt)
     keys = np.sort(rng.integers(-50, 50, (n, 7, Bt, 128)),
                    axis=-1)[..., ::-1].astype(np.int32).copy()
     n0 = exchange_probe.toy_exchange_launches
     got = exchange_probe.toy_exchange_scan(torch.from_numpy(keys).to(dev),
-                                           n).cpu().numpy()
+                                           n, design=design).cpu().numpy()
     assert exchange_probe.toy_exchange_launches == n0 + 1
     want = exchange_probe.toy_exchange_oracle(keys)
     for s in range(n):
         np.testing.assert_array_equal(got[s], want)
 
 
-# the cooperative launches themselves refuse a grid the card cannot hold
-# at once (the wrappers size the grid to fit): an error code, nothing runs
+# the launches themselves refuse a grid past their design's limit (the
+# wrappers size it to fit): the push design's cooperative grid that cannot
+# be resident at once, the cluster design's cluster past the card's limit;
+# an error code, nothing runs
 _NOT_RESIDENT = r"""
 import ctypes, sys, torch
 from gasr_tpu_torch.decoder import beam_search as tbs
-from gasr_tpu_torch.ops.cuda import _lib, fused_decode as fd
+from gasr_tpu_torch.ops.cuda import _lib, exchange_probe, fused_decode as fd
 dev = torch.device("cuda")
 tbl = lambda ts: torch.tensor([t.data_ptr() for t in ts], dtype=torch.int64,
                               device=dev)
 cap = ctypes.c_int(0)
 lib = _lib.load("decode_tp")
-_lib.check(lib.tp_scan_capacity(8, 16, 4, ctypes.byref(cap)), "capacity")
+_lib.check(lib.tp_scan_push_capacity(8, 16, 4, ctypes.byref(cap)),
+           "capacity")
 G = cap.value                                  # 4 shards x G blocks
 lp = torch.zeros(3, 2, 16, device=dev).log_softmax(-1)
 init = fd.pack_state(tbs._init_beam(2, 8, dev))
-box = torch.empty(4, 2, G, 8, dtype=torch.int64, device=dev)
-flags = torch.zeros(4, G, dtype=torch.int32, device=dev)
+box = [torch.zeros(2, G, 4, 16, dtype=torch.int64, device=dev)
+       for _ in range(4)]
 shards = torch.arange(4, dtype=torch.int32, device=dev)
 ys = torch.empty(3, 2, 8, dtype=torch.int32, device=dev)
 fin = torch.empty(4, 9, 2, 8, dtype=torch.int32, device=dev)
-err = lib.tp_scan_launch(_lib.ptr(lp), _lib.ptr(init), 3, 2, 8, 16, 0, 4,
-                         _lib.ptr(shards), 4, G, _lib.ptr(tbl(box)),
-                         _lib.ptr(tbl(flags)), _lib.ptr(ys), _lib.ptr(fin),
-                         _lib.stream(dev))
+err = lib.tp_scan_push_launch(lp.data_ptr(), init.data_ptr(), 3, 2, 8, 16, 0,
+                              4, shards.data_ptr(), 4, G,
+                              tbl(box).data_ptr(), ys.data_ptr(),
+                              fin.data_ptr(), _lib.stream(dev))
 torch.cuda.synchronize()
-print("tp_scan: launch error", err)
+print("tp_scan push: launch error", err)
 if err == 0:
-    sys.exit("the oversized tp_scan launch ran")
+    sys.exit("the oversized tp_scan push launch ran")
+# a cluster past the card's limit (17 past the non-portable 16)
+n = fd.tp_cluster_limit(dev, 8, 64) + 1
+lp = torch.zeros(3, 2, 64, device=dev).log_softmax(-1)
+fin = torch.empty(n, 9, 2, 8, dtype=torch.int32, device=dev)
+err = lib.tp_scan_cluster_launch(lp.data_ptr(), init.data_ptr(), 3, 2, 8, 64,
+                                 0, n, ys.data_ptr(), fin.data_ptr(),
+                                 _lib.stream(dev))
+torch.cuda.synchronize()
+print("tp_scan cluster: launch error", err)
+if err == 0:
+    sys.exit("the tp_scan cluster past the card's limit ran")
 lib = _lib.load("exchange_probe")
-_lib.check(lib.toy_exchange_capacity(ctypes.byref(cap)), "capacity")
+_lib.check(lib.toy_push_capacity(2, ctypes.byref(cap)), "capacity")
 G = cap.value                                  # 2 shards x G blocks
 keys = torch.zeros(2, 1, G, 128, dtype=torch.int32, device=dev)
-box = torch.empty(2, 2, G, 128, dtype=torch.int64, device=dev)
-flags = torch.zeros(2, G, dtype=torch.int32, device=dev)
+box = [torch.zeros(2, G, 2, 256, dtype=torch.int64, device=dev)
+       for _ in range(2)]
+shards = torch.arange(2, dtype=torch.int32, device=dev)
 out = torch.empty_like(keys)
-err = lib.toy_exchange_launch(_lib.ptr(keys), 1, G, 2, G, _lib.ptr(tbl(box)),
-                              _lib.ptr(tbl(flags)), _lib.ptr(out),
-                              _lib.stream(dev))
+err = lib.toy_push_launch(keys.data_ptr(), 1, G, 2, shards.data_ptr(), 2, G,
+                          tbl(box).data_ptr(), out.data_ptr(),
+                          _lib.stream(dev))
 torch.cuda.synchronize()
-print("toy_exchange: launch error", err)
-sys.exit(0 if err != 0 else "the oversized toy_exchange launch ran")
+print("toy_exchange push: launch error", err)
+if err == 0:
+    sys.exit("the oversized toy_exchange push launch ran")
+n = exchange_probe.toy_cluster_limit(dev) + 1
+keys = torch.zeros(n, 1, 2, 128, dtype=torch.int32, device=dev)
+out = torch.empty_like(keys)
+err = lib.toy_cluster_launch(keys.data_ptr(), 1, 2, n, out.data_ptr(),
+                             _lib.stream(dev))
+torch.cuda.synchronize()
+print("toy_exchange cluster: launch error", err)
+sys.exit(0 if err != 0 else "the toy cluster past the card's limit ran")
 """
 
 
@@ -1171,7 +1221,7 @@ def test_tp_grid_that_cannot_be_resident_raises_not_hangs(dev):
                        capture_output=True, text=True, timeout=180,
                        env=dict(os.environ, PYTHONPATH=root))
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.count("launch error") == 2
+    assert r.stdout.count("launch error") == 4
 
 
 @pytest.mark.parametrize("impl", ["auto", "fused", "fused_frame", "xla"])
@@ -1186,7 +1236,8 @@ def test_tp_decode_and_stream_on_one_card_equal_single_card(dev, impl):
     counts = (fused_decode.tp_frame_launches, fused_decode.tp_scan_launches)
     got = decode_tp.ctc_beam_search_tp(lp, beam_width=W, mesh=mesh,
                                        max_len=L, tp_impl=impl)
-    frames = {"auto": T * 3, "fused_frame": T * 3}.get(impl, 0)
+    # one launch a frame on the one card, and the closing merge
+    frames = {"auto": T + 1, "fused_frame": T + 1}.get(impl, 0)
     assert (fused_decode.tp_frame_launches - counts[0],
             fused_decode.tp_scan_launches - counts[1]) == (
         frames, int(impl == "fused"))
@@ -1206,8 +1257,9 @@ def test_tp_decode_and_stream_on_one_card_equal_single_card(dev, impl):
 
 
 def test_tp_scan_and_decode_with_shards_on_several_cards(dev):
-    # the outboxes and flags of shards on another card are reached through
-    # peer pointers; one cooperative launch per card
+    # the push design: the inboxes of shards on another card are reached
+    # through peer pointers, one cooperative launch per card; the frame
+    # kernel writes its lists into every card's buffer
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more CUDA cards")
     from gasr_tpu_torch.parallel import decode_tp, make_mesh
@@ -1233,6 +1285,15 @@ def test_tp_scan_and_decode_with_shards_on_several_cards(dev):
                                                max_len=16, tp_impl=impl)
             for f in single._fields:
                 assert torch.equal(getattr(got, f), getattr(single, f)), f
+        keys = np.sort(rng.integers(-50, 50, (len(devices), 5, 7, 128)),
+                       axis=-1)[..., ::-1].astype(np.int32).copy()
+        n0 = exchange_probe.toy_exchange_launches
+        toy = exchange_probe.toy_exchange_scan(
+            torch.from_numpy(keys).to(dev), len(devices), devices=devices)
+        assert exchange_probe.toy_exchange_launches == n0 + 2
+        want = exchange_probe.toy_exchange_oracle(keys)
+        for s in range(len(devices)):
+            np.testing.assert_array_equal(toy[s].cpu().numpy(), want)
 
 
 # ------------------------------------------------------------- training

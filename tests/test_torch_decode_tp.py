@@ -175,6 +175,75 @@ def test_tp_frame_on_cpu_is_the_plain_version_and_keys_order():
     assert bool(((v >= 4) & (v < 9)).all())          # the window's ids only
 
 
+def test_tp_frame_merged_plain_of_the_state_is_tp_frame_plain():
+    # the loop's frame with one input list that is the state is the
+    # JAX-shaped single frame; with the shards' lists it merges them first
+    lp = _lp(9, 4, 3, 13)
+    st, _ = _mid_state(lp, 7, 3)
+    f = torch.from_numpy(lp[3])
+    last = st[tfd.FIELDS.index("last")].long().clamp(0, 12)
+    for lo, hi in tfd.shard_bounds(13, 3):
+        prev, got = tfd.tp_frame_merged_plain(f, None, None, st[None], lo, hi,
+                                              13)
+        want = tfd.tp_frame_plain(f[:, lo:hi], torch.gather(f, 1, last),
+                                  f[:, 0].contiguous(), st, lo, hi, 13)
+        assert prev is None
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    outs = [tfd.tp_frame_plain(f[:, lo:hi], torch.gather(f, 1, last),
+                               f[:, 0].contiguous(), st, lo, hi, 13)
+            for lo, hi in tfd.shard_bounds(13, 3)]
+    keys, ys, fins = (torch.stack([o[i] for o in outs]) for i in (1, 0, 2))
+    merged, ys_m = tfd.tp_merge_plain(keys, ys, fins)
+    beam, ys1 = tfd.fused_prefix_decode_plain(torch.from_numpy(lp),
+                                              tbs._init_beam(3, 7, "cpu"))
+    assert torch.equal(merged, tfd.pack_state(beam))
+    assert torch.equal(ys_m, ys1[3])
+
+
+# (n, cards, W, V, cluster limit) -> the design, or None: no design admits
+@pytest.mark.parametrize("n,cards,W,V,limit,want", [
+    (1, 1, 100, 47, 16, "cluster"),
+    (2, 1, 100, 47, 16, "cluster"),
+    (2, 1, 100, 47, 1, "push"),        # the card holds no cluster of 2
+    (4, 1, 100, 47, 16, "push"),       # past TP_CLUSTER_PICK
+    (8, 1, 16, 129, 8, "push"),
+    (16, 1, 8, 40, 16, "push"),
+    (20, 1, 8, 40, 16, "push"),        # past any cluster
+    (4, 4, 100, 47, 16, "push"),       # one shard a card
+    (4, 2, 100, 47, 16, "push"),
+    (2, 2, 16, 256, 16, "push"),
+    (1, 1, 128, 256, 16, None),        # a window of 256 > 128
+    (2, 1, 129, 47, 16, None),         # W > 128
+    (2, 1, 0, 47, 16, None),
+    (4, 1, 8, 300, 16, None),          # V > 256 (the scan keeps the row)
+    (13, 1, 8, 12, 16, None),          # n > V
+    (2, 3, 8, 47, 16, None),           # more cards than shards
+    (0, 1, 8, 47, 16, None),
+])
+def test_pick_design(n, cards, W, V, limit, want):
+    if want is None:
+        with pytest.raises(ValueError):
+            tfd.pick_design(n, cards, W, V, limit)
+    else:
+        assert tfd.pick_design(n, cards, W, V, limit) == want
+
+
+def test_tp_kernels_on_cpu_take_the_plain_versions():
+    # tp_scan / tp_frames on CPU tensors: the plain merged loop, no launch
+    lp = torch.from_numpy(_lp(4, 6, 2, 11))
+    init = tfd.pack_state(tbs._init_beam(2, 5, "cpu"))
+    f0, s0 = tfd.tp_frame_launches, tfd.tp_scan_launches
+    fins, ys = tfd.tp_scan(lp, init, CPU8[:3])
+    fin, ys2 = tfd.tp_frames(lp, init, CPU8[:3])
+    assert (tfd.tp_frame_launches, tfd.tp_scan_launches) == (f0, s0)
+    beam, ys1 = tfd.fused_prefix_decode_plain(lp, tbs._init_beam(2, 5, "cpu"))
+    assert torch.equal(ys, ys1) and torch.equal(ys2, ys1)
+    assert torch.equal(fin, tfd.pack_state(beam))
+    for s in range(3):
+        assert torch.equal(fins[s], fin)
+
+
 # ----------------------------------------------------- batch decode
 
 _SHAPES = [(4, 8, 12, 8, 3), (8, 6, 29, 6, 2), (4, 8, 12, 15, 3),
