@@ -5,9 +5,13 @@
 
 Builds the CUDA kernels from gasr_tpu_torch/csrc, holds each against its
 plain PyTorch version at the shapes of the main paths, reproduces the
-golden decode fixtures through the port, and drives two paths on the
+golden decode fixtures through the port, and drives three paths on the
 `reference_large` preset (B=256, T=200, F=78, hidden 2048, V=47, beam
 100, max_len 256), counting the kernel launches of one run of each:
+  - `ctc_beam_search(topk_impl="approx")` on phase 2's decode inputs, with
+    and without an LM, held bit-equal to its plain version, its recall
+    against the exact decode and its ms, and the decode kernel from a beam
+    whose slots carry -0.0 (phase 2b);
   - `Pipeline.transcribe` with rnn_impl="pallas" (phase 6);
   - the streaming decode, `streaming_step` over the same log-probs in 10
     chunks of 20 frames, held array-equal to the batch decode, then
@@ -845,6 +849,52 @@ def tp_profile_main(T, B, V, W, L) -> int:
     return 0 if idx and len(one) == 20 else 1
 
 
+def signed_zero_state(B, W, V, dev):
+    """A beam of W live slots, each a distinct two-symbol prefix (a, b) of
+    non-blank symbols (blank 0), with p_blank -0.0 and p_nonblank NEG_INF.
+    Where frame 0 holds -0.0 at b, the extend (w, b) scores -0.0 + -0.0 =
+    -0.0, and every candidate that adds a +-0.0 to a total scores +0.0:
+    the signed-zero tie. A fresh beam never scores -0.0: logaddexp returns
+    m + log1p(e) with log1p(e) >= +0.0, and -0.0 + +0.0 = +0.0."""
+    import torch
+    from gasr_tpu_torch.decoder import beam_search as bs
+    n = V - 1
+    if n * n < W:
+        raise ValueError(f"V={V} has too few symbols for W={W} prefixes")
+    cols = {f: [] for f in ("h1", "h2", "hp1", "hp2", "last")}
+    for w in range(W):
+        a, b = 1 + (w // n) % n, 1 + w % n
+        hp1 = (bs.H_SEED * bs.M1 + a + 1) & bs.MASK32
+        hp2 = (bs.H_SEED * bs.M2 + a + 1) & bs.MASK32
+        for f, x in (("hp1", hp1), ("hp2", hp2),
+                     ("h1", (hp1 * bs.M1 + b + 1) & bs.MASK32),
+                     ("h2", (hp2 * bs.M2 + b + 1) & bs.MASK32), ("last", b)):
+            cols[f].append(x)
+
+    def rows(f, dtype):
+        return torch.tensor(cols[f], dtype=dtype).expand(B, W).to(
+            dev).contiguous()
+    return bs._BeamState(
+        h1=rows("h1", torch.int64), h2=rows("h2", torch.int64),
+        hp1=rows("hp1", torch.int64), hp2=rows("hp2", torch.int64),
+        last=rows("last", torch.int32),
+        length=torch.full((B, W), 2, dtype=torch.int32, device=dev),
+        tb=torch.zeros((B, W), dtype=torch.int32, device=dev),
+        live=torch.ones((B, W), dtype=torch.bool, device=dev),
+        s1=torch.full((B, W), -0.0, dtype=torch.float32, device=dev),
+        s2=torch.full((B, W), bs.NEG_INF, dtype=torch.float32, device=dev))
+
+
+def signed_zero_frame(B, V, rng):
+    """Frame 0 for `signed_zero_state`: -0.0, +0.0 (30%) and -1.0 (10%),
+    -0.0 at symbol 1, so slot 0's extend (0, 1) scores -0.0 at an index
+    below W beside W or more +0.0 candidates."""
+    z = np.where(rng.random((B, V)) < 0.3, 0.0, -0.0)
+    z = np.where(rng.random((B, V)) < 0.1, -1.0, z)
+    z[:, 1] = -0.0
+    return z.astype(np.float32)
+
+
 def cuda_events_ms(fn, iters=10, warmup=1):
     """Mean ms of `iters` calls between two CUDA events, after warm-up."""
     import torch
@@ -1083,6 +1133,108 @@ def main() -> int:
                          iters=2, warmup=1),
         library_ms=None, max_abs_err=float(tb_err), bound_ms=b_ms,
         bound_by=b_by)
+
+    # ---- 2b. topk_impl="approx" at the same shape, through the decoder.
+    # JAX's approx_max_k takes lax.top_k's top-W at k < n off the TPU
+    # (tests/test_torch_decode.py), so the decode kernel runs it: one
+    # fused_prefix_decode and one traceback launch, no standalone topk
+    rng_a = np.random.default_rng(20261017)
+    lm_a = torch.from_numpy((rng_a.standard_normal((V + 1, V)) * 2).astype(
+        np.float32)).to(dev)
+    res_e = ctc_beam_search(lp_r, beam_width=W, max_len=L)
+    approx_runs = {}
+    for tag, kw in (("no LM", {}), ("LM", {"lm_bias": lm_a})):
+        ctc_beam_search(lp_r, beam_width=W, max_len=L, topk_impl="approx",
+                        **kw)                                 # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        res_a = ctc_beam_search(lp_r, beam_width=W, max_len=L,
+                                topk_impl="approx", **kw)
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = {name: 0 for name in got}
+        want.update(fused_prefix_decode=1, traceback=1,
+                    fused_prefix_decode_lm=int(tag == "LM"))
+        check(got == want, f"approx decode ({tag}) launched {got}")
+        approx_runs[tag] = got
+        res_ap = ctc_beam_search(lp_r, beam_width=W, max_len=L,
+                                 topk_impl="approx", merge_impl="matched",
+                                 **kw)
+        for field in ("tokens", "lengths", "timesteps", "overflow"):
+            check(torch.equal(getattr(res_a, field), getattr(res_ap, field)),
+                  f"approx decode ({tag}): kernel and plain {field} differ")
+        check(torch.equal(res_a.scores.view(torch.int32),
+                          res_ap.scores.view(torch.int32)),
+              f"approx decode ({tag}): kernel and plain score bits differ")
+        if tag == "no LM":
+            res_a0 = res_a
+    print(f"approx decode (ctc_beam_search topk_impl='approx', T={T}, B={B}, "
+          f"W={W}, V={V}), with and without an LM: launches "
+          f"{approx_runs['no LM']} / {approx_runs['LM']}; kernel == plain "
+          f"(tokens, lengths, timesteps, overflow, score bits)", flush=True)
+    # recall of the approx decode's final beams against the exact kernel
+    # decode's: the share of the exact (b, w) hypotheses (live prefixes)
+    # that the approx beams hold too
+    tok_a, tok_e = res_a0.tokens.cpu().numpy(), res_e.tokens.cpu().numpy()
+    len_a, len_e = (res_a0.lengths.cpu().numpy(),
+                    res_e.lengths.cpu().numpy())
+    live_e = (res_e.scores > -1e29).cpu().numpy()
+    live_a = (res_a0.scores > -1e29).cpu().numpy()
+    found = total = 0
+    for b in range(B):
+        hyp_a = {tuple(tok_a[b, w, :len_a[b, w]]) for w in range(W)
+                 if live_a[b, w]}
+        for w in range(W):
+            if live_e[b, w]:
+                total += 1
+                found += tuple(tok_e[b, w, :len_e[b, w]]) in hyp_a
+    recall = found / total
+    check(recall == 1.0, f"approx decode recall {recall} against exact")
+    # the signed-zero tie inside the kernel: a hand-made beam whose live
+    # slots carry p_blank -0.0, frame 0 of -0.0, +0.0 and -1.0 (-0.0 at
+    # symbol 1), the rest phase 2's log-probs; fused_prefix_decode takes the
+    # packed state. Where +0.0 and -0.0 tie, lax.top_k and lax.approx_max_k
+    # (at k < n) both rank +0.0 first, so the two orders cannot differ on
+    # this or any state: the check is the kernel against its plain version
+    zinit = signed_zero_state(B, W, V, dev)
+    lp_z = lp_r.clone()
+    lp_z[0] = torch.from_numpy(signed_zero_frame(B, V, rng_a)).to(dev)
+    zero_counts()
+    fin_zk, ys_zk = fused_decode.fused_prefix_decode(lp_z, zinit)
+    torch.cuda.synchronize()
+    check(read_counts()["fused_prefix_decode"] == 1,
+          "the signed-zero decode did not launch the kernel")
+    fin_zp, ys_zp = fused_decode.fused_prefix_decode_plain(lp_z, zinit)
+    check(torch.equal(ys_zk, ys_zp) and torch.equal(
+        fused_decode.pack_state(fin_zk), fused_decode.pack_state(fin_zp)),
+        "signed-zero decode: kernel and plain differ")
+    zc = ys_zk[0].long()
+    check(not bool((((zc & 0x7FFF) == 0) & (((zc >> 15) & 0x7FFF) == 1)
+                    & (((zc >> 30) & 1) == 1)).any()),
+          "signed-zero decode: the -0.0 extend (slot 0, symbol 1) won "
+          "frame 0 over +0.0 candidates")
+    # ms: whole decodes (decode + traceback) both ways, in turns
+    turns = {"exact": [], "approx": []}
+    for impl in ("exact", "approx", "approx", "exact"):
+        turns[impl].append(cuda_ms(lambda impl=impl: ctc_beam_search(
+            lp_r, beam_width=W, max_len=L, topk_impl=impl), iters=5,
+            warmup=1))
+    approx_ms = min(turns["approx"])
+    exact_ms = min(turns["exact"])
+    print(f"approx decode: recall of the final beams against the exact "
+          f"kernel decode {recall} ({found} of {total} live hypotheses; "
+          f"JAX's recall_target 0.99); signed-zero init: kernel == plain "
+          f"(ys, final state), +0.0 ranked above -0.0 as lax.top_k and "
+          f"lax.approx_max_k rank them; ctc_beam_search ms (decode + "
+          f"traceback, CUDA events, best of 2 turns of 5): approx "
+          f"{approx_ms:.4f}, exact {exact_ms:.4f} on {card_line()}",
+          flush=True)
+    report["fused_prefix_decode"]["approx"] = dict(
+        launches=approx_runs["no LM"]["fused_prefix_decode"],
+        launches_lm=approx_runs["LM"]["fused_prefix_decode"],
+        ms=approx_ms, exact_ms=exact_ms, max_abs_err=0.0, recall=recall,
+        recall_target=0.99, signed_zero_state="kernel == plain")
+    del res_e, res_a, res_ap, res_a0, lp_z
 
     # ---- 3. recurrence at T=200, B=256, H=2048, over RNN_SEEDS
     bnd = 1.0 / H ** 0.5
@@ -3048,6 +3200,9 @@ def main() -> int:
         "toy_exchange": ("gasr_tpu_torch/csrc/exchange_probe.cu",
                          "gasr_tpu/ops/pallas/exchange_probe.py:127"),
     }
+    # topk_impl="approx" adds no row and no variant: it runs rows 1-2 as
+    # they are (phase 2b; its counts are the "approx_decode" paths and the
+    # decode's "approx" sub-entry).
     # `launches` is each kernel's count on the path that exercises it:
     # transcribe for the first four, the stream for traceback_overlay, the
     # conformer forward + decode for flash_mhsa_rel, that path with
@@ -3057,6 +3212,8 @@ def main() -> int:
     # (it runs on no serving path: it tests tp_scan's exchange); the
     # training runs of phases 13-14 are listed by path beside them
     runs = {"transcribe": launches, "streaming": s_launches,
+            "approx_decode": approx_runs["no LM"],
+            "approx_decode_lm": approx_runs["LM"],
             "conformer": c_launches, "conformer_stem_pallas": cs_launches,
             "deepspeech2": d_launches, "bilstm_2x256": b_launches,
             "lm_streaming": lms_launches, "transcribe_audio": a_launches,
@@ -3095,6 +3252,13 @@ def main() -> int:
               + f", bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |kernel - plain| {r['max_abs_err']} "
               f"on {card}")
+        if "approx" in r:
+            a = r["approx"]
+            print(f"kernel {name}, topk_impl='approx' (the same kernel): "
+                  f"ctc_beam_search {a['ms']:.4f} ms against exact "
+                  f"{a['exact_ms']:.4f}, launches {a['launches']} (with an "
+                  f"LM {a['launches_lm']}), recall {a['recall']} (target "
+                  f"{a['recall_target']}), kernel == plain on {card}")
         if "lm" in r:
             print(f"kernel {name}, LM variant: {r['lm']['ms']:.4f} ms (without "
                   f"the LM {r['lm']['ms_no_lm']:.4f}), plain "
@@ -3112,7 +3276,7 @@ def main() -> int:
         if name in inside:
             entry["inside"] = inside[name]
         for extra in ("library_call", "kernel_launches_per_call", "ms_bidir",
-                      "lm", "ms_by_design", "design_n4", "device_ms",
+                      "lm", "approx", "ms_by_design", "design_n4", "device_ms",
                       "loop_launch_ms", "closing_merge_ms",
                       "fused_frame_n4_ms", "ms_n2_by_cards", "ms_n4_by_cards",
                       "exchange_bytes", "ms_rounds",

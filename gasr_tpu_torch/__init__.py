@@ -6,15 +6,17 @@ counterpart is found under the same name. It imports `torch`, never
 `jax`, and nothing of `gasr_tpu`: where it needs a piece of a
 framework-neutral module it keeps its own copy.
 
-What runs here (ROADMAP.md "Queue 1" lists the rest):
+The port does all that `gasr_tpu` does (tests/test_torch_parity.py holds
+its public API to JAX's, module by module). Among what runs here:
   - DeepSpeech-1 forward (3 x Linear+ReLU, tanh Elman RNN, Linear+ReLU,
     Linear, log_softmax), `models/deepspeech.py`;
   - Conformer-CTC forward (conv subsampling stem, rel-pos MHSA blocks,
     bf16 mixed precision), `models/conformer.py`;
   - greedy decoding and CTC beam search, the "prefix" and "reference"
-    algorithms (log or prob domain, matched or sort merge), batch and
-    streaming (`streaming_init` / `streaming_step`), with bigram shallow
-    fusion (`lm_bias`, tables from `decoder/lm.py`), `decoder/`;
+    algorithms (log or prob domain, matched or sort merge, exact or
+    approx top-k), batch and streaming (`streaming_init` /
+    `streaming_step`), with bigram shallow fusion (`lm_bias`, tables from
+    `decoder/lm.py`), `decoder/`;
   - the audio front end: the native C++ log-mel (`native/`, built with
     g++ at first use), `logmel_torch`, `cmvn`, `add_context`
     (`data/features.py`) and the dataset helpers (`data/dataset.py`);

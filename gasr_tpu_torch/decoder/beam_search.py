@@ -40,8 +40,16 @@ prefix). It is quantized to bfloat16 once and handed, as float32, to the
 decode kernel or to the matched scan alike (JAX's contract,
 `gasr_tpu/decoder/beam_search.py:703-710`); the matched merge only.
 
-Not ported (`NotImplementedError`, ROADMAP.md Queue 1):
-topk_impl="approx".
+topk_impl: "exact" takes each frame's top-W by `lax.top_k`; "approx" by
+`lax.approx_max_k(..., recall_target=0.99)` in JAX's matched step
+(`gasr_tpu/decoder/beam_search.py:376-383`). Off the TPU that is XLA's
+sort-and-slice fallback, which at k < n (the decoder's k = W, n = W*V)
+returns `lax.top_k`'s indices bit for bit, +0.0 above -0.0 included
+(measured with jax 0.9.0 on the CPU, tests/test_torch_approx.py): the
+same selection, so "approx" takes the same top-W here and in the decode
+kernel. It needs the matched merge and raises where JAX raises
+(`_pick_step`, `_use_kernels`). `ctc_beam_search` only: `streaming_step`
+takes no topk_impl, as JAX's does not.
 """
 
 from __future__ import annotations
@@ -232,6 +240,8 @@ def _frame_step(state: _BeamState, f: torch.Tensor, blank_id: int,
     cand = torch.where((vs == blank_id)[None, None, :],
                        stay_score[:, :, None], ext_score)
 
+    # lax.top_k's order, which is also lax.approx_max_k's at k = W < W*V
+    # (topk_impl="approx"; see the module docstring)
     top_vals, idx = topk_plain(cand.reshape(B, W * V), W)
     idx = idx.long()
     w_sel = idx // V
@@ -365,9 +375,11 @@ def _make_frame_step(blank_id: int, algorithm: str, log_domain: bool):
 
 
 def _pick_step(blank_id: int, algorithm: str, log_domain: bool,
-               merge_impl: str, lm_q: Optional[torch.Tensor] = None):
+               merge_impl: str, lm_q: Optional[torch.Tensor] = None,
+               topk_impl: str = "exact"):
     """The eager frame step for merge_impl ("pallas" here means its plain
-    version, the matched step): (state, f, is_last) -> (state', ys)."""
+    version, the matched step): (state, f, is_last) -> (state', ys).
+    Raises as JAX's `_pick_step`, in its order of checks."""
     matched = algorithm == "prefix" and log_domain and merge_impl != "sort"
     if merge_impl == "matched" and not matched:
         raise ValueError("matched merge requires algorithm='prefix'")
@@ -376,6 +388,8 @@ def _pick_step(blank_id: int, algorithm: str, log_domain: bool,
     if matched:
         return lambda state, f, is_last: _frame_step(state, f, blank_id,
                                                      lm_q)
+    if topk_impl != "exact":
+        raise ValueError("approx top-k requires the matched-merge path")
     return _make_frame_step(blank_id, algorithm, log_domain)
 
 
@@ -472,10 +486,6 @@ def _check_options(algorithm: str, prob_domain: bool, merge_impl: str,
         raise ValueError(f"unknown merge_impl {merge_impl!r}")
     if topk_impl not in ("exact", "approx"):
         raise ValueError(f"unknown topk_impl {topk_impl!r}")
-    if topk_impl != "exact":
-        raise NotImplementedError(
-            f"topk_impl={topk_impl!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 8); only 'exact'")
 
 
 def _quantize_lm(lm_bias, V: int, device) -> Optional[torch.Tensor]:
@@ -491,11 +501,21 @@ def _quantize_lm(lm_bias, V: int, device) -> Optional[torch.Tensor]:
 
 
 def _use_kernels(merge_impl: str, algorithm: str, log_domain: bool, W: int,
-                 V: int, device: torch.device, has_lm: bool = False) -> bool:
+                 V: int, device: torch.device, has_lm: bool = False,
+                 topk_impl: str = "exact") -> bool:
     """JAX `_use_pallas`, decided by shape before any launch: "auto" takes
     the CUDA kernels for CUDA tensors where the shape rule holds;
     "pallas" raises where the request cannot be honoured, and takes the
-    kernels' plain versions (the eager matched scan) for CPU tensors."""
+    kernels' plain versions (the eager matched scan) for CPU tensors.
+
+    One departure, by design: "auto" with topk_impl="approx" takes the
+    kernels too, where JAX keeps approx off its kernel (Mosaic's
+    selection is exact only). JAX's approx runs its matched scan, whose
+    counterpart here is the eager scan, the decode kernel's plain
+    version, ~80x slower on the card. Off the TPU `lax.approx_max_k`
+    takes `lax.top_k`'s top-W (module docstring), which the kernel takes,
+    so the results are those of JAX's route and only what runs differs.
+    "pallas" with approx raises, as in JAX."""
     from gasr_tpu_torch.ops.cuda.fused_decode import in_envelope
     eligible = (algorithm == "prefix" and log_domain
                 and in_envelope(W, V, has_lm))
@@ -506,6 +526,8 @@ def _use_kernels(merge_impl: str, algorithm: str, log_domain: bool, W: int,
     if not (algorithm == "prefix" and log_domain):
         raise ValueError("merge_impl='pallas' requires the log-domain "
                          "prefix algorithm")
+    if topk_impl != "exact":
+        raise ValueError("merge_impl='pallas' is exact-top-k only")
     if has_lm and V > 255:
         raise ValueError("merge_impl='pallas' supports lm_bias only "
                          "for V <= 255; use merge_impl='matched'")
@@ -532,7 +554,7 @@ def ctc_beam_search(
 
     Returns a BeamSearchResult with the beams sorted best-first per
     example; tokens are collapsed symbol ids (never blank), -1 padded.
-    merge_impl: see the module docstring.
+    merge_impl, topk_impl: see the module docstring.
     input_lengths: [B] per-utterance frame counts (prefix algorithm, log
     domain); frames at t >= length become a certain blank, which leaves
     every prefix's probability (transcripts and scores) unchanged.
@@ -561,14 +583,15 @@ def ctc_beam_search(
     lm_q = _quantize_lm(lm_bias, V, log_probs.device)
     init = _init_beam(B, W, log_probs.device, log_domain)
     if _use_kernels(merge_impl, algorithm, log_domain, W, V,
-                    log_probs.device, lm_q is not None):
+                    log_probs.device, lm_q is not None, topk_impl):
         from gasr_tpu_torch.ops.cuda import fused_decode
         final, packed_ys = fused_decode.fused_prefix_decode(
             log_probs, init, blank_id, lm_q=lm_q)
         tokens, timesteps, _ = fused_decode.traceback(packed_ys,
                                                       final.length, L)
     else:
-        step = _pick_step(blank_id, algorithm, log_domain, merge_impl, lm_q)
+        step = _pick_step(blank_id, algorithm, log_domain, merge_impl, lm_q,
+                          topk_impl)
         # the reference strips trailing blanks only on the final frame,
         # and never when T == 1
         final, packed_ys = _scan(log_probs, init, step,

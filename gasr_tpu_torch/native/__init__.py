@@ -69,6 +69,14 @@ def _get() -> ctypes.CDLL:
     return _lib
 
 
+class lib:
+    """Namespace mirroring the C API (JAX's `native.lib`)."""
+
+    @staticmethod
+    def current_seconds() -> float:
+        return _get().gasr_current_seconds()
+
+
 def current_seconds() -> float:
     return _get().gasr_current_seconds()
 

@@ -30,6 +30,7 @@ from gasr_tpu_torch.ops.cuda import (_lib, exchange_probe, flash_mhsa,
                                      fused_decode, lstm_scan, rnn_scan, stem,
                                      topk)
 from gasr_tpu_torch.ops.linear import matmul
+from chip_smoke import signed_zero_frame, signed_zero_state
 
 pytestmark = pytest.mark.cuda
 
@@ -152,6 +153,67 @@ def test_decode_kernel_equals_plain_on_tie_grids(dev, W, V, T, B, lm, kind):
     -0.0; frame 0 holds fewer live candidates than W."""
     lp = torch.from_numpy(_tie_log_probs(kind, T, B, V, W + V)).to(dev)
     _decode_equal_plain(lp, W, lm_q=_lm_table(dev, V, W) if lm else None)
+
+
+def signed_zero_log_probs(T, B, V, seed):
+    """Random log-probs with frame 0 from `chip_smoke.signed_zero_frame`:
+    the tie of `signed_zero_state` sits in frame 0."""
+    rng = np.random.default_rng(seed)
+    lp = _log_softmax(rng.standard_normal((T, B, V)))
+    lp[0] = signed_zero_frame(B, V, rng)
+    return lp
+
+
+@pytest.mark.parametrize("W,V,T,B,lm", [
+    (100, 47, 6, 3, False),    # the flagship's W and V
+    (16, 129, 5, 2, False),    # conformer_l's
+    (64, 129, 4, 2, True),     # the LM variant
+    (8, 12, 7, 2, False),
+    (128, 128, 3, 2, False),   # the envelope's corners
+    (64, 256, 3, 2, False),
+])
+def test_decode_kernel_equals_plain_on_signed_zero_ties(dev, W, V, T, B, lm):
+    """From a beam whose live slots carry -0.0 (`signed_zero_state`), frame 0
+    ties -0.0 extends with +0.0 candidates inside the kernel: bit-equal to
+    the eager matched scan, which ranks +0.0 first as lax.top_k and, at
+    k < n, lax.approx_max_k do; the -0.0 cell (slot 0, symbol 1) is no
+    winner of frame 0 (with an LM no candidate scores -0.0: the table
+    holds no -0.0, and -0.0 + +0.0 = +0.0)."""
+    lp = torch.from_numpy(signed_zero_log_probs(T, B, V, W)).to(dev)
+    init = signed_zero_state(B, W, V, dev)
+    lm_q = _lm_table(dev, V, W) if lm else None
+    fin_k, ys_k = fused_decode.fused_prefix_decode(lp, init, 0, lm_q)
+    fin_p, ys_p = fused_decode.fused_prefix_decode_plain(lp, init, 0, lm_q)
+    assert torch.equal(ys_k, ys_p)
+    assert torch.equal(fused_decode.pack_state(fin_k),
+                       fused_decode.pack_state(fin_p))
+    parent, char, appended = tbs._unpack_ys(ys_k[0])
+    assert not ((parent == 0) & (char == 1) & appended).any()
+
+
+def test_approx_ctc_beam_search_takes_the_kernel(dev):
+    """"auto" with topk_impl="approx" on CUDA tensors: one decode launch and
+    one traceback launch, no standalone topk, equal to the eager matched
+    scan with approx and to the exact decode (also with lm_bias and
+    input_lengths); "pallas" refuses approx, as in JAX."""
+    T, B, V, W = 12, 3, 29, 16
+    rng = np.random.default_rng(5)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((T, B, V)))).to(
+        dev)
+    for kw in ({}, {"lm_bias": _lm_table(dev, V, 3)},
+               {"input_lengths": torch.tensor([12, 7, 1], device=dev)}):
+        n = (fused_decode.decode_launches, fused_decode.traceback_launches,
+             topk.launches)
+        got = tbs.ctc_beam_search(lp, W, max_len=16, topk_impl="approx", **kw)
+        assert (fused_decode.decode_launches - n[0],
+                fused_decode.traceback_launches - n[1],
+                topk.launches - n[2]) == (1, 1, 0)
+        for other in (dict(topk_impl="approx", merge_impl="matched"), {}):
+            want = tbs.ctc_beam_search(lp, W, max_len=16, **other, **kw)
+            for f in got._fields:
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="exact-top-k only"):
+        tbs.ctc_beam_search(lp, W, merge_impl="pallas", topk_impl="approx")
 
 
 def test_decode_kernel_back_to_back_on_one_stream(dev):

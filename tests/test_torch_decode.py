@@ -124,10 +124,22 @@ def test_input_lengths_blank_padding_matches_jax():
     _assert_same_result(got, want)
 
 
-@pytest.mark.parametrize("kw", [{"topk_impl": "approx"}])
+@pytest.mark.parametrize("kw", [
+    {"merge_impl": "pallas"},                 # JAX's _use_pallas
+    {"merge_impl": "sort"},                   # JAX's _pick_step
+    {"algorithm": "reference"},
+])
 def test_unported_decoder_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbs.ctc_beam_search(torch.zeros(2, 1, 3), beam_width=2, **kw)
+    """topk_impl="approx", once unported, now raises only where JAX's
+    decoder raises, with JAX's ValueError text."""
+    lp = np.zeros((2, 1, 3), np.float32)
+    with pytest.raises(ValueError) as want:
+        jbs.ctc_beam_search(jnp.asarray(lp), beam_width=2,
+                            topk_impl="approx", **kw)
+    with pytest.raises(ValueError) as got:
+        tbs.ctc_beam_search(torch.from_numpy(lp), beam_width=2,
+                            topk_impl="approx", **kw)
+    assert str(got.value) == str(want.value)
 
 
 def test_decode_to_lists():
@@ -163,6 +175,29 @@ def test_topk_plain_equals_lax_top_k():
     # +0.0 ranks above -0.0 (torch.sort / torch.topk would not)
     assert topk_plain(torch.tensor([[0., -0., 1., -0., 0.]]), 5)[1] \
         .tolist() == [[2, 0, 4, 1, 3]]
+
+
+def test_topk_plain_equals_lax_approx_max_k_below_n():
+    """topk_impl="approx" is `lax.approx_max_k`; off the TPU, at k < n (the
+    decoder's k = W against n = W*V), it gives `lax.top_k`'s indices and
+    the operand's values bit for bit, +0.0 above -0.0 included, which
+    `topk_plain` gives. (At k == n the fallback is a whole-row sort whose
+    ties come out in no fixed order past 16 elements; the decoder never
+    asks for it with a tie that shows.)"""
+    cases = [(x, k) for x, k in _total_order_cases() if k < x.shape[1]]
+    assert len(cases) == 3
+    for x, k in cases:
+        want_v, want_i = lax.approx_max_k(jnp.asarray(x), k,
+                                          recall_target=0.99)
+        got_v, got_i = topk_plain(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_v.numpy().view(np.int32),
+                                      np.asarray(want_v).view(np.int32))
+    # the signed-zero rows tie +0.0 and -0.0 at the k-th place, where an
+    # order that took them as equal would pick other indices
+    x, k = cases[1]
+    canon = np.argsort(-(x + 0.0), axis=1, kind="stable")[:, :k]
+    assert not np.array_equal(canon, topk_plain(torch.from_numpy(x), k)[1])
 
 
 @pytest.mark.parametrize("L", [4, 12])

@@ -53,6 +53,8 @@ from gasr_tpu.ops.pallas.fused_decode import fused_prefix_decode, pack_state
 from gasr_tpu_torch.decoder import beam_search as tbs
 from gasr_tpu_torch.ops.cuda import fused_decode
 from gasr_tpu_torch.ops.cuda.topk import monotone_bits, topk_plain
+from chip_smoke import signed_zero_state
+from test_torch_cuda import signed_zero_log_probs
 
 LOW32 = (1 << 32) - 1
 WARPS = 16                  # the kernel's warps (512 threads)
@@ -431,6 +433,24 @@ def test_emulated_decode_equals_matched_scan(W, V, kind):
     init = tbs._init_beam(B, W, "cpu")       # frame 0: fewer live than W
     want_st, want_ys = tbs._matched_scan(lp, init, 0)
     for warps, order in ((WARPS, 0), (2, 1), (1, 2)):
+        st, ys = emulate_scan(lp, init, 0, None, warps, order,
+                              check_topk=warps == WARPS)
+        assert torch.equal(ys, want_ys), (warps, order)
+        _same_state(st, want_st)
+
+
+@pytest.mark.parametrize("W,V", [(8, 12), (16, 12), (100, 47)])
+def test_emulated_decode_on_signed_zero_ties(W, V):
+    """From `signed_zero_state`, frame 0 ties -0.0 extends with +0.0 ones
+    (a fresh beam never scores -0.0): the seed, the walk and the ranks on
+    the 64-bit keys keep lax.top_k's order there, +0.0 first (also
+    lax.approx_max_k's at k < n, topk_impl="approx"), and a -0.0 key
+    below the +0.0 threshold is dropped, as the plain scan drops it."""
+    T, B = 3, 1
+    lp = torch.from_numpy(signed_zero_log_probs(T, B, V, W))
+    init = signed_zero_state(B, W, V, "cpu")
+    want_st, want_ys = tbs._matched_scan(lp, init, 0)
+    for warps, order in ((WARPS, 0), (2, 1)):
         st, ys = emulate_scan(lp, init, 0, None, warps, order,
                               check_topk=warps == WARPS)
         assert torch.equal(ys, want_ys), (warps, order)

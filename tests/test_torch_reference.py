@@ -104,10 +104,11 @@ def test_sort_merge_prefix_matches_jax_and_matched(T, B, V, W):
                 got.tokens[b, w, :n].tolist()
 
 
-def _jax_use_pallas(merge_impl, algorithm, log_domain, W, V):
+def _jax_use_pallas(merge_impl, algorithm, log_domain, W, V,
+                    topk_impl="exact"):
     try:
         return jbs._use_pallas(merge_impl, algorithm, log_domain, W, V,
-                               "exact", None), None
+                               topk_impl, None), None
     except ValueError as e:
         return None, str(e)
 
@@ -120,34 +121,49 @@ def test_kernel_dispatch_matches_jax_use_pallas():
             for algorithm, log_domain in (("prefix", True),
                                           ("reference", True),
                                           ("reference", False)):
-                # JAX "pallas" returns True where its rule holds and
-                # raises elsewhere, with the port's messages
-                ok, err = _jax_use_pallas("pallas", algorithm, log_domain,
-                                          W, V)
-                for dev in (cpu, cuda):
-                    if err is None:
-                        assert tbs._use_kernels("pallas", algorithm,
-                                                log_domain, W, V, dev) \
-                            == (dev.type == "cuda")
+                for topk_impl in ("exact", "approx"):
+                    # JAX "pallas" returns True where its rule holds and
+                    # raises elsewhere, with the port's messages (approx:
+                    # "exact-top-k only" after the algorithm check)
+                    ok, err = _jax_use_pallas("pallas", algorithm,
+                                              log_domain, W, V, topk_impl)
+                    for dev in (cpu, cuda):
+                        if err is None:
+                            assert tbs._use_kernels(
+                                "pallas", algorithm, log_domain, W, V, dev,
+                                topk_impl=topk_impl) == (dev.type == "cuda")
+                        else:
+                            with pytest.raises(ValueError) as e:
+                                tbs._use_kernels("pallas", algorithm,
+                                                 log_domain, W, V, dev,
+                                                 topk_impl=topk_impl)
+                            assert str(e.value) == err
+                    # "auto": the kernels on CUDA tensors exactly where JAX
+                    # would take them on its accelerator with exact top-k,
+                    # for approx too (the one departure: JAX's approx runs
+                    # its matched scan, whose selection the kernel's
+                    # equals); never on the CPU
+                    exact_ok = _jax_use_pallas("pallas", algorithm,
+                                               log_domain, W, V)[1] is None
+                    assert tbs._use_kernels("auto", algorithm, log_domain, W,
+                                            V, cuda, topk_impl=topk_impl) \
+                        == exact_ok
+                    if topk_impl == "exact":
+                        assert exact_ok == (err is None)
                     else:
-                        with pytest.raises(ValueError) as e:
-                            tbs._use_kernels("pallas", algorithm, log_domain,
-                                             W, V, dev)
-                        assert str(e.value) == err
-                # "auto": the kernels on CUDA tensors exactly where JAX
-                # would take them on its accelerator; never on the CPU
-                assert tbs._use_kernels("auto", algorithm, log_domain, W, V,
-                                        cuda) == (err is None)
-                assert not tbs._use_kernels("auto", algorithm, log_domain,
-                                            W, V, cpu)
-                assert fused_decode.in_envelope(W, V) == \
-                    (_jax_use_pallas("pallas", "prefix", True, W, V)[1]
-                     is None)
-                for impl in ("matched", "sort"):
-                    assert not tbs._use_kernels(impl, algorithm, log_domain,
-                                                W, V, cuda)
-                checked += 1
-    assert checked == 330
+                        assert err is not None
+                    assert not tbs._use_kernels("auto", algorithm,
+                                                log_domain, W, V, cpu,
+                                                topk_impl=topk_impl)
+                    assert fused_decode.in_envelope(W, V) == \
+                        (_jax_use_pallas("pallas", "prefix", True, W, V)[1]
+                         is None)
+                    for impl in ("matched", "sort"):
+                        assert not tbs._use_kernels(impl, algorithm,
+                                                    log_domain, W, V, cuda,
+                                                    topk_impl=topk_impl)
+                    checked += 1
+    assert checked == 660
 
 
 @pytest.mark.parametrize("kw", [
