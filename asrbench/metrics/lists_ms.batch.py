@@ -1,0 +1,10 @@
+"""The lists' own ms a call in `decode_to_lists`: the program's
+"decode.lists.build" span (host ms) plus the device ms of the lists'
+pageable copy to the host, mean over the traced window; the fetch's wait
+for the decode's kernels is left out."""
+
+from asrbench.program_spans import lists_ms_per_call
+
+
+def read(r):
+    return lists_ms_per_call(r)

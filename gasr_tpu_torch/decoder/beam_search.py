@@ -60,6 +60,7 @@ import torch
 
 from gasr_tpu_torch.config import resolve_device
 from gasr_tpu_torch.ops.cuda.topk import topk_plain
+from gasr_tpu_torch.runtime.profiler import span
 
 NEG_INF = -1.0e30          # finite -inf stand-in (avoids nan arithmetic)
 DEAD_KEY_LOG = -3.0e38     # top-W key of dead / excluded candidates
@@ -561,44 +562,45 @@ def ctc_beam_search(
     lm_bias: optional [V+1, V] shallow-fusion table (see the module
     docstring).
     """
-    _check_options(algorithm, prob_domain, merge_impl, topk_impl)
-    if log_probs.ndim != 3 or log_probs.dtype != torch.float32:
-        raise ValueError("log_probs must be float32 [T, B, V]")
-    log_domain = not prob_domain
-    T, B, V = log_probs.shape
-    W, L = beam_width, max_len
-    if input_lengths is not None:
-        if not log_domain:
-            raise ValueError("input_lengths requires log-domain scores")
-        if algorithm != "prefix":
-            raise ValueError("input_lengths requires algorithm='prefix'")
-        t_idx = torch.arange(T, device=log_probs.device)[:, None]
-        pad = t_idx >= input_lengths.to(log_probs.device)[None, :]
-        onehot_blank = torch.where(
-            torch.arange(V, device=log_probs.device) == blank_id, 0.0,
-            NEG_INF)
-        log_probs = torch.where(pad[:, :, None], onehot_blank[None, None, :],
-                                log_probs)
+    with span("decode.search"):
+        _check_options(algorithm, prob_domain, merge_impl, topk_impl)
+        if log_probs.ndim != 3 or log_probs.dtype != torch.float32:
+            raise ValueError("log_probs must be float32 [T, B, V]")
+        log_domain = not prob_domain
+        T, B, V = log_probs.shape
+        W, L = beam_width, max_len
+        if input_lengths is not None:
+            if not log_domain:
+                raise ValueError("input_lengths requires log-domain scores")
+            if algorithm != "prefix":
+                raise ValueError("input_lengths requires algorithm='prefix'")
+            t_idx = torch.arange(T, device=log_probs.device)[:, None]
+            pad = t_idx >= input_lengths.to(log_probs.device)[None, :]
+            onehot_blank = torch.where(
+                torch.arange(V, device=log_probs.device) == blank_id, 0.0,
+                NEG_INF)
+            log_probs = torch.where(pad[:, :, None],
+                                    onehot_blank[None, None, :], log_probs)
 
-    lm_q = _quantize_lm(lm_bias, V, log_probs.device)
-    init = _init_beam(B, W, log_probs.device, log_domain)
-    if _use_kernels(merge_impl, algorithm, log_domain, W, V,
-                    log_probs.device, lm_q is not None, topk_impl):
-        from gasr_tpu_torch.ops.cuda import fused_decode
-        final, packed_ys = fused_decode.fused_prefix_decode(
-            log_probs, init, blank_id, lm_q=lm_q)
-        tokens, timesteps, _ = fused_decode.traceback(packed_ys,
-                                                      final.length, L)
-    else:
-        step = _pick_step(blank_id, algorithm, log_domain, merge_impl, lm_q,
-                          topk_impl)
-        # the reference strips trailing blanks only on the final frame,
-        # and never when T == 1
-        final, packed_ys = _scan(log_probs, init, step,
-                                 last_frame=algorithm == "reference"
-                                 and T > 1)
-        tokens, timesteps, _ = _traceback(packed_ys, final.length, L)
-    return _result(final, tokens, timesteps, L, algorithm, log_domain)
+        lm_q = _quantize_lm(lm_bias, V, log_probs.device)
+        init = _init_beam(B, W, log_probs.device, log_domain)
+        if _use_kernels(merge_impl, algorithm, log_domain, W, V,
+                        log_probs.device, lm_q is not None, topk_impl):
+            from gasr_tpu_torch.ops.cuda import fused_decode
+            final, packed_ys = fused_decode.fused_prefix_decode(
+                log_probs, init, blank_id, lm_q=lm_q)
+            tokens, timesteps, _ = fused_decode.traceback(packed_ys,
+                                                          final.length, L)
+        else:
+            step = _pick_step(blank_id, algorithm, log_domain, merge_impl,
+                              lm_q, topk_impl)
+            # the reference strips trailing blanks only on the final frame,
+            # and never when T == 1
+            final, packed_ys = _scan(log_probs, init, step,
+                                     last_frame=algorithm == "reference"
+                                     and T > 1)
+            tokens, timesteps, _ = _traceback(packed_ys, final.length, L)
+        return _result(final, tokens, timesteps, L, algorithm, log_domain)
 
 
 # ---------------------------------------------------------------- streaming
@@ -643,57 +645,67 @@ def streaming_step(
     min(L, frames + Tc) is safe) bounds that buffer pass: the all -1
     tail beyond it is attached as a constant pad.
     """
-    _check_options(algorithm, prob_domain, merge_impl)
-    if chunk_log_probs.ndim != 3 or chunk_log_probs.dtype != torch.float32:
-        raise ValueError("chunk_log_probs must be float32 [Tc, B, V]")
-    log_domain = not prob_domain
-    Tc, B, V = chunk_log_probs.shape
-    W = state.beam.s1.shape[1]
-    L = state.tokens.shape[2]
-    lm_q = _quantize_lm(lm_bias, V, chunk_log_probs.device)
+    with span("decode.search"):
+        _check_options(algorithm, prob_domain, merge_impl)
+        if (chunk_log_probs.ndim != 3
+                or chunk_log_probs.dtype != torch.float32):
+            raise ValueError("chunk_log_probs must be float32 [Tc, B, V]")
+        log_domain = not prob_domain
+        Tc, B, V = chunk_log_probs.shape
+        W = state.beam.s1.shape[1]
+        L = state.tokens.shape[2]
+        lm_q = _quantize_lm(lm_bias, V, chunk_log_probs.device)
 
-    if _use_kernels(merge_impl, algorithm, log_domain, W, V,
-                    chunk_log_probs.device, lm_q is not None):
-        from gasr_tpu_torch.ops.cuda import fused_decode
-        final, packed_ys = fused_decode.fused_prefix_decode(
-            chunk_log_probs, state.beam, blank_id, lm_q=lm_q)
-        tokens, timesteps, _ = fused_decode.traceback_overlay(
-            packed_ys, final.length, state.tokens, state.timesteps,
-            state.frames)
-    else:
-        step = _pick_step(blank_id, algorithm, log_domain, merge_impl, lm_q)
-        final, packed_ys = _scan(chunk_log_probs, state.beam, step,
-                                 last_frame=algorithm == "reference"
-                                 and is_final)
-        La = L if active_len is None else max(8, min(L, active_len))
-        tokens, timesteps, _ = _traceback(
-            packed_ys, final.length, La,
-            base_tokens=state.tokens[:, :, :La],
-            base_timesteps=state.timesteps[:, :, :La],
-            t_offset=state.frames)
-        if La < L:
-            # the tail is untouched by contract (all -1)
-            pad = (0, L - La)
-            tokens = torch.nn.functional.pad(tokens, pad, value=-1)
-            timesteps = torch.nn.functional.pad(timesteps, pad, value=-1)
-    new_state = StreamingState(beam=final, tokens=tokens,
-                               timesteps=timesteps,
-                               frames=state.frames + Tc)
-    return new_state, _result(final, tokens, timesteps, L, algorithm,
-                              log_domain)
+        if _use_kernels(merge_impl, algorithm, log_domain, W, V,
+                        chunk_log_probs.device, lm_q is not None):
+            from gasr_tpu_torch.ops.cuda import fused_decode
+            final, packed_ys = fused_decode.fused_prefix_decode(
+                chunk_log_probs, state.beam, blank_id, lm_q=lm_q)
+            tokens, timesteps, _ = fused_decode.traceback_overlay(
+                packed_ys, final.length, state.tokens, state.timesteps,
+                state.frames)
+        else:
+            step = _pick_step(blank_id, algorithm, log_domain, merge_impl,
+                              lm_q)
+            final, packed_ys = _scan(chunk_log_probs, state.beam, step,
+                                     last_frame=algorithm == "reference"
+                                     and is_final)
+            La = L if active_len is None else max(8, min(L, active_len))
+            tokens, timesteps, _ = _traceback(
+                packed_ys, final.length, La,
+                base_tokens=state.tokens[:, :, :La],
+                base_timesteps=state.timesteps[:, :, :La],
+                t_offset=state.frames)
+            if La < L:
+                # the tail is untouched by contract (all -1)
+                pad = (0, L - La)
+                tokens = torch.nn.functional.pad(tokens, pad, value=-1)
+                timesteps = torch.nn.functional.pad(timesteps, pad, value=-1)
+        new_state = StreamingState(beam=final, tokens=tokens,
+                                   timesteps=timesteps,
+                                   frames=state.frames + Tc)
+        return new_state, _result(final, tokens, timesteps, L, algorithm,
+                                  log_domain)
 
 
 def decode_to_lists(result: BeamSearchResult, top: int = 1):
-    """Host-side: result -> list (per example) of (token_list, score)."""
-    tokens = result.tokens.cpu().numpy()
-    lengths = result.lengths.cpu().numpy()
-    scores = result.scores.cpu().numpy()
-    L = tokens.shape[2]
-    out = []
-    for b in range(tokens.shape[0]):
-        beams = []
-        for w in range(min(top, tokens.shape[1])):
-            n = min(int(lengths[b, w]), L)
-            beams.append((tokens[b, w, :n].tolist(), float(scores[b, w])))
-        out.append(beams if top > 1 else beams[0])
-    return out
+    """Host-side: result -> list (per example) of (token_list, score).
+
+    Spans: "decode.lists.fetch" (the copies to the host, which wait for
+    the decode's kernels), "decode.lists.build" (the lists)."""
+    with span("decode.lists"):
+        with span("decode.lists.fetch"):
+            tokens = result.tokens.cpu().numpy()
+            lengths = result.lengths.cpu().numpy()
+            scores = result.scores.cpu().numpy()
+        with span("decode.lists.build"):
+            L = tokens.shape[2]
+            out = []
+            for b in range(tokens.shape[0]):
+                beams = []
+                for w in range(min(top, tokens.shape[1])):
+                    n = min(int(lengths[b, w]), L)
+                    beams.append((tokens[b, w, :n].tolist(),
+                                  float(scores[b, w])))
+                out.append(beams if top > 1 else beams[0])
+        return out

@@ -32,6 +32,7 @@ from gasr_tpu_torch.decoder.beam_search import (decode_to_lists,
                                                 streaming_step)
 from gasr_tpu_torch.models import model_apply, model_init
 from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
+from gasr_tpu_torch.runtime.profiler import span
 from gasr_tpu_torch.runtime.validation import check_features
 
 # default character vocabulary: blank + space + a-z (29 incl. apostrophe)
@@ -66,20 +67,21 @@ class Pipeline:
 
     def transcribe(self, features, top: int = 1
                    ) -> List[Tuple[List[int], float]]:
-        lp = self.log_probs(features)
-        if self.config.decoder == "greedy":
-            tokens, lengths = greedy_decode(lp, self.config.blank_id)
-            toks = tokens.cpu().numpy()
-            lens = lengths.cpu().numpy()
-            return [(toks[b, :lens[b]].tolist(), 0.0)
-                    for b in range(toks.shape[0])]
-        algorithm = ("reference" if self.config.decoder == "reference"
-                     else "prefix")
-        res = ctc_beam_search(
-            lp, beam_width=self.config.beam_width,
-            blank_id=self.config.blank_id,
-            max_len=self.config.decode_max_len, algorithm=algorithm)
-        return decode_to_lists(res, top=top)
+        with span("transcribe"):
+            lp = self.log_probs(features)
+            if self.config.decoder == "greedy":
+                tokens, lengths = greedy_decode(lp, self.config.blank_id)
+                toks = tokens.cpu().numpy()
+                lens = lengths.cpu().numpy()
+                return [(toks[b, :lens[b]].tolist(), 0.0)
+                        for b in range(toks.shape[0])]
+            algorithm = ("reference" if self.config.decoder == "reference"
+                         else "prefix")
+            res = ctc_beam_search(
+                lp, beam_width=self.config.beam_width,
+                blank_id=self.config.blank_id,
+                max_len=self.config.decode_max_len, algorithm=algorithm)
+            return decode_to_lists(res, top=top)
 
     def transcribe_streaming(self, feature_chunks
                              ) -> List[Tuple[List[int], float]]:
@@ -96,19 +98,21 @@ class Pipeline:
         state = rnn_state = None
         chunks = list(feature_chunks)
         for i, chunk in enumerate(chunks):
-            if not isinstance(chunk, torch.Tensor):
-                chunk = torch.from_numpy(np.asarray(chunk, np.float32))
-            x = chunk.to(device=self.device, dtype=torch.float32)
-            with torch.no_grad():
-                lp, rnn_state = deepspeech_apply_streaming(
-                    self.params, x, rnn_state)
-            if state is None:
-                state = streaming_init(lp.shape[1], self.config.beam_width,
-                                       max_len=self.config.decode_max_len,
-                                       device=self.device)
-            state, snap = streaming_step(
-                state, lp, blank_id=self.config.blank_id,
-                is_final=(i == len(chunks) - 1))
+            with span("stream.chunk"):
+                if not isinstance(chunk, torch.Tensor):
+                    chunk = torch.from_numpy(np.asarray(chunk, np.float32))
+                x = chunk.to(device=self.device, dtype=torch.float32)
+                with torch.no_grad():
+                    lp, rnn_state = deepspeech_apply_streaming(
+                        self.params, x, rnn_state)
+                if state is None:
+                    state = streaming_init(
+                        lp.shape[1], self.config.beam_width,
+                        max_len=self.config.decode_max_len,
+                        device=self.device)
+                state, snap = streaming_step(
+                    state, lp, blank_id=self.config.blank_id,
+                    is_final=(i == len(chunks) - 1))
         return decode_to_lists(snap)
 
     def audio_features(self, audio_batch: Sequence[np.ndarray],

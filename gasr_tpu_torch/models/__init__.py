@@ -15,6 +15,7 @@ from gasr_tpu_torch.models.deepspeech import (  # noqa: F401
     deepspeech_apply, deepspeech_init,
 )
 from gasr_tpu_torch.models.deepspeech2 import ds2_apply, ds2_init
+from gasr_tpu_torch.runtime.profiler import span
 
 CONFORMERS = ("conformer_s", "conformer_l", "conformer")
 
@@ -44,6 +45,7 @@ def model_init(config, generator: Optional[torch.Generator] = None,
 def model_apply(config, params, x, **kw):
     """Apply the configured model: x [B, T, F] -> log-probs [T', B, V+1]."""
     _check_family(config.model)
-    if config.model in CONFORMERS:
-        return conformer_apply(config, params, x, **kw)
-    return _APPLY[config.model](params, x, **kw)
+    with span("model.forward"):
+        if config.model in CONFORMERS:
+            return conformer_apply(config, params, x, **kw)
+        return _APPLY[config.model](params, x, **kw)

@@ -24,6 +24,7 @@ from gasr_tpu_torch.ops.rnn import (rnn_forward, rnn_forward_streaming,
                                     rnn_forward_tp, rnn_init)
 from gasr_tpu_torch.parallel.collectives import (all_gather, all_reduce,
                                                  copy_to_group)
+from gasr_tpu_torch.runtime.profiler import span
 
 
 def deepspeech_init(generator: torch.Generator, config: Config,
@@ -101,11 +102,12 @@ def deepspeech_apply_streaming(params: dict, x: torch.Tensor,
     with the state carried equal the full-utterance forward (float32,
     `rnn_impl="scan"`).
     """
-    x = x.transpose(0, 1)
-    h = linear(params["mlp1"], x, "relu")
-    h = linear(params["mlp2"], h, "relu")
-    h = linear(params["mlp3"], h, "relu")
-    h, rnn_state = rnn_forward_streaming(params["rnn"], h, rnn_state)
-    h = linear(params["mlp5"], h, "relu")
-    logits = linear(params["mlp6"], h, None)
-    return torch.log_softmax(logits, dim=-1), rnn_state
+    with span("model.forward"):
+        x = x.transpose(0, 1)
+        h = linear(params["mlp1"], x, "relu")
+        h = linear(params["mlp2"], h, "relu")
+        h = linear(params["mlp3"], h, "relu")
+        h, rnn_state = rnn_forward_streaming(params["rnn"], h, rnn_state)
+        h = linear(params["mlp5"], h, "relu")
+        logits = linear(params["mlp6"], h, None)
+        return torch.log_softmax(logits, dim=-1), rnn_state

@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gasr_tpu_torch.runtime.profiler import span
+
 NEG_INF = -1.0e30
 
 
@@ -52,7 +54,8 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     [B, S] target ids (no blanks), padded arbitrarily; input_lengths and
     label_lengths [B] (label_lengths <= S). An example no alignment can
     produce (labels longer than its frames allow) gets a loss near 1e30,
-    as in the JAX package."""
+    as in the JAX package. The span "ctc.loss" covers the recursion's
+    T - 1 steps, issued one by one from the host."""
     T, B, V = log_probs.shape
     S = labels.shape[1]
     L = 2 * S + 1
@@ -87,12 +90,15 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     alpha0[:, 1] = torch.where(label_lengths > 0, 0.0, NEG_INF)
     alpha = torch.where(valid_k, alpha0 + e_all[0], NEG_INF)
 
-    for t in range(1, T):
-        a1 = F.pad(alpha, (1, 0), value=NEG_INF)[:, :L]
-        a2 = torch.where(can_skip, F.pad(alpha, (2, 0), value=NEG_INF)[:, :L],
-                         NEG_INF)
-        alpha = torch.where(valid_k, _logsumexp3(alpha, a1, a2) + e_all[t],
-                            NEG_INF)
+    with span("ctc.loss"):
+        for t in range(1, T):
+            a1 = F.pad(alpha, (1, 0), value=NEG_INF)[:, :L]
+            a2 = torch.where(can_skip,
+                             F.pad(alpha, (2, 0), value=NEG_INF)[:, :L],
+                             NEG_INF)
+            alpha = torch.where(valid_k,
+                                _logsumexp3(alpha, a1, a2) + e_all[t],
+                                NEG_INF)
 
     # the answer: logsumexp of the last two valid positions
     last = alpha.gather(1, (ext_len - 1)[:, None])[:, 0]

@@ -40,6 +40,7 @@ from gasr_tpu_torch.parallel.distributed import global_mesh, rank_device
 from gasr_tpu_torch.parallel.sharding import (
     batch_specs, deepspeech_param_specs, gather_tree, shard_tree)
 from gasr_tpu_torch.runtime._tree import leaves, tensors, tree_map
+from gasr_tpu_torch.runtime.profiler import span
 from gasr_tpu_torch.runtime.timer import Timer
 
 
@@ -73,15 +74,18 @@ class Optimizer:
         """Clip `grads` (in the order of the state's parameters) by their
         global norm (`global_norm(grads)` unless `g_norm` is given) and
         take one AdamW step in place; returns the unclipped grads' global
-        norm (no host sync)."""
+        norm (no host sync). Spans: "optimizer.clip" (the norm and the
+        division), "optimizer.step" (AdamW)."""
         grads = list(grads)
-        if g_norm is None:
-            g_norm = global_norm(grads)
-        torch._foreach_div_(grads, torch.clamp(g_norm, min=1.0))
-        for p, g in zip(opt_state.param_groups[0]["params"], grads):
-            p.grad = g
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
+        with span("optimizer.clip"):
+            if g_norm is None:
+                g_norm = global_norm(grads)
+            torch._foreach_div_(grads, torch.clamp(g_norm, min=1.0))
+        with span("optimizer.step"):
+            for p, g in zip(opt_state.param_groups[0]["params"], grads):
+                p.grad = g
+            opt_state.step()
+            opt_state.zero_grad(set_to_none=True)
         return g_norm
 
 
@@ -151,7 +155,9 @@ def make_train_step(config: Config, optimizer: Optimizer,
     unclipped grads). `mark`, where given, is called with each phase's
     name as the phase ends: "forward" (SpecAugment and the model),
     "ctc", "backward", "optimizer" (the bench's split records a CUDA
-    event there).
+    event there). Spans: "train.step", and in it "train.forward",
+    "train.ctc", "train.backward" and "train.optimizer", each ending
+    where its `mark` fires.
 
     remat: recompute the forward's activations in the backward.
     compute_dtype: e.g. torch.bfloat16 or "bfloat16", the mixed-precision
@@ -166,20 +172,27 @@ def make_train_step(config: Config, optimizer: Optimizer,
     def train_step(params, opt_state, batch, generator=None, mark=None):
         mark = mark or (lambda phase: None)
         leaves = opt_state.param_groups[0]["params"]
-        inputs = batch["inputs"]
-        if augment:
-            if generator is None:
-                raise ValueError("augment=True needs a generator")
-            inputs = spec_augment(inputs, generator)
-        with torch.enable_grad():
-            log_probs = forward(params, inputs)
+        with span("train.step"):
+            with span("train.forward"):
+                inputs = batch["inputs"]
+                if augment:
+                    if generator is None:
+                        raise ValueError("augment=True needs a generator")
+                    inputs = spec_augment(inputs, generator)
+                with torch.enable_grad():
+                    log_probs = forward(params, inputs)
             mark("forward")
-            loss = batch_loss(log_probs, batch, config.blank_id)
-            mark("ctc")
-            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-            mark("backward")
-        g_norm = optimizer.update(opt_state, grads)
-        mark("optimizer")
+            with torch.enable_grad():
+                with span("train.ctc"):
+                    loss = batch_loss(log_probs, batch, config.blank_id)
+                mark("ctc")
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, leaves,
+                                                materialize_grads=True)
+                mark("backward")
+            with span("train.optimizer"):
+                g_norm = optimizer.update(opt_state, grads)
+            mark("optimizer")
         return params, opt_state, {"loss": loss.detach(),
                                    "grad_norm": g_norm}
 
@@ -204,7 +217,8 @@ def make_sharded_train_step(config: Config, mesh, optimizer=None,
     {"loss", "grad_norm"}), params updated in place and the metrics 0-d
     tensors not waited for; `mark`, where given, is called with each
     phase's name as it ends: "forward", "ctc", "backward", "allreduce"
-    (the grads' all-reduce over "data"), "optimizer". `batch` is this
+    (the grads' all-reduce over "data"), "optimizer"; the spans are
+    `make_train_step`'s, with "train.allreduce". `batch` is this
     rank's share
     (`shard_tree(batch, batch_specs(), mesh)`). The forward is
     `deepspeech_apply_tp` over "model" (float32, rnn_impl "scan"); the
@@ -230,23 +244,31 @@ def make_sharded_train_step(config: Config, mesh, optimizer=None,
     def step(params, opt_state, batch, mark=None):
         mark = mark or (lambda phase: None)
         leaves_ = opt_state.param_groups[0]["params"]
-        with torch.enable_grad():
-            log_probs = deepspeech_apply_tp(params, batch["inputs"], tp)
-            mark("forward")
-            loss = batch_loss(log_probs, batch, config.blank_id)
-            mark("ctc")
-            grads = torch.autograd.grad(loss, leaves_, materialize_grads=True)
-            mark("backward")
-        flat = torch.cat([loss.detach().reshape(1)]
-                         + [g.reshape(-1) for g in grads])
-        torch.distributed.all_reduce(flat, group=dp)
-        flat /= n_dp
-        mark("allreduce")
-        parts = flat[1:].split([g.numel() for g in grads])
-        grads = [part.view_as(g) for part, g in zip(parts, grads)]
-        g_norm = optimizer.update(opt_state, grads,
-                                  global_norm(grads, sharded, tp))
-        mark("optimizer")
+        with span("train.step"):
+            with torch.enable_grad():
+                with span("train.forward"):
+                    log_probs = deepspeech_apply_tp(params, batch["inputs"],
+                                                    tp)
+                mark("forward")
+                with span("train.ctc"):
+                    loss = batch_loss(log_probs, batch, config.blank_id)
+                mark("ctc")
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, leaves_,
+                                                materialize_grads=True)
+                mark("backward")
+            with span("train.allreduce"):
+                flat = torch.cat([loss.detach().reshape(1)]
+                                 + [g.reshape(-1) for g in grads])
+                torch.distributed.all_reduce(flat, group=dp)
+                flat /= n_dp
+            mark("allreduce")
+            with span("train.optimizer"):
+                parts = flat[1:].split([g.numel() for g in grads])
+                grads = [part.view_as(g) for part, g in zip(parts, grads)]
+                g_norm = optimizer.update(opt_state, grads,
+                                          global_norm(grads, sharded, tp))
+            mark("optimizer")
         return params, opt_state, {"loss": flat[0], "grad_norm": g_norm}
 
     return step, local, opt_state

@@ -11,7 +11,9 @@ are the port's settled rules (ROADMAP.md, Queue 3, "Settled"):
   - ADDED: `device`, where an entry point makes tensors (the card unless
     the caller asks for the CPU);
   - DEPARTURES: a few names whose signature differs for a stated reason;
-    each entry pins the port's parameters, and must still be needed.
+    each entry pins the port's parameters, and must still be needed;
+  - REMOVED: names the port left out for a stated reason; each must
+    still be in the JAX package and not in the port.
 Imports both packages and runs nothing.
 """
 
@@ -63,6 +65,16 @@ DEPARTURES = {
         "`key` inside one program"),
 }
 
+# (module, JAX name) -> reason
+REMOVED = {
+    ("gasr_tpu.runtime.profiler", "Speedometer"):
+        "no program code, benchmark or documented use read it; the "
+        "benchmark's end-to-end metrics take its place",
+    ("gasr_tpu.runtime.profiler", "profile_fn"):
+        "no program code, benchmark or documented use read it; the "
+        "port's profiler records spans instead",
+}
+
 
 def _modules():
     root = Path(gasr_tpu.__file__).parent
@@ -101,6 +113,9 @@ def test_port_module_has_every_public_name_and_signature(name):
     tmod = importlib.import_module("gasr_tpu_torch" + name[len("gasr_tpu"):])
     for attr, jobj in _public(jmod).items():
         want = [RENAMED.get(p, p) for p in _params(jobj)]
+        if (name, attr) in REMOVED:
+            assert not hasattr(tmod, attr), (name, attr)
+            continue
         if (name, attr) in DEPARTURES:
             port_name, port_params, _ = DEPARTURES[(name, attr)]
             assert _params(getattr(tmod, port_name)) == port_params, \
@@ -123,3 +138,6 @@ def test_departures_are_needed_and_stated():
         assert port_name != attr or plain != want, (name, attr)
     listed = " ".join(str(v) for v in DEPARTURES.values())
     assert "topk_impl" not in listed
+    for (name, attr), reason in REMOVED.items():
+        assert name in MODULES and len(reason) > 20
+        assert attr in _public(importlib.import_module(name)), (name, attr)
