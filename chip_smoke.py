@@ -71,7 +71,10 @@ a conformer_l step with stem_impl="pallas", and the conformer_l bf16
 step through the flash kernel held to the same step with the plain
 attention (attn_impl="xla"): loss and grad norm of the first step, then
 7 steps of each (and of the kernel path at a third of the learning rate)
-side by side; and multi-card training and the graft entries (phase
+side by side, then the CTC loss's kernel pair at conformer_l_train's
+shape against the plain loop on the card, timed beside its byte bound, the
+plain loop and F.ctc_loss (phase 14g, `ctc_phase`; alone: `python3
+chip_smoke.py --ctc`); and multi-card training and the graft entries (phase
 15, `parallel_phase`): the sharded train step (one process a card,
 `train.make_sharded_train_step`) on reference_large at full width, a
 world of one card bit-equal to `make_train_step` (with 4 or more cards
@@ -148,6 +151,11 @@ KERNEL_REL_TOL = 0.02      # flash attention and fused stem against their
                            # bf16 operands summed in another float32 order
                            # flip some bf16 roundings (us, uc, A, B, the
                            # attention; conv2's output), 2^-8 relative each
+CTC_LOSS_RTOL = 1e-5       # the CTC kernel pair against the plain loop on
+CTC_GRAD_ATOL = 1e-5       # the card: the same float32 expressions, the
+                           # adjoints summed in another order (autograd's
+                           # accumulation and scatter-add against the
+                           # kernel's fixed order); tests/test_torch_ctc_loss.py
 TRAIN_STEP_TOL = 5e-3      # the conformer_l bf16 train step through the
                            # flash kernel against the same step with the
                            # plain attention: loss and grad norm relative;
@@ -400,9 +408,10 @@ def train_phase(card, zero_counts, read_counts):
               f"{row}: losses {losses} do not fall or are not finite")
         n_flash = (_preset(cfg)["num_blocks"] * steps
                    if cfg.model == "conformer_l" else 0)
-        want_ = {"flash_mhsa_rel": n_flash}
-        check(runs[row]["flash_mhsa_rel"] == n_flash
-              and sum(runs[row].values()) == n_flash,
+        # the CTC loss's kernel pair: a forward and a backward a step
+        want_ = {"flash_mhsa_rel": n_flash, "ctc_loss": 2 * steps}
+        check(all(runs[row][k] == v for k, v in want_.items())
+              and sum(runs[row].values()) == sum(want_.values()),
               f"{row}: launches {runs[row]}, expected {want_}")
         split = bench.measure_train_split(cfg, compute_dtype=cd)
         flops = model_train_flops(cfg)
@@ -438,8 +447,8 @@ def train_phase(card, zero_counts, read_counts):
     runs["train_conformer_l_stem_pallas"] = read_counts()
     got_ = runs["train_conformer_l_stem_pallas"]
     check(np.isfinite(loss) and got_["fused_stem"] == 1
-          and got_["flash_mhsa_rel"] == 17
-          and sum(got_.values()) == 18,
+          and got_["flash_mhsa_rel"] == 17 and got_["ctc_loss"] == 2
+          and sum(got_.values()) == 20,
           f"conformer_l step with stem_impl='pallas': loss {loss}, "
           f"launches {got_}")
     first = out["train_conformer_l_bf16"]["losses"][0]
@@ -477,7 +486,8 @@ def train_phase(card, zero_counts, read_counts):
     seq_x, counts_x = seven("xla")
     seq_lr, _ = seven("auto", learning_rate=1e-4)
     check(counts_k["flash_mhsa_rel"] == 7 * 17
-          and sum(counts_x.values()) == 0,
+          and counts_k["ctc_loss"] == counts_x["ctc_loss"] == 7 * 2
+          and sum(counts_x.values()) == 7 * 2,
           f"conformer_l steps: kernel path launches {counts_k}, plain "
           f"attention path launches {counts_x}")
     check(all(np.isfinite(v) for seq in (seq_k, seq_x, seq_lr)
@@ -909,6 +919,115 @@ def cuda_events_ms(fn, iters=10, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ctc_phase(card):
+    """Phase 14g, the CTC loss's kernel pair (`csrc/ctc_loss.cu`) at the
+    training cell's shape: T' = 300, B = 64, V = 129, S = 97, input lengths
+    275-300, label lengths 44-96, labels uniform in [1, 128], log_probs a
+    log_softmax in the model's time-major layout. The loss and d loss / d
+    log_probs (a random positive d loss, as the batch mean of each loss
+    over its label length gives) against the plain version's on the card
+    (LOSS_RTOL, GRAD_ATOL), bit-equal on a second call, two launches; then
+    the pair's ms by CUDA events (the forward alone, the forward and
+    backward), the host ms of a launch, beside its byte bound (log_probs
+    read once, the gradient written once), the plain version's (the
+    T-step loop, then with autograd's backward) and
+    torch.nn.functional.ctc_loss's (forward and backward; the port never
+    calls it). Returns the kernel table's entry and the launches of one
+    loss and its backward."""
+    import torch
+    import torch.nn.functional as F
+    from gasr_tpu_torch.ops.ctc_loss import ctc_loss, ctc_loss_plain
+    from gasr_tpu_torch.ops.cuda import launch_counts
+    dev = torch.device("cuda")
+    T, B, V, S = 300, 64, 129, 97
+    gen = torch.Generator(device=dev).manual_seed(21)
+    lp = torch.log_softmax(2 * torch.randn((T, B, V), generator=gen,
+                                           device=dev), -1)
+    labels = torch.randint(1, V, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    in_len = torch.randint(275, T + 1, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    lab_len = torch.randint(44, 97, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    gloss = (torch.rand((B,), generator=gen, device=dev) + 0.5) / B
+
+    def pair(fn):
+        t = lp.detach().requires_grad_()
+        loss = fn(t, labels, in_len, lab_len)
+        loss.backward(gloss)
+        return loss.detach(), t.grad
+
+    before = launch_counts()
+    got = pair(ctc_loss)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    runs = {k: after[k] - before[k] for k in after}
+    check(runs["ctc_loss"] == 2 and sum(runs.values()) == 2,
+          f"CTC loss and backward on the card: launches {runs}")
+    want = pair(ctc_loss_plain)
+    again = pair(ctc_loss)
+    torch.cuda.synchronize()
+    loss_err = float(((got[0] - want[0]) / want[0]).abs().max())
+    grad_err = float((got[1] - want[1]).abs().max())
+    check(loss_err <= CTC_LOSS_RTOL and grad_err <= CTC_GRAD_ATOL,
+          f"CTC kernel pair against the plain version: loss {loss_err} > "
+          f"{CTC_LOSS_RTOL} or grad {grad_err} > {CTC_GRAD_ATOL}")
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "CTC kernel pair: two calls differ")
+    ms = cuda_events_ms(lambda: pair(ctc_loss), iters=20, warmup=2)
+    fwd_ms = cuda_events_ms(lambda: ctc_loss(lp, labels, in_len, lab_len),
+                            iters=20, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ctc_loss(lp, labels, in_len, lab_len)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    plain_ms = cuda_events_ms(lambda: pair(ctc_loss_plain), iters=3)
+    plain_fwd_ms = cuda_events_ms(
+        lambda: ctc_loss_plain(lp, labels, in_len, lab_len), iters=3)
+    args = (labels.long(), in_len.long(), lab_len.long())
+
+    def library():
+        t = lp.detach().requires_grad_()
+        F.ctc_loss(t, *args, blank=0, reduction="none").backward(gloss)
+
+    lib_ms = cuda_events_ms(library, iters=20, warmup=2)
+    nbytes = 2 * T * B * V * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"ctc_loss kernel pair [T={T}, B={B}, V={V}, S={S}] on {card}: "
+          f"forward + backward {ms:.4f} ms (forward {fwd_ms:.4f}, backward "
+          f"{ms - fwd_ms:.4f}; host {host_ms:.4f} ms a forward call), "
+          f"launches {runs['ctc_loss']}; bound {bound_ms:.4f} ms (bytes: "
+          f"{nbytes / 1e6:.1f} MB); plain {plain_ms:.4f} ms (forward "
+          f"{plain_fwd_ms:.4f}); F.ctc_loss {lib_ms:.4f} ms; against the "
+          f"plain version: loss {loss_err:.3e} (relative), grad "
+          f"{grad_err:.3e}; bit-equal on a second call", flush=True)
+    return dict(ms=ms, forward_ms=fwd_ms, backward_ms=ms - fwd_ms,
+                host_ms=host_ms, plain_ms=plain_ms,
+                plain_forward_ms=plain_fwd_ms, library_ms=lib_ms,
+                library_call="torch.nn.functional.ctc_loss",
+                bound_ms=bound_ms, bound_by="bytes", max_abs_err=grad_err,
+                loss_rel_err=loss_err), runs
+
+
+def ctc_main() -> int:
+    """`python3 chip_smoke.py --ctc`: phase 14g alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    from gasr_tpu_torch.ops.cuda import _lib
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"kernel build: {_lib.build_all(['ctc_loss']):.1f} s (ctc_loss)",
+          flush=True)
+    report, runs = ctc_phase(card)
+    print(json.dumps({"ctc_loss": report, "launches": runs}))
+    return 0
 
 
 def main() -> int:
@@ -3144,7 +3263,8 @@ def main() -> int:
           "python -m gasr_tpu_torch.baseline_compat on two configs "
           "(device cuda): the three lines each", flush=True)
     # one measure_train call: the bench's train_flagship row (float32,
-    # rnn_impl "scan": no kernel of the port runs in it)
+    # rnn_impl "scan": of the port's kernels only the CTC loss's pair, two
+    # launches a step)
     zero_counts()
     tr13 = bench.measure_train(cfg13, iters=1, reps=3)
     torch.cuda.synchronize()
@@ -3152,7 +3272,8 @@ def main() -> int:
     check(set(tr13) == {"median", "min", "max", "iqr", "reps", "peak_bytes",
                         "losses"} and len(tr13["losses"]) == 4
           and all(np.isfinite(tr13["losses"]))
-          and sum(btr_launches.values()) == 0,
+          and btr_launches["ctc_loss"] == 2 * len(tr13["losses"])
+          and sum(btr_launches.values()) == 2 * len(tr13["losses"]),
           f"bench.measure_train reference_large: {tr13}, launches "
           f"{btr_launches}")
     print(f"bench.measure_train reference_large (float32) on {card}: "
@@ -3169,6 +3290,7 @@ def main() -> int:
         train_report["flash_backward"], grads_bit_equal_to_recompute=True)
     report["fused_stem"]["training"] = dict(
         train_report["stem_backward"], grads_bit_equal_to_recompute=True)
+    report["ctc_loss"], train_runs["ctc_loss_pair"] = ctc_phase(card)
 
     # ---- 15. multi-card training and the graft entries
     torch.cuda.empty_cache()
@@ -3199,6 +3321,9 @@ def main() -> int:
                     "gasr_tpu/ops/pallas/fused_decode.py:1399"),
         "toy_exchange": ("gasr_tpu_torch/csrc/exchange_probe.cu",
                          "gasr_tpu/ops/pallas/exchange_probe.py:127"),
+        # no Pallas kernel: the JAX package's loss is a lax.scan
+        "ctc_loss": ("gasr_tpu_torch/csrc/ctc_loss.cu",
+                     "gasr_tpu/ops/ctc_loss.py:108 (lax.scan)"),
     }
     # topk_impl="approx" adds no row and no variant: it runs rows 1-2 as
     # they are (phase 2b; its counts are the "approx_decode" paths and the
@@ -3237,7 +3362,8 @@ def main() -> int:
                  "fused_stem": "conformer_stem_pallas",
                  "lstm_scan": "deepspeech2",
                  "tp_frame": "tp_batch", "tp_scan": "tp_batch",
-                 "toy_exchange": "toy_exchange"}
+                 "toy_exchange": "toy_exchange",
+                 "ctc_loss": "train_conformer_l_bf16"}
     paths = {name: {path: run[name] for path, run in runs.items()}
              for name in sources}
     kernels = []
@@ -3281,7 +3407,9 @@ def main() -> int:
                       "fused_frame_n4_ms", "ms_n2_by_cards", "ms_n4_by_cards",
                       "exchange_bytes", "ms_rounds",
                       "library_ms_rounds", "occupancy", "frame_counted",
-                      "streamed", "wide_f", "more_shapes", "training"):
+                      "streamed", "wide_f", "more_shapes", "training",
+                      "forward_ms", "backward_ms", "host_ms",
+                      "plain_forward_ms", "loss_rel_err"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
@@ -3308,4 +3436,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-profile":
         sys.exit(tp_profile_main(*json.loads(sys.argv[2])))
+    if sys.argv[1:] == ["--ctc"]:
+        sys.exit(ctc_main())
     sys.exit(main())

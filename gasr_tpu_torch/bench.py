@@ -290,8 +290,8 @@ def measure_train_split(cfg: Config, compute_dtype=None) -> dict:
     with a CUDA event recorded as each of its phases ends (the forward,
     the CTC loss, the backward, clip + AdamW: `make_train_step`'s `mark`);
     ms each, means over SPLIT_STEPS steps after one warm-up step. Device
-    time between the events, so a phase the host holds back (the CTC
-    loss's T-step loop) counts its waits."""
+    time between the events, so a phase the host holds back counts its
+    waits."""
     dev = resolve_device(cfg.device)
     if dev.type != "cuda":
         raise ValueError("measure_train_split times CUDA events: it needs "

@@ -15,6 +15,11 @@ NEG_INF otherwise), which leaves the total probability unchanged, so the
 loop always runs T steps. The emissions along the extended labels are
 one gather, [T, B, V] -> [T, B, 2S+1] (the JAX package's one-hot einsum
 is a way onto the TPU's matrix unit, not a different function).
+
+`ctc_loss` dispatches on its input: CUDA tensors go to the kernel pair of
+`csrc/ctc_loss.cu` (`ops/cuda/ctc_loss.py`: the recursion and its adjoint,
+one launch each, the same expressions and the same gradient); every other
+tensor goes to `ctc_loss_plain`, the eager loop above under autograd.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gasr_tpu_torch.ops.cuda import ctc_loss as ctc_kernels
 from gasr_tpu_torch.runtime.profiler import span
 
 NEG_INF = -1.0e30
@@ -54,8 +60,24 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     [B, S] target ids (no blanks), padded arbitrarily; input_lengths and
     label_lengths [B] (label_lengths <= S). An example no alignment can
     produce (labels longer than its frames allow) gets a loss near 1e30,
-    as in the JAX package. The span "ctc.loss" covers the recursion's
-    T - 1 steps, issued one by one from the host."""
+    as in the JAX package. On CUDA tensors the kernel pair, under the span
+    "ctc.loss" (the forward's launch; the backward's runs in autograd's
+    backward); on other tensors `ctc_loss_plain`."""
+    if log_probs.device.type == "cuda":
+        with span("ctc.loss"):
+            return ctc_kernels.ctc_loss(log_probs, labels, input_lengths,
+                                        label_lengths, blank_id)
+    return ctc_loss_plain(log_probs, labels, input_lengths, label_lengths,
+                          blank_id)
+
+
+def ctc_loss_plain(log_probs: torch.Tensor, labels: torch.Tensor,
+                   input_lengths: torch.Tensor, label_lengths: torch.Tensor,
+                   blank_id: int = 0) -> torch.Tensor:
+    """`ctc_loss` as a T-step eager loop on any device, differentiable by
+    autograd: the plain version the kernel pair is held to. The span
+    "ctc.loss" covers the recursion's T - 1 steps, issued one by one from
+    the host."""
     T, B, V = log_probs.shape
     S = labels.shape[1]
     L = 2 * S + 1

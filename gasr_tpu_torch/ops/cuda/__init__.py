@@ -18,7 +18,9 @@ COUNTERS = {"topk": ("topk", "launches"),
             "lstm_scan": ("lstm_scan", "launches"),
             "tp_frame": ("fused_decode", "tp_frame_launches"),
             "tp_scan": ("fused_decode", "tp_scan_launches"),
-            "toy_exchange": ("exchange_probe", "toy_exchange_launches")}
+            "toy_exchange": ("exchange_probe", "toy_exchange_launches"),
+            # two a loss and its backward (the forward and backward kernels)
+            "ctc_loss": ("ctc_loss", "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

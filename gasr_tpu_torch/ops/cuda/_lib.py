@@ -29,11 +29,13 @@ BUILD = _PKG / "_build"
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# fused_decode and decode_tp are held bit-equal to their plain versions:
+# fused_decode and decode_tp are held bit-equal to their plain versions, and
+# ctc_loss computes its plain version's expressions in its order:
 # -fmad=false stops nvcc from contracting a product into a following sum
 # across what are separate tensor ops in PyTorch. (topk and exchange_probe
 # do no float arithmetic.)
-_EXTRA_FLAGS = {"fused_decode": ["-fmad=false"], "decode_tp": ["-fmad=false"]}
+_EXTRA_FLAGS = {"fused_decode": ["-fmad=false"], "decode_tp": ["-fmad=false"],
+                "ctc_loss": ["-fmad=false"]}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -80,6 +82,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                  "rnn_stream_launch": [_P] * 3 + [_I] * 15 + [_P] * 6,
                  "rnn_stream_smem": [_I] * 4,
                  "rnn_stream_max_blocks": [_I]},
+    "ctc_loss": {"ctc_forward_launch": [_P, _L, _L, _L] + [_P] * 3
+                 + [_I] * 5 + [_P] * 3,
+                 "ctc_backward_launch": [_P] * 4 + [_P, _L] + [_I] * 5
+                 + [_P, _P, _L, _L, _L, _P]},
     "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 8 + [_P] * 6,
                   "lstm_scan_smem": [_I],
                   "lstm_scan_max_blocks": [_I],
