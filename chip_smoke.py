@@ -85,7 +85,11 @@ its decode checks), `measure_dp_scaling` of reference_large with each
 rank's launches, and with 2 or more cards the vocab-sharded decode with
 one shard a card (`tp_scan`'s push design and the "fused_frame" loop,
 beside all shards on one card) and the exchange toy's push transport
-across the cards.
+across the cards; and parakeet_ctc_batch's two kernels at its shapes
+(phase 16, `parakeet_phase`; alone: `python3 chip_smoke.py --parakeet`):
+`flash_mhsa_rel` at B = 32, T = 750, d_h = 128 and the one-card
+vocab-sharded decode at V = 1025 (n = 9 shards), each against its plain
+version and its bound.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -1011,6 +1015,137 @@ def ctc_phase(card):
                 library_call="torch.nn.functional.ctc_loss",
                 bound_ms=bound_ms, bound_by="bytes", max_abs_err=grad_err,
                 loss_rel_err=loss_err), runs
+
+
+def parakeet_phase(card):
+    """Phase 16, the two kernels at `parakeet_ctc_batch`'s shapes (B = 32
+    windows of 60 s, T' = 750): `flash_mhsa_rel` at H = 8, d_h = 128 (q,
+    k, v strided views of the biased qkv product, as `mhsa_rel` passes
+    them) against its plain version (KERNEL_REL_TOL) and its bound; and
+    the one-card vocab-sharded decode that `ctc_beam_search` takes past
+    the decode kernel (V = 1025, blank 1024, W = 16, lengths 688-750):
+    T' + 1 `tp_frame` launches (n = 9 shards) and one traceback,
+    bit-equal to the matched scan, whose eager loop is the plain version;
+    ms a launch (CUDA events over `tp_frames`) against
+    `asrbench/counts/fastconformer.tp_frame`'s bound, and the host ms a
+    launch. Returns the kernel table's two entries."""
+    import torch
+    from asrbench.counts import bounds as bench_bounds
+    from asrbench.counts import fastconformer as bench_counts
+    from gasr_tpu_torch.decoder import beam_search as bs
+    from gasr_tpu_torch.ops.cuda import flash_mhsa, fused_decode
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    B, H, T, dh = 32, 8, 750, 128
+    D = H * dh
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def t(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * sc
+
+    qkv = t(T, B, 3 * D).to(bf)
+    q, k, v = (qkv[:, :, i * D:(i + 1) * D].reshape(T, B, H, dh)
+               .permute(1, 2, 0, 3) for i in range(3))
+    ins = (q, k, v, t(D, D, sc=D ** -0.5), t(H, dh, sc=0.1),
+           t(H, dh, sc=0.1), torch.full((B,), T, dtype=torch.int32,
+                                        device=dev))
+    n0 = flash_mhsa.launches
+    got = flash_mhsa.flash_mhsa_rel(*ins)
+    want = flash_mhsa.flash_mhsa_rel_plain(*ins)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = KERNEL_REL_TOL * max(1.0, float(want.float().abs().max()))
+    check(flash_mhsa.launches == n0 + 1 and err <= tol,
+          f"flash_mhsa_rel [{B}, {H}, {T}, {dh}]: {err} > {tol}")
+    del got, want
+    f_least, f_by = bench_bounds.flash_mhsa_rel(B, H, T, dh)
+    flash = dict(ms=cuda_events_ms(lambda: flash_mhsa.flash_mhsa_rel(*ins),
+                                   iters=20, warmup=2),
+                 plain_ms=cuda_events_ms(
+                     lambda: flash_mhsa.flash_mhsa_rel_plain(*ins), iters=2),
+                 library_ms=None, max_abs_err=err, bound_ms=f_least * 1e3,
+                 bound_by=f_by, shape=[B, H, T, dh])
+    print(f"flash_mhsa_rel [{B}, {H}, {T}, {dh}] on {card}: "
+          f"{flash['ms']:.4f} ms a launch (q, k, v views); bound "
+          f"{flash['bound_ms']:.4f} ms ({f_by}), "
+          f"{100 * flash['bound_ms'] / flash['ms']:.1f}% of it; plain "
+          f"{flash['plain_ms']:.4f} ms; max |kernel - plain| {err} "
+          f"(tolerance {tol})", flush=True)
+    del ins, qkv, q, k, v
+
+    V, W, blank = 1025, 16, 1024
+    n = -(-V // fused_decode.TP_MAX_WINDOW)
+    lp = torch.log_softmax(3 * t(T, B, V), -1)
+    lens = torch.randint(688, T + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    before = (fused_decode.tp_frame_launches, fused_decode.decode_launches,
+              fused_decode.traceback_launches)
+    got = bs.ctc_beam_search(lp, W, blank_id=blank, input_lengths=lens)
+    torch.cuda.synchronize()
+    runs = (fused_decode.tp_frame_launches - before[0],
+            fused_decode.decode_launches - before[1],
+            fused_decode.traceback_launches - before[2])
+    check(runs == (T + 1, 0, 1), f"ctc_beam_search at V={V}: launches "
+          f"(tp_frame, decode, traceback) {runs}, not ({T + 1}, 0, 1)")
+    t0 = time.perf_counter()
+    want = bs.ctc_beam_search(lp, W, blank_id=blank, input_lengths=lens,
+                              merge_impl="matched")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for field in want._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        if field == "scores":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(torch.equal(a, b), f"vocab-sharded decode at V={V}: {field} "
+              f"differs from the matched scan")
+    past = torch.arange(T, device=dev)[:, None] >= lens[None, :]
+    certain = torch.where(torch.arange(V, device=dev) == blank, 0.0,
+                          bs.NEG_INF)
+    masked = torch.where(past[:, :, None], certain, lp)
+    init = fused_decode.pack_state(bs._init_beam(B, W, dev))
+    devices = [dev] * n
+    scan_ms = cuda_events_ms(lambda: fused_decode.tp_frames(
+        masked, init, devices, blank), iters=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fused_decode.tp_frames(masked, init, devices, blank)
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    whole_ms = cuda_events_ms(lambda: bs.ctc_beam_search(
+        lp, W, blank_id=blank, input_lengths=lens), iters=5, warmup=1)
+    least, by = bench_counts.tp_frame(B, W, V, n)
+    frame = dict(ms=scan_ms / (T + 1), scan_ms=scan_ms,
+                 host_ms=host_ms / (T + 1), decode_ms=whole_ms,
+                 plain_ms=plain_ms, library_ms=None, max_abs_err=0.0,
+                 bound_ms=least * 1e3, bound_by=by, launches=T + 1,
+                 shape=dict(B=B, W=W, V=V, n=n, T=T))
+    print(f"tp_frame (one card, n={n}, V={V}, W={W}, B={B}, T={T}) on "
+          f"{card}: {frame['ms']:.4f} ms a launch on the device "
+          f"({scan_ms:.3f} ms the {T + 1} launches), host "
+          f"{frame['host_ms']:.4f} ms a launch; bound {least * 1e3:.5f} ms "
+          f"a frame ({by}), {100 * least * 1e3 * T / scan_ms:.2f}% of it; "
+          f"ctc_beam_search with its traceback {whole_ms:.3f} ms; the "
+          f"matched scan (plain) {plain_ms:.1f} ms; equal to it (tokens, "
+          f"lengths, timesteps, score bits)", flush=True)
+    return {"flash_mhsa_rel_parakeet": flash, "tp_frame_parakeet": frame}
+
+
+def parakeet_main() -> int:
+    """`python3 chip_smoke.py --parakeet`: phase 16 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    from gasr_tpu_torch.ops.cuda import _lib
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"kernel build: "
+          f"{_lib.build_all(['flash_mhsa', 'decode_tp', 'fused_decode']):.1f}"
+          f" s (flash_mhsa, decode_tp, fused_decode)", flush=True)
+    print(json.dumps(parakeet_phase(card)))
+    return 0
 
 
 def ctc_main() -> int:
@@ -3298,6 +3433,10 @@ def main() -> int:
                                           report)
     train_runs.update(par_runs)
 
+    # ---- 16. parakeet_ctc_batch's kernels at its shapes
+    torch.cuda.empty_cache()
+    print(json.dumps({"parakeet": parakeet_phase(card)}), flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -3438,4 +3577,6 @@ if __name__ == "__main__":
         sys.exit(tp_profile_main(*json.loads(sys.argv[2])))
     if sys.argv[1:] == ["--ctc"]:
         sys.exit(ctc_main())
+    if sys.argv[1:] == ["--parakeet"]:
+        sys.exit(parakeet_main())
     sys.exit(main())

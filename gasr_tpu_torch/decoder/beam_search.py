@@ -33,6 +33,13 @@ V <= 256, and V <= 255 with `lm_bias`; prefix algorithm, log domain) and
 the matched scan otherwise, or the sort merge for "reference"; "pallas"
 asks for the kernels and raises where that rule fails (CPU tensors run
 their plain versions); "matched" and "sort" always run the eager scan.
+Past the decode kernel's shape rule, "auto" on a CUDA tensor (prefix,
+log domain, no `lm_bias`) runs the vocab-sharded frame kernel
+(`ops/cuda/fused_decode.py::tp_frames`, the "fused_frame" route of
+`parallel/decode_tp.py`) with the vocabulary split over
+n = ceil(V / 128) shards of the one card, then the traceback kernel:
+one launch a frame and a closing merge, bit-equal to the matched scan,
+for any V with W <= 128 (`_use_vocab_shards`).
 
 lm_bias: bigram shallow fusion, a [V+1, V] table (`decoder/lm.py`) added
 to every extend's score, row = previous char + 1 (row 0 = the empty
@@ -538,6 +545,41 @@ def _use_kernels(merge_impl: str, algorithm: str, log_domain: bool, W: int,
     return device.type == "cuda"
 
 
+def _use_vocab_shards(merge_impl: str, algorithm: str, log_domain: bool,
+                      W: int, V: int, device: torch.device,
+                      has_lm: bool = False) -> bool:
+    """Whether "auto" runs the one-card vocab-sharded scan: a CUDA tensor
+    outside the decode kernel's shape rule that the frame kernel takes
+    (W <= 128, windows of at most 128 ids), prefix algorithm, log
+    domain, no LM."""
+    from gasr_tpu_torch.ops.cuda import fused_decode
+    return (merge_impl == "auto" and device.type == "cuda"
+            and algorithm == "prefix" and log_domain and not has_lm
+            and not fused_decode.in_envelope(W, V)
+            and fused_decode.tp_envelope(W, V, _vocab_shard_count(V),
+                                         scan=False))
+
+
+def _vocab_shard_count(V: int) -> int:
+    from gasr_tpu_torch.ops.cuda.fused_decode import TP_MAX_WINDOW
+    return -(-V // TP_MAX_WINDOW)
+
+
+def _vocab_sharded_scan(log_probs: torch.Tensor, init: _BeamState,
+                        blank_id: int) -> Tuple[_BeamState, torch.Tensor]:
+    """The matched scan as `tp_frames` runs it with the vocabulary split
+    over `_vocab_shard_count(V)` shards of log_probs' own device (the
+    plain version on the CPU): (final state, packed ys [T, B, W]). Span:
+    "decode.vocab_shards"."""
+    from gasr_tpu_torch.ops.cuda import fused_decode
+    n = _vocab_shard_count(log_probs.shape[2])
+    with span("decode.vocab_shards"):
+        fin, ys = fused_decode.tp_frames(
+            log_probs, fused_decode.pack_state(init),
+            [log_probs.device] * n, blank_id)
+        return fused_decode.unpack_state(fin), ys
+
+
 def ctc_beam_search(
     log_probs: torch.Tensor,
     beam_width: int,
@@ -589,6 +631,13 @@ def ctc_beam_search(
             from gasr_tpu_torch.ops.cuda import fused_decode
             final, packed_ys = fused_decode.fused_prefix_decode(
                 log_probs, init, blank_id, lm_q=lm_q)
+            tokens, timesteps, _ = fused_decode.traceback(packed_ys,
+                                                          final.length, L)
+        elif _use_vocab_shards(merge_impl, algorithm, log_domain, W, V,
+                               log_probs.device, lm_q is not None):
+            from gasr_tpu_torch.ops.cuda import fused_decode
+            final, packed_ys = _vocab_sharded_scan(log_probs, init,
+                                                   blank_id)
             tokens, timesteps, _ = fused_decode.traceback(packed_ys,
                                                           final.length, L)
         else:

@@ -1,6 +1,7 @@
 """Model families: `deepspeech`, `bilstm`, `deepspeech2` and the
 conformers (`conformer_s`, `conformer_l`, `conformer`), the JAX
-package's five, all ported."""
+package's five, all ported; and one conformer preset of the port's own,
+`parakeet_ctc_1.1b` (NeMo's FastConformer-XXL CTC, `models/conformer.py`)."""
 
 from typing import Optional
 
@@ -17,7 +18,8 @@ from gasr_tpu_torch.models.deepspeech import (  # noqa: F401
 from gasr_tpu_torch.models.deepspeech2 import ds2_apply, ds2_init
 from gasr_tpu_torch.runtime.profiler import span
 
-CONFORMERS = ("conformer_s", "conformer_l", "conformer")
+CONFORMERS = ("conformer_s", "conformer_l", "conformer",
+              "parakeet_ctc_1.1b")
 
 _INIT = {"deepspeech": deepspeech_init, "bilstm": bilstm_init,
          "deepspeech2": ds2_init, **{c: conformer_init for c in CONFORMERS}}

@@ -11,6 +11,10 @@ Time-major [T, B, D] like the rest of the stack. Two routes compute it:
     tensor out of device memory. It takes q, k and v as strided views of
     the qkv product and returns a view that reshapes to [T, B, D] without
     a copy.
+Projection biases ("bq", "bk", "bv", "bo" [D] in `params`, where the
+model has them; the JAX package's have none) are added to the qkv and
+output products in float32, at the compute dtype's resolution, on both
+routes.
 `impl` keeps the JAX package's names ("xla" | "pallas" | "auto") so
 configs carry across; `use_flash_kernel` is JAX's dispatch rule with "on
 the accelerator" read as "on a CUDA tensor".
@@ -62,6 +66,15 @@ def _rel_shift(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, :T, T - 1:]
 
 
+def _out_proj(params: dict, out: torch.Tensor, cd) -> torch.Tensor:
+    """The heads' concatenation through W_o (and its bias, where the model
+    has one), float32."""
+    y = matmul(out, params["wo"] if cd is None else params["wo"].to(cd), cd)
+    if "bo" in params:
+        y = y + (params["bo"] if cd is None else params["bo"].to(cd)).float()
+    return y
+
+
 def use_flash_kernel(impl: str, T: int, dh: int, D: int, has_mask: bool,
                      compute_dtype: Optional[torch.dtype],
                      on_cuda: bool) -> bool:
@@ -103,7 +116,11 @@ def mhsa_rel(params: dict, x: torch.Tensor, num_heads: int,
     # q, k, v in one [D, 3D] product: its column blocks are the three
     # separate products
     wqkv = torch.cat([params["wq"], params["wk"], params["wv"]], dim=1)
-    qkv = c(matmul(c(x), wqkv, cd))
+    qkv = matmul(c(x), wqkv, cd)
+    if "bq" in params:
+        qkv = qkv + c(torch.cat([params["bq"], params["bk"],
+                                 params["bv"]])).float()
+    qkv = c(qkv)
     q = qkv[:, :, :D].reshape(T, B, num_heads, dh)
     k = qkv[:, :, D:2 * D].reshape(T, B, num_heads, dh)
     v = qkv[:, :, 2 * D:].reshape(T, B, num_heads, dh)
@@ -115,7 +132,7 @@ def mhsa_rel(params: dict, x: torch.Tensor, num_heads: int,
         out = flash_mhsa_rel(tb(q), tb(k), tb(v), params["wr"], params["u"],
                              params["v"], lens, out_f32=cd is None)
         out = c(out.permute(2, 0, 1, 3)).reshape(T, B, D)
-        return matmul(out, c(params["wo"]), cd)
+        return _out_proj(params, out, cd)
 
     if lengths is not None and mask is None:
         # prefix lengths are the kernel's mask form; honour them here too
@@ -140,4 +157,4 @@ def mhsa_rel(params: dict, x: torch.Tensor, num_heads: int,
     attn = c(torch.softmax(scores, dim=-1))
     out = matmul(attn, v.permute(1, 2, 0, 3), cd)               # [B,H,T,dh]
     out = c(out.permute(2, 0, 1, 3)).reshape(T, B, D)
-    return matmul(out, c(params["wo"]), cd)
+    return _out_proj(params, out, cd)

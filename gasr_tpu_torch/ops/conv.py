@@ -6,6 +6,8 @@ Padding follows lax exactly. "SAME" gives out = ceil(n / s) and pads
 max((out - 1) * s + k - n, 0) in all, the lower half (rounded down)
 before and the rest after: for k = 3, s = 2 on an even n that is (0, 1),
 which `F.conv2d(padding=1)` would not reproduce, so the pad is explicit.
+A sequence of (lo, hi) pairs, one a spatial dim, pads as given (lax's
+explicit padding; torch's `padding=1` is ((1, 1), (1, 1))).
 
 Reduced precision follows `ops/linear.py`: the operands are rounded to
 the compute dtype and the products summed in float32. On CPU tensors the
@@ -20,7 +22,7 @@ float32 parity sets.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +37,21 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _conv_forward(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
-                  groups: int) -> torch.Tensor:
-    """The reduced-dtype "SAME" convolution (see `conv_mixed`)."""
+def _pads(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+          padding) -> List[Tuple[int, int]]:
+    """(lo, hi) of every spatial dim: "SAME"'s, or the pairs given."""
     n = x.ndim - 2
-    pads = [same_pads(x.shape[1 + i], w.shape[i], stride[i])
-            for i in range(n)]
+    if padding == "SAME":
+        return [same_pads(x.shape[1 + i], w.shape[i], stride[i])
+                for i in range(n)]
+    return [tuple(p) for p in padding]
+
+
+def _conv_forward(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+                  pads: Sequence[Tuple[int, int]], groups: int
+                  ) -> torch.Tensor:
+    """The reduced-dtype convolution (see `conv_mixed`)."""
+    n = x.ndim - 2
     xc = x.movedim(-1, 1)                       # [B, C, *spatial]
     wc = w.permute(n + 1, n, *range(n))         # [O, C // groups, *kernel]
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]
@@ -60,14 +71,13 @@ def _conv_forward(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
 
 
 def _conv_f32_vjp(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
-                  groups: int, g: torch.Tensor, needs: Tuple[bool, bool]):
+                  pads: Sequence[Tuple[int, int]], groups: int,
+                  g: torch.Tensor, needs: Tuple[bool, bool]):
     """The VJP of the float32 twin of `_conv_forward` (operands cast to
     float32, the same pads, stride and groups) at (x, w), by one
     `convolution_backward`: the input and weight gradients at x's and
     w's dtypes (None where `needs` says no)."""
     n = x.ndim - 2
-    pads = [same_pads(x.shape[1 + i], w.shape[i], stride[i])
-            for i in range(n)]
     xc = F.pad(x.movedim(-1, 1).float(),
                [p for lo_hi in reversed(pads) for p in lo_hi])
     wc = w.permute(n + 1, n, *range(n)).float()
@@ -93,23 +103,24 @@ class _ConvMixed(torch.autograd.Function):
     convolution forward, the float32 twin's VJP backward."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, groups):
+    def forward(ctx, x, w, stride, pads, groups):
         ctx.save_for_backward(x, w)
-        ctx.stride, ctx.groups = tuple(stride), groups
-        return _conv_forward(x, w, stride, groups)
+        ctx.stride, ctx.pads, ctx.groups = tuple(stride), pads, groups
+        return _conv_forward(x, w, stride, pads, groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        gx, gw = _conv_f32_vjp(x, w, ctx.stride, ctx.groups, g,
+        gx, gw = _conv_f32_vjp(x, w, ctx.stride, ctx.pads, ctx.groups, g,
                                ctx.needs_input_grad[:2])
-        return gx, gw, None, None
+        return gx, gw, None, None, None
 
 
 def conv_mixed(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
-               padding: str = "SAME", groups: int = 1) -> torch.Tensor:
-    """The JAX package's `conv_mixed` with "SAME" padding (the only
-    padding its ported callers use): x [B, *spatial, C] (channels last),
+               padding="SAME", groups: int = 1) -> torch.Tensor:
+    """The JAX package's `conv_mixed` with "SAME" padding or explicit
+    (lo, hi) pairs, one a spatial dim (lax's two forms): x
+    [B, *spatial, C] (channels last),
     w [*kernel, C // groups, O] -> float32 [B, *spatial', O], with the
     products summed in float32 at the operands' dtype (see the module
     docstring). Differentiable: the backward is the VJP of the float32
@@ -119,10 +130,12 @@ def conv_mixed(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     if n not in (1, 2) or w.ndim != n + 2:
         raise ValueError(f"conv_mixed: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} are not a 1-D or 2-D conv")
-    if padding != "SAME":
-        raise ValueError(f"conv_mixed: padding {padding!r} is not ported "
-                         "(only 'SAME')")
-    return _ConvMixed.apply(x, w, tuple(stride), groups)
+    if padding != "SAME" and (isinstance(padding, str)
+                              or len(padding) != n):
+        raise ValueError(f"conv_mixed: padding {padding!r} is neither "
+                         f"'SAME' nor {n} (lo, hi) pairs")
+    pads = _pads(x, w, stride, padding)
+    return _ConvMixed.apply(x, w, tuple(stride), pads, groups)
 
 
 def conv2d_init(generator: torch.Generator, in_ch: int, out_ch: int,

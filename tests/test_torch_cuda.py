@@ -411,6 +411,31 @@ def test_ctc_beam_search_input_lengths_kernel_equals_plain(dev):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+@pytest.mark.parametrize("V,W", [(1025, 16), (300, 16), (200, 128)])
+def test_ctc_beam_search_past_the_decode_kernel_takes_the_vocab_shards(
+        dev, V, W):
+    """Past the decode kernel's shape rule, "auto" runs the frame kernel
+    over ceil(V / 128) shards of the card (T + 1 launches) and the
+    traceback kernel, bit-equal to the matched scan; blank last."""
+    T = 40
+    rng = np.random.default_rng(V)
+    lp = torch.from_numpy(_log_softmax(
+        3 * rng.standard_normal((T, 4, V)))).to(dev)
+    lens = torch.tensor([40, 23, 7, 1], device=dev)
+    before = (fused_decode.tp_frame_launches, fused_decode.decode_launches,
+              fused_decode.traceback_launches)
+    a = tbs.ctc_beam_search(lp, beam_width=W, blank_id=V - 1,
+                            input_lengths=lens)
+    assert (fused_decode.tp_frame_launches - before[0],
+            fused_decode.decode_launches - before[1],
+            fused_decode.traceback_launches - before[2]) == (T + 1, 0, 1)
+    b = tbs.ctc_beam_search(lp, beam_width=W, blank_id=V - 1,
+                            input_lengths=lens, merge_impl="matched")
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.scores.view(torch.int32), b.scores.view(torch.int32))
+
+
 def _lm_table(dev, V, seed):
     """A quantized standard-normal [V+1, V] table with -0.0 planted."""
     lm = np.random.default_rng(seed).standard_normal((V + 1, V)).astype(
