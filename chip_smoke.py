@@ -89,7 +89,12 @@ across the cards; and parakeet_ctc_batch's two kernels at its shapes
 (phase 16, `parakeet_phase`; alone: `python3 chip_smoke.py --parakeet`):
 `flash_mhsa_rel` at B = 32, T = 750, d_h = 128 and the one-card
 vocab-sharded decode at V = 1025 (n = 9 shards), each against its plain
-version and its bound.
+version and its bound; and the conformer block's residual add and
+LayerNorm kernel (phase 17, `add_ln_phase`; alone: `python3 chip_smoke.py
+--add-ln`) at both batch cells' shapes against its plain version, its
+byte bound and the eager chain it replaced, then both cells' whole bf16
+forwards with the kernel (6 and 5 launches a block) and with the plain
+path in turns.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -160,6 +165,12 @@ CTC_GRAD_ATOL = 1e-5       # the card: the same float32 expressions, the
                            # adjoints summed in another order (autograd's
                            # accumulation and scatter-add against the
                            # kernel's fixed order); tests/test_torch_ctc_loss.py
+ADD_LN_H_SHARE = 1e-3      # add_ln's h against add_ln_plain's: off on at
+                           # most this share of elements, by at most one
+                           # bf16 step at the scale of the last add
+                           # (`add_ln_h_steps`): the float32 row sums in
+                           # another order move mu or var by a last bit now
+                           # and then; x' bit-equal; tests/test_torch_add_ln.py
 TRAIN_STEP_TOL = 5e-3      # the conformer_l bf16 train step through the
                            # flash kernel against the same step with the
                            # plain attention: loss and grad norm relative;
@@ -909,6 +920,44 @@ def signed_zero_frame(B, V, rng):
     return z.astype(np.float32)
 
 
+def queued_device_ms(fn, iters=50):
+    """Mean device ms of `iters` calls of `fn`, with the launches queued
+    behind a ~50 ms sleep kernel before the first event runs, so that the
+    host's launch time does not pace them (a short kernel's CUDA-event
+    time in a plain loop is the host's time a launch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def add_ln_h_steps(h, want_x, g, b, want_h):
+    """How far `add_ln`'s h lies from `add_ln_plain`'s, in bf16 steps at
+    the scale of the norm's last add: the step of the largest of |h|, |b|
+    and |t|, t = (x' - mu) * rsqrt(var + eps) * g in float32 (the plain
+    version's expressions on its x'). Where t + b cancels, h is small and
+    the last bit of mu moves it by several of its own steps, but never by
+    one of t's or b's."""
+    import torch
+    xf = want_x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    t = (xf - mu) * torch.rsqrt(var + 1e-5) * g
+    scale = torch.maximum(torch.maximum(t.abs(), b.abs().expand_as(t)),
+                          want_h.float().abs())
+    _, e = torch.frexp(scale)
+    step = torch.ldexp(torch.ones_like(scale), e - 8)
+    return (h.float() - want_h.float()).abs() / step
+
+
 def cuda_events_ms(fn, iters=10, warmup=1):
     """Mean ms of `iters` calls between two CUDA events, after warm-up."""
     import torch
@@ -1131,6 +1180,165 @@ def parakeet_phase(card):
     return {"flash_mhsa_rel_parakeet": flash, "tp_frame_parakeet": frame}
 
 
+def add_ln_phase(card):
+    """Phase 17, the conformer block's residual add and LayerNorm
+    (`csrc/add_ln.cu`) at the two batch cells' shapes: conformer_l_batch's
+    19,200 x 512 rows (T' 300, B 64) and parakeet_ctc_batch's 24,000 x
+    1,024 (T' 750, B 32), x the residual stream's transposed [T', B, d]
+    view, in three forms (no add; a bf16 branch at s = 0.5, as after the
+    FFN; a float32 one, as after the attention). Each against
+    `add_ln_plain` on the card (x' bit-equal, h off on at most
+    ADD_LN_H_SHARE of elements, by at most a step, `add_ln_h_steps`); its
+    device ms (`queued_device_ms`) beside its byte bound (x and y read
+    once, x' and h written once), the plain version's ms and the eager
+    chain's it replaces (the plain version and the copy of h that the
+    next linear's reshape made, since h came out in the stream's
+    transposed layout), and the host ms a launch. Then each
+    cell's whole bf16 forward under no_grad on the benchmark's weights
+    (`asrbench/weights.py`) and shapes: `add_ln` launches (6 a block for
+    conformer_l, 5 for parakeet_ctc_1.1b), ms a forward with the kernel
+    and with the plain path in turns, and the log-probs' RMS and first
+    frame's largest gap between the two against the cells' limits.
+    Returns the kernel table's entry."""
+    import torch
+    from asrbench import weights as bench_weights
+    from gasr_tpu_torch.config import Config
+    from gasr_tpu_torch.models import conformer as tconf
+    from gasr_tpu_torch.models import model_apply
+    from gasr_tpu_torch.ops.cuda import add_ln as kadd
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    report = {}
+    for name, T, B, d in (("conformer_l_batch", 300, 64, 512),
+                          ("parakeet_ctc_batch", 750, 32, 1024)):
+        x = (torch.randn((B, T, d), generator=gen, device=dev) * 2 + 0.5
+             ).to(bf).transpose(0, 1)
+        ys = {"none": None,
+              "bf16_half": torch.randn((T, B, d), generator=gen,
+                                       device=dev).to(bf),
+              "f32": torch.randn((T, B, d), generator=gen, device=dev)}
+        s_of = {"none": 1.0, "bf16_half": 0.5, "f32": 1.0}
+        g = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        b = 0.1 * torch.randn(d, generator=gen, device=dev)
+        rows = T * B
+        entry = {}
+        for form, y in ys.items():
+            s = s_of[form]
+            got = kadd.add_ln(x, y, s, g, b)
+            want = kadd.add_ln_plain(x, y, s, g, b)
+            torch.cuda.synchronize()
+            u = add_ln_h_steps(got[1], want[0], g, b, want[1])
+            share = float((u > 0).float().mean())
+            check(torch.equal(got[0].view(torch.int16),
+                              want[0].contiguous().view(torch.int16))
+                  and float(u.max()) <= 1 and share <= ADD_LN_H_SHARE,
+                  f"add_ln {name} {form}: x' equal "
+                  f"{torch.equal(got[0], want[0])}, h {float(u.max())} "
+                  f"steps off at most, on a share {share}")
+            ms = queued_device_ms(lambda: kadd.add_ln(x, y, s, g, b),
+                                  iters=50)
+            plain_ms = cuda_events_ms(
+                lambda: kadd.add_ln_plain(x, y, s, g, b), iters=10,
+                warmup=2)
+            chain_ms = cuda_events_ms(
+                lambda: kadd.add_ln_plain(x, y, s, g, b)[1].reshape(-1, d),
+                iters=10, warmup=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                kadd.add_ln(x, y, s, g, b)
+            host_ms = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+            per_elem = 2 + 2 + (0 if y is None else
+                                2 + y.element_size())
+            nbytes = rows * d * per_elem + 2 * d * 4
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            entry[form] = dict(ms=ms, bound_ms=bound_ms, bound_by="bytes",
+                               roofline=bound_ms / ms, plain_ms=plain_ms,
+                               eager_chain_ms=chain_ms, host_ms=host_ms,
+                               h_one_step_share=share)
+            print(f"add_ln [{rows} x {d}] {form} on {card}: {ms:.4f} ms "
+                  f"(host {host_ms:.4f} ms a launch); bound {bound_ms:.4f} "
+                  f"ms (bytes: {nbytes / 1e6:.1f} MB, "
+                  f"{100 * bound_ms / ms:.1f}%); plain {plain_ms:.4f} ms, "
+                  f"the eager chain with the next linear's copy "
+                  f"{chain_ms:.4f} ms; x' bit-equal, h off on {share:.2e} "
+                  f"of elements, at most {float(u.max()):.3f} steps",
+                  flush=True)
+        report[name] = entry
+        del x, ys
+
+    # the two cells' whole forwards
+    for name, cell, per_block in (("conformer_l", "conformer_l_batch", 6),
+                                  ("parakeet_ctc_1.1b",
+                                   "parakeet_ctc_batch", 5)):
+        spec = json.loads(open(os.path.join(
+            ROOT, "asrbench", "configs", f"{name}.json")).read())
+        traffic = json.loads(open(os.path.join(
+            ROOT, "asrbench", "traffic",
+            {"conformer_l": "batch_12s_b64",
+             "parakeet_ctc_1.1b": "batch_60s_b32"}[name] + ".json")).read())
+        cfg = Config.from_dict(dict(spec["program"], device="cuda",
+                                    batch_size=traffic["batch"],
+                                    seg_len=traffic["frames"]))
+        params = bench_weights.make(spec["family"], spec["model"],
+                                    torch.Generator(device=dev).manual_seed(
+                                        29), dev)
+        xin = torch.rand((cfg.batch_size, cfg.seg_len, cfg.input_size),
+                         generator=gen, device=dev)
+        n_blocks = len(params["blocks"])
+
+        def fwd():
+            with torch.no_grad():
+                return model_apply(cfg, params, xin,
+                                   compute_dtype="bfloat16")
+
+        def plain_fwd():
+            eligible = tconf.add_ln_eligible
+            tconf.add_ln_eligible = lambda *a: False
+            try:
+                return fwd()
+            finally:
+                tconf.add_ln_eligible = eligible
+
+        before = kadd.launches
+        lp = fwd()
+        torch.cuda.synchronize()
+        n = kadd.launches - before
+        check(n == per_block * n_blocks, f"{name} forward: add_ln launches "
+              f"{n}, expected {per_block} x {n_blocks}")
+        before = kadd.launches
+        lp_plain = plain_fwd()
+        check(kadd.launches == before, f"{name} plain forward launched "
+              f"add_ln")
+        diff = (lp - lp_plain).float()
+        rms = float(diff.pow(2).mean().sqrt())
+        gap0 = float(diff[0].abs().max())
+        lim = json.loads(open(os.path.join(
+            ROOT, "asrbench", "limits", f"{cell}.json")).read())["limits"]
+        check(rms <= lim["lp_rms"] and gap0 <= lim["lp_gap_t0"],
+              f"{name}: kernel against plain forward lp_rms {rms}, "
+              f"lp_gap_t0 {gap0} past {lim}")
+        del lp, lp_plain, diff
+        times = [cuda_events_ms(f, iters=3, warmup=1)
+                 for f in (plain_fwd, fwd, fwd, plain_fwd)]
+        print(f"{name} forward [B={cfg.batch_size}, T={cfg.seg_len}, bf16, "
+              f"{n_blocks} blocks] on {card}: add_ln launches {n} "
+              f"({per_block} a block); ms a forward, plain / kernel / "
+              f"kernel / plain: {', '.join(f'{t:.3f}' for t in times)}; "
+              f"kernel against plain: lp_rms {rms:.4e}, lp_gap_t0 "
+              f"{gap0:.4e} (limits {lim['lp_rms']}, {lim['lp_gap_t0']})",
+              flush=True)
+        report[name + "_forward"] = dict(
+            launches=n, ms_plain_kernel_kernel_plain=times, lp_rms=rms,
+            lp_gap_t0=gap0)
+        del params, xin
+        torch.cuda.empty_cache()
+    return report
+
+
 def parakeet_main() -> int:
     """`python3 chip_smoke.py --parakeet`: phase 16 alone."""
     import torch
@@ -1145,6 +1353,23 @@ def parakeet_main() -> int:
           f"{_lib.build_all(['flash_mhsa', 'decode_tp', 'fused_decode']):.1f}"
           f" s (flash_mhsa, decode_tp, fused_decode)", flush=True)
     print(json.dumps(parakeet_phase(card)))
+    return 0
+
+
+def add_ln_main() -> int:
+    """`python3 chip_smoke.py --add-ln`: phase 17 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    from gasr_tpu_torch.ops.cuda import _lib
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"kernel build: {_lib.build_all(['add_ln', 'flash_mhsa']):.1f} s "
+          f"(add_ln, flash_mhsa)", flush=True)
+    print(json.dumps({"add_ln": add_ln_phase(card)}))
+    print(f"card: {card_line()}")
     return 0
 
 
@@ -2052,6 +2277,7 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_blocks = len(params_c["blocks"])
     want_c = {"flash_mhsa_rel": n_blocks, "fused_stem": 0,
+              "add_ln": 6 * n_blocks,
               "fused_prefix_decode": 1, "traceback": 1, "topk": 0,
               "traceback_overlay": 0, "rnn_scan": 0, "lstm_scan": 0}
     for name, n in want_c.items():
@@ -3437,6 +3663,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"parakeet": parakeet_phase(card)}), flush=True)
 
+    # ---- 17. the conformer block's residual add and LayerNorm
+    torch.cuda.empty_cache()
+    print(json.dumps({"add_ln": add_ln_phase(card)}), flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -3577,6 +3807,8 @@ if __name__ == "__main__":
         sys.exit(tp_profile_main(*json.loads(sys.argv[2])))
     if sys.argv[1:] == ["--ctc"]:
         sys.exit(ctc_main())
+    if sys.argv[1:] == ["--add-ln"]:
+        sys.exit(add_ln_main())
     if sys.argv[1:] == ["--parakeet"]:
         sys.exit(parakeet_main())
     sys.exit(main())

@@ -32,6 +32,11 @@ statistics, the attention softmax and the final log_softmax stay
 float32. The rounding points are the JAX package's; `ops/linear.py` and
 `ops/conv.py` say where a device adds one.
 
+On a bf16 CUDA forward outside autograd, each residual add and the
+LayerNorm after it are one launch of the `add_ln` kernel
+(`ops/cuda/add_ln.py`): 6 a block, 5 where the conv module has its
+BatchNorm. Training, float32 and the CPU run the eager expressions.
+
 attn_impl ("xla" | "pallas" | "auto") picks the attention route
 (`ops/attention.py`); stem_impl="pallas" takes the fused stem kernel
 (`ops/cuda/stem.py`) where `stem_eligible` holds, and "auto" never does
@@ -47,6 +52,8 @@ import torch
 from gasr_tpu_torch.config import Config
 from gasr_tpu_torch.ops.attention import mhsa_rel, mhsa_rel_init
 from gasr_tpu_torch.ops.conv import conv2d, conv2d_init, conv_mixed
+from gasr_tpu_torch.ops.cuda.add_ln import (add_ln, add_ln_eligible,
+                                            add_ln_plain)
 from gasr_tpu_torch.ops.cuda.stem import fused_stem, stem_eligible
 from gasr_tpu_torch.ops.linear import linear, linear_init, normal_init
 from gasr_tpu_torch.runtime.profiler import span
@@ -93,13 +100,20 @@ def _ln_init(d: int, device) -> dict:
             "b": torch.zeros((d,), device=device)}
 
 
-def _ln(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm with float32 statistics; the output keeps x's dtype."""
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + 1e-5) * p["g"] + p["b"]
-    return y.to(x.dtype)
+def _add_ln(p: dict, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+            s: float = 1.0, keep: bool = True) -> tuple:
+    """The residual add x' = x + s * y (y rounded to x's dtype first; x'
+    = x without y) and the LayerNorm after it, with float32 statistics:
+    (x', LN(x')), both at x's dtype. A bf16 CUDA x outside autograd takes
+    the `add_ln` kernel (one launch; x' is None where `keep` is False, and
+    both come back contiguous); anything else, `add_ln_plain`."""
+    if add_ln_eligible(x, y, p["g"], p["b"]):
+        if x.stride(-1) != 1:
+            # the conv module's second norm: its depthwise conv writes
+            # channel-major, so d is strided; the kernel reads rows whole
+            x = x.contiguous()
+        return add_ln(x, y, s, p["g"], p["b"], keep)
+    return add_ln_plain(x, y, s, p["g"], p["b"])
 
 
 def _ffn_init(generator, d: int, mult: int, device) -> dict:
@@ -121,8 +135,8 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
-def _ffn(p: dict, x: torch.Tensor, cd=None) -> torch.Tensor:
-    h = _ln(p["ln"], x)
+def _ffn(p: dict, h: torch.Tensor, cd=None) -> torch.Tensor:
+    """The half-step FFN after its LayerNorm: h = LN(x)."""
     h = _lin(p["w1"], h, cd)
     h = h * _sigmoid(h)                           # swish
     return _lin(p["w2"], h, cd)
@@ -158,7 +172,11 @@ def _bn_affine(bn: dict, bias: torch.Tensor) -> tuple:
 
 def _convmod(p: dict, x: torch.Tensor, kernel: int, cd=None) -> torch.Tensor:
     """Conformer conv module. x: [T, B, D]."""
-    h = _ln(p["ln"], x)
+    return _conv(p, _add_ln(p["ln"], x, keep=False)[1], kernel, cd)
+
+
+def _conv(p: dict, h: torch.Tensor, kernel: int, cd=None) -> torch.Tensor:
+    """The conv module after its first LayerNorm: h = LN(x) [T, B, D]."""
     h = _lin(p["pw1"], h, cd)                     # [T, B, 2D]
     a, b = h.chunk(2, dim=-1)
     h = a * _sigmoid(b)                           # GLU
@@ -176,7 +194,7 @@ def _convmod(p: dict, x: torch.Tensor, kernel: int, cd=None) -> torch.Tensor:
         hw = hw.to(cd)
     h = hw.transpose(0, 1)
     if "ln2" in p:
-        h = _ln(p["ln2"], h)
+        h = _add_ln(p["ln2"], h, keep=False)[1]
     h = h * _sigmoid(h)                           # swish
     return _lin(p["pw2"], h, cd)
 
@@ -200,13 +218,14 @@ def _block_init(generator, d: int, heads: int, ff_mult: int, kernel: int,
 
 def _block(p: dict, x: torch.Tensor, heads: int, kernel: int, mask=None,
            cd=None, attn_impl: str = "auto") -> torch.Tensor:
-    x = x + 0.5 * _ffn(p["ff1"], x, cd)
-    a = mhsa_rel(p["mhsa"], _ln(p["mhsa_ln"], x), heads, mask,
-                 compute_dtype=cd, impl=attn_impl)
-    x = x + (a if cd is None else a.to(cd))
-    x = x + _convmod(p["conv"], x, kernel, cd)
-    x = x + 0.5 * _ffn(p["ff2"], x, cd)
-    return _ln(p["ln_out"], x)
+    # each residual add goes with the LayerNorm after it (`_add_ln`)
+    _, h = _add_ln(p["ff1"]["ln"], x, keep=False)
+    x, h = _add_ln(p["mhsa_ln"], x, _ffn(p["ff1"], h, cd), 0.5)
+    a = mhsa_rel(p["mhsa"], h, heads, mask, compute_dtype=cd, impl=attn_impl)
+    x, h = _add_ln(p["conv"]["ln"], x, a)         # x + a.to(x.dtype)
+    x, h = _add_ln(p["ff2"]["ln"], x, _conv(p["conv"], h, kernel, cd))
+    return _add_ln(p["ln_out"], x, _ffn(p["ff2"], h, cd), 0.5,
+                   keep=False)[1]
 
 
 def conformer_output_length(input_length):

@@ -20,7 +20,8 @@ COUNTERS = {"topk": ("topk", "launches"),
             "tp_scan": ("fused_decode", "tp_scan_launches"),
             "toy_exchange": ("exchange_probe", "toy_exchange_launches"),
             # two a loss and its backward (the forward and backward kernels)
-            "ctc_loss": ("ctc_loss", "launches")}
+            "ctc_loss": ("ctc_loss", "launches"),
+            "add_ln": ("add_ln", "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

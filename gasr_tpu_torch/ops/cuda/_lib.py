@@ -30,12 +30,12 @@ BUILD = _PKG / "_build"
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # fused_decode and decode_tp are held bit-equal to their plain versions, and
-# ctc_loss computes its plain version's expressions in its order:
+# ctc_loss and add_ln compute their plain versions' expressions in order:
 # -fmad=false stops nvcc from contracting a product into a following sum
 # across what are separate tensor ops in PyTorch. (topk and exchange_probe
 # do no float arithmetic.)
 _EXTRA_FLAGS = {"fused_decode": ["-fmad=false"], "decode_tp": ["-fmad=false"],
-                "ctc_loss": ["-fmad=false"]}
+                "ctc_loss": ["-fmad=false"], "add_ln": ["-fmad=false"]}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -86,6 +86,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                  + [_I] * 5 + [_P] * 3,
                  "ctc_backward_launch": [_P] * 4 + [_P, _L] + [_I] * 5
                  + [_P, _P, _L, _L, _L, _P]},
+    "add_ln": {"add_ln_launch": [_P, _L, _L, _P, _L, _L, _I, _F] + [_P] * 4
+               + [_I] * 4 + [_P]},
     "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 8 + [_P] * 6,
                   "lstm_scan_smem": [_I],
                   "lstm_scan_max_blocks": [_I],

@@ -96,12 +96,13 @@ def main() -> int:
                         compute_dtype=bf), (2, 2), compute_dtype=bf
                 ).flatten(2), bf),
             "one block": lambda: conf._block(blk, h, heads, K, None, bf),
-            "  half FFN": lambda: conf._ffn(blk["ff1"], h, bf),
+            "  half FFN": lambda: conf._ffn(
+                blk["ff1"], conf._add_ln(blk["ff1"]["ln"], h)[1], bf),
             "  attention (LN + mhsa_rel, flash kernel)": lambda: mhsa_rel(
-                blk["mhsa"], conf._ln(blk["mhsa_ln"], h), heads,
+                blk["mhsa"], conf._add_ln(blk["mhsa_ln"], h)[1], heads,
                 compute_dtype=bf),
             "  attention, attn_impl='xla'": lambda: mhsa_rel(
-                blk["mhsa"], conf._ln(blk["mhsa_ln"], h), heads,
+                blk["mhsa"], conf._add_ln(blk["mhsa_ln"], h)[1], heads,
                 compute_dtype=bf, impl="xla"),
             "  conv module": lambda: conf._convmod(blk["conv"], h, K, bf),
             "proj + log_softmax": lambda: torch.log_softmax(conf.linear(
