@@ -15,7 +15,8 @@ golden decode fixtures through the port, and drives three paths on the
   - `Pipeline.transcribe` with rnn_impl="pallas" (phase 6);
   - the streaming decode, `streaming_step` over the same log-probs in 10
     chunks of 20 frames, held array-equal to the batch decode, then
-    `Pipeline.transcribe_streaming` (phase 7);
+    `Pipeline.transcribe_streaming` and the one-shot `Pipeline.transcribe`
+    with rnn_impl="scan", launches counted (phase 7);
 and one path on the `conformer_l` preset (d=512, 17 blocks, 8 heads,
 B=64, T=1200 -> T'=300, F=80, V=129, beam 16, max_len 256, bf16, on one
 card: mesh_shape={}), as bench.py drives it: `model_apply(...,
@@ -55,21 +56,18 @@ kernels' limits (phase 12): the streamed Elman design, the stem at wide
 F, the traceback at more shapes, and bidirectional LSTM layers past the
 resident limit ((B, H, T) = (32, 1024, 300), (8, 1536, 200), (256, 2048,
 200): the streamed LSTM design, one launch each, against its plain
-version and timed beside cuDNN's LSTM); and the port's bench (phase 13):
-`bench.measure_ours` on reference_large with rnn_impl "scan" and
-"pallas" (launches counted), `bench.measure_streaming` at Tc=20, and
-`python -m gasr_tpu_torch.bench --small` / `--fault-inject` and
-`python -m gasr_tpu_torch.baseline_compat` as subprocesses, and one
-`bench.measure_train` call; and training at full width (phase 14,
-`train_phase`): the mixed bf16 matmul's backward against float64, the
-grads of flash_mhsa_rel and fused_stem through their kernel forwards
-bit-equal to their recompute backwards at conformer_l's shapes, the
-bench's two training rows (train_flagship: reference_large float32;
-train_conformer_l_bf16: 17 flash launches a step) on a fixed batch
-with the loss falling, ms a step, MFU, peak memory and the step's split,
-a conformer_l step with stem_impl="pallas", and the conformer_l bf16
-step through the flash kernel held to the same step with the plain
-attention (attn_impl="xla"): loss and grad norm of the first step, then
+version and timed beside cuDNN's LSTM); `python -m
+gasr_tpu_torch.baseline_compat` on two configs as a subprocess (phase
+13); and training at full width (phase 14, `train_phase`): the mixed
+bf16 matmul's backward against float64, the grads of flash_mhsa_rel and
+fused_stem through their kernel forwards bit-equal to their recompute
+backwards at conformer_l's shapes, 7 steps each of reference_large
+float32 (train_flagship) and conformer_l bf16 on one card
+(train_conformer_l_bf16: 17 flash launches a step) on a fixed batch
+with the loss falling and the launches counted, a conformer_l step
+with stem_impl="pallas", and the conformer_l bf16 step through the
+flash kernel held to the same step with the plain attention
+(attn_impl="xla"): loss and grad norm of the first step, then
 7 steps of each (and of the kernel path at a third of the learning rate)
 side by side, then the CTC loss's kernel pair at conformer_l_train's
 shape against the plain loop on the card, timed beside its byte bound, the
@@ -261,23 +259,19 @@ def train_phase(card, zero_counts, read_counts):
     backward against a float64 reference; flash_mhsa_rel's and
     fused_stem's grads through their kernel forwards bit-equal to their
     recompute backwards (the VJPs of the plain versions) at conformer_l's
-    shapes; then the bench's two training rows (`bench.TRAIN_ROWS`) as
-    `bench.measure_train` runs them on a fixed batch (the loss must fall
-    and stay finite; launches counted; ms a step, MFU, peak memory) with
-    the step's split (`bench.measure_train_split`), one conformer_l
+    shapes; then 7 steps each of reference_large (float32) and conformer_l
+    (bf16, one card) on a fixed batch through `train.make_train_step` (the
+    loss must fall and stay finite; launches counted), one conformer_l
     step with stem_impl="pallas", and the conformer_l bf16 step through
     the flash kernel against the same step with the plain attention.
     Returns (report, launches by run)."""
     import torch
     import gasr_tpu_torch.ops.linear  # noqa: F401  (the module, not the
     #                                   function the package re-exports)
-    from gasr_tpu_torch import bench
     from gasr_tpu_torch.config import PRESETS
     from gasr_tpu_torch.models import model_init
     from gasr_tpu_torch.models.conformer import _preset
     from gasr_tpu_torch.ops.cuda import flash_mhsa, stem
-    from gasr_tpu_torch.runtime.flops import (device_peak_flops,
-                                              model_train_flops)
     from gasr_tpu_torch.train import (make_optimizer, make_train_step,
                                       synthetic_batch)
     lin = sys.modules["gasr_tpu_torch.ops.linear"]
@@ -400,25 +394,31 @@ def train_phase(card, zero_counts, read_counts):
     out["stem_backward"] = dict(ms=st_bwd_ms)
     del pl, sw, xs, gs, got, want
 
-    # 14d. the bench's training rows at full width
-    peak = device_peak_flops()
+    # 14d. training at full width: reference_large float32 and conformer_l
+    # bf16 on one card, 7 steps each on one fixed batch (params seed 0,
+    # batch seed 1)
     runs = {}
-    for row, preset, cd in bench.TRAIN_ROWS:
-        cfg = bench._degrade_mesh(PRESETS[preset])
-        iters, reps = 2, 3
+    for row, preset, cd in (("train_flagship", "reference_large", None),
+                            ("train_conformer_l_bf16", "conformer_l",
+                             "bfloat16")):
+        cfg = dataclasses.replace(PRESETS[preset], mesh_shape={})
+        params = model_init(cfg, torch.Generator().manual_seed(0))
+        opt = make_optimizer()
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, compute_dtype=cd)
+        batch = synthetic_batch(cfg, torch.Generator().manual_seed(1))
+        steps = 7
         zero_counts()
-        st = bench.measure_train(cfg, iters=iters, reps=reps,
-                                 compute_dtype=cd)
-        torch.cuda.synchronize()
+        losses = [step(params, state, batch)[2]["loss"]
+                  for _ in range(steps)]
+        losses = [float(v) for v in losses]
         runs[row] = read_counts()
-        steps = 1 + iters * reps
-        losses = st["losses"]
         # one fixed batch: Adam's early steps overshoot and come back
         # (a later loss may spike near the first; 14f shows the spike on
         # the plain attention path too, and none at a third of the
         # learning rate), so the loss falls when the median of the later
         # steps lies below the first
-        check(len(losses) == steps and all(np.isfinite(losses))
+        check(all(np.isfinite(losses))
               and float(np.median(losses[1:])) < losses[0],
               f"{row}: losses {losses} do not fall or are not finite")
         n_flash = (_preset(cfg)["num_blocks"] * steps
@@ -428,27 +428,17 @@ def train_phase(card, zero_counts, read_counts):
         check(all(runs[row][k] == v for k, v in want_.items())
               and sum(runs[row].values()) == sum(want_.values()),
               f"{row}: launches {runs[row]}, expected {want_}")
-        split = bench.measure_train_split(cfg, compute_dtype=cd)
-        flops = model_train_flops(cfg)
-        out[row] = dict(
-            ms=st["median"] * 1e3, ms_range=[st["min"] * 1e3, st["max"] * 1e3],
-            mfu=flops / st["median"] / peak, train_tflop=flops / 1e12,
-            peak_gb=st["peak_bytes"] / 1e9, split_ms=split, losses=losses,
-            launches=runs[row])
+        out[row] = dict(losses=losses, launches=runs[row])
         print(f"{row} ({preset}, {cd or cfg.compute_dtype}, B="
-              f"{cfg.batch_size}, T={cfg.seg_len}) on {card}: "
-              f"{st['median'] * 1e3:.3f} ms a step (median of {reps} loops of "
-              f"{iters}, range {st['min'] * 1e3:.3f}-{st['max'] * 1e3:.3f}), "
-              f"MFU {100 * out[row]['mfu']:.2f}% of the bf16 peak "
-              f"({flops / 1e12:.3f} TFLOP a step), peak memory "
-              f"{out[row]['peak_gb']:.2f} GB; split (CUDA events, ms) "
-              f"{ {k: round(v, 3) for k, v in split.items()} }; losses "
-              f"{[round(x, 4) for x in losses]}; launches {runs[row]}",
-              flush=True)
+              f"{cfg.batch_size}, T={cfg.seg_len}) on {card}: losses of "
+              f"{steps} steps {[round(x, 4) for x in losses]}; launches "
+              f"{runs[row]}", flush=True)
+        del params, state, step, batch, opt
+        torch.cuda.empty_cache()
 
     # 14e. one conformer_l step with stem_impl="pallas": the stem kernels'
     # forward and the flash kernel's under the step
-    cfg = bench._degrade_mesh(PRESETS["conformer_l"])
+    cfg = cfg_l
     params = model_init(cfg, torch.Generator().manual_seed(0))
     opt = make_optimizer()
     state = opt.init(params)
@@ -475,10 +465,10 @@ def train_phase(card, zero_counts, read_counts):
 
     # 14f. the conformer_l bf16 step through the flash kernel against the
     # same step with the plain attention (attn_impl="xla", no kernel),
-    # from the bench row's params (seed 0) and fixed batch (seed 1): the
+    # from 14d's params (seed 0) and fixed batch (seed 1): the
     # first step's loss and grad norm agree at TRAIN_STEP_TOL; then 7
     # steps of each path, and of the kernel path at a third of the
-    # learning rate, each step's loss and grad norm (does the bench row's
+    # learning rate, each step's loss and grad norm (does 14d's
     # later spike come from the kernel path, or from the optimizer's
     # steps on one fixed batch?)
     def seven(attn_impl, learning_rate=3e-4):
@@ -2026,8 +2016,28 @@ def main() -> int:
     lp_err = float((torch.cat(lp_parts) - lp_one).abs().max())
     check(lp_err <= STREAM_LP_TOL, f"chunked forward differs from the "
           f"one-shot forward by {lp_err}")
+    # the launches of one whole call each: the float32 forward launches
+    # none of the port's kernels (rnn_impl="scan"); the batch call one
+    # decode and one traceback, the stream a decode and an overlay a chunk
+    pipe_s.transcribe_streaming(chunks)                 # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
     out_s = pipe_s.transcribe_streaming(chunks)
+    torch.cuda.synchronize()
+    ts_launches = read_counts()
+    zero_counts()
     out_one = pipe_s.transcribe(x)
+    torch.cuda.synchronize()
+    scan_launches = read_counts()
+    for what, got_, want_ in (
+            ("transcribe_streaming", ts_launches,
+             {"fused_prefix_decode": n_chunks, "traceback_overlay": n_chunks}),
+            ("transcribe", scan_launches,
+             {"fused_prefix_decode": 1, "traceback": 1})):
+        check(all(got_[k] == v for k, v in want_.items())
+              and sum(got_.values()) == sum(want_.values()),
+              f"{what} with rnn_impl='scan': launches {got_}, expected "
+              f"{want_}")
     n_same = sum(a[0] == b[0] for a, b in zip(out_s, out_one))
     ts_ms = host_ms(lambda: pipe_s.transcribe_streaming(chunks))
     print(f"transcribe_streaming reference_large (float32 forward, "
@@ -2036,7 +2046,8 @@ def main() -> int:
           f"{audio_s / (ts_ms / 1e3):.1f} audio-seconds/s; log-probs max "
           f"|chunked - one-shot| {lp_err} (tolerance {STREAM_LP_TOL}); "
           f"transcripts equal to the one-shot transcribe: {n_same} of "
-          f"{len(out_one)}", flush=True)
+          f"{len(out_one)}; launches of one call {ts_launches}, of the "
+          f"one-shot transcribe {scan_launches}", flush=True)
 
     # ---- 8. the conformer path: conformer_l at full width on one card
     F8 = torch.nn.functional
@@ -3534,78 +3545,10 @@ def main() -> int:
           f"bound {report['traceback']['bound_ms']:.4f} ms (phase 2)",
           flush=True)
 
-    # ---- 13. the port's bench (gasr_tpu_torch/bench.py): measure_ours on
-    # reference_large with the preset's rnn_impl="scan" and with "pallas"
-    # (launches of its warm-up call and 3 x 5 timed calls: a decode and a
-    # traceback each, an rnn_scan a forward with "pallas"), measure_streaming
-    # at Tc=20, the CLI (--small, --fault-inject) and baseline_compat as
-    # subprocesses, their output parsed
-    from gasr_tpu_torch import bench
-    cfg13 = PRESETS["reference_large"]
-    audio13 = cfg13.batch_size * cfg13.seg_len * bench.FRAME_SHIFT_S
-    bench_runs = {}
-    for impl in ("scan", "pallas"):
-        zero_counts()
-        r13 = bench.measure_ours(dataclasses.replace(cfg13, rnn_impl=impl),
-                                 3, reps=5)
-        torch.cuda.synchronize()
-        got_ = read_counts()
-        calls = 1 + 3 * 5
-        want_ = {"fused_prefix_decode": calls, "traceback": calls,
-                 "rnn_scan": calls if impl == "pallas" else 0}
-        check(all(got_[k] == v for k, v in want_.items())
-              and sum(got_.values()) == sum(want_.values()),
-              f"bench.measure_ours rnn_impl={impl!r}: launches {got_}, "
-              f"expected {want_}")
-        bench_runs[impl] = dict(r13, launches=got_,
-                                audio_s_per_s=audio13 / r13["overall_s"])
-        print(f"bench.measure_ours reference_large rnn_impl={impl!r} on "
-              f"{card}: forward {r13['forward_s'] * 1e3:.3f} ms, decode "
-              f"{r13['decode_s'] * 1e3:.3f} ms (medians of 5 loops of 3, "
-              f"host clock and one fence), "
-              f"{bench_runs[impl]['audio_s_per_s']:.1f} audio-s/s; launches "
-              f"of 16 forwards and decodes {got_}", flush=True)
-    zero_counts()
-    st13 = bench.measure_streaming(cfg13, STREAM_TC, iters=3, reps=3)
-    torch.cuda.synchronize()
-    bst_launches = read_counts()
-    n_str = (cfg13.seg_len // STREAM_TC) * (1 + 3 * 3)
-    check(bst_launches["fused_prefix_decode"] == n_str
-          and bst_launches["traceback_overlay"] == n_str
-          and bst_launches["traceback"] == 0,
-          f"bench.measure_streaming launches {bst_launches}")
-    print(f"bench.measure_streaming reference_large Tc={STREAM_TC} on {card}: "
-          f"{st13['median'] * 1e3:.3f} ms a stream (median of 3, range "
-          f"{st13['min'] * 1e3:.3f}-{st13['max'] * 1e3:.3f}), "
-          f"{audio13 / st13['median']:.1f} audio-s/s; launches "
-          f"{bst_launches}", flush=True)
-    work13 = _lib.BUILD / "chip_smoke"
-    work13.mkdir(parents=True, exist_ok=True)
-    env13 = dict(os.environ, PYTHONPATH=ROOT)
-
-    def run13(*argv):
-        p13 = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
-                             env=env13, capture_output=True, text=True,
-                             timeout=600)
-        check(p13.returncode == 0, f"{' '.join(argv)} exited "
-              f"{p13.returncode}:\n{p13.stderr[-3000:]}")
-        return p13.stdout
-
-    line13 = json.loads(run13("gasr_tpu_torch.bench", "--small")
-                        .strip().splitlines()[-1])
-    check(set(line13) == {"metric", "value", "unit", "vs_baseline",
-                          "detail"}
-          and line13["value"] > 0 and line13["vs_baseline"] > 0
-          and line13["detail"]["device"] not in ("", "cpu"),
-          f"bench --small line {line13}")
-    print(f"python -m gasr_tpu_torch.bench --small: {line13['value']} "
-          f"audio-s/s, vs_baseline {line13['vs_baseline']} on "
-          f"{line13['detail']['device']}", flush=True)
-    fault13 = json.loads(run13("gasr_tpu_torch.bench", "--fault-inject")
-                         .strip().splitlines()[-1])
-    check(fault13.get("fault_injection") == "detected",
-          f"bench --fault-inject: {fault13}")
-    compat_cfg = work13 / "compat.json"
+    # ---- 13. the reference harness shim (baseline_compat) as a
+    # subprocess on the card, its output parsed
+    compat_cfg = _lib.BUILD / "chip_smoke" / "compat.json"
+    compat_cfg.parent.mkdir(parents=True, exist_ok=True)
     compat_cfg.write_text(json.dumps([
         {"batch_size": 8, "input_size": 26, "n_context": 1,
          "linear_size": 256, "rnn_hidden_size": 256, "vocab_size": 46,
@@ -3615,32 +3558,19 @@ def main() -> int:
          "linear_size": 40, "rnn_hidden_size": 50, "vocab_size": 3,
          "seg_len": 9, "epoch": 1, "device": "cuda", "num_threads": 4,
          "beam_width": 2}]))
-    compat_out = run13("gasr_tpu_torch.baseline_compat", str(compat_cfg))
+    p13 = subprocess.run(
+        [sys.executable, "-m", "gasr_tpu_torch.baseline_compat",
+         str(compat_cfg)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=600)
+    check(p13.returncode == 0, f"baseline_compat exited {p13.returncode}:"
+          f"\n{p13.stderr[-3000:]}")
+    compat_out = p13.stdout
     for pat in (r"^Forward: \d+\.\d+ s$", r"^CTC Decode \d+\.\d+ s$",
                 r"^Overall \d+\.\d+ s$", r"^====== config ======$"):
         check(len(re.findall(pat, compat_out, re.M)) == 2,
               f"baseline_compat output: {pat} not twice in {compat_out}")
-    print("python -m gasr_tpu_torch.bench --fault-inject: detected; "
-          "python -m gasr_tpu_torch.baseline_compat on two configs "
+    print("python -m gasr_tpu_torch.baseline_compat on two configs "
           "(device cuda): the three lines each", flush=True)
-    # one measure_train call: the bench's train_flagship row (float32,
-    # rnn_impl "scan": of the port's kernels only the CTC loss's pair, two
-    # launches a step)
-    zero_counts()
-    tr13 = bench.measure_train(cfg13, iters=1, reps=3)
-    torch.cuda.synchronize()
-    btr_launches = read_counts()
-    check(set(tr13) == {"median", "min", "max", "iqr", "reps", "peak_bytes",
-                        "losses"} and len(tr13["losses"]) == 4
-          and all(np.isfinite(tr13["losses"]))
-          and btr_launches["ctc_loss"] == 2 * len(tr13["losses"])
-          and sum(btr_launches.values()) == 2 * len(tr13["losses"]),
-          f"bench.measure_train reference_large: {tr13}, launches "
-          f"{btr_launches}")
-    print(f"bench.measure_train reference_large (float32) on {card}: "
-          f"{tr13['median'] * 1e3:.3f} ms a step (median of 3 loops of 1), "
-          f"peak memory {tr13['peak_bytes'] / 1e9:.2f} GB, losses "
-          f"{[round(x, 4) for x in tr13['losses']]}", flush=True)
 
     # ---- 14. training at full width (train_phase)
     torch.cuda.empty_cache()
@@ -3704,7 +3634,7 @@ def main() -> int:
     # lstm_scan, the TP batch decodes ("fused" then "fused_frame") for
     # tp_frame and tp_scan, the exchange probe of phase 11c for toy_exchange
     # (it runs on no serving path: it tests tp_scan's exchange); the
-    # training runs of phases 13-14 are listed by path beside them
+    # training runs of phase 14 are listed by path beside them
     runs = {"transcribe": launches, "streaming": s_launches,
             "approx_decode": approx_runs["no LM"],
             "approx_decode_lm": approx_runs["LM"],
@@ -3716,10 +3646,8 @@ def main() -> int:
             "tp_conformer": tpc_launches, "toy_exchange": toy_launches,
             "rnn_streamed": rs_launches, "conformer_f128": cw_launches,
             "lstm_streamed": ls_launches,
-            "bench_scan": bench_runs["scan"]["launches"],
-            "bench_pallas": bench_runs["pallas"]["launches"],
-            "bench_streaming": bst_launches, "bench_train": btr_launches,
-            **train_runs}
+            "transcribe_scan": scan_launches,
+            "transcribe_streaming": ts_launches, **train_runs}
     # the LM variant's launches: those of the LM stream, per path beside
     lm_report.update(
         launches=lms_launches["fused_prefix_decode_lm"],
@@ -3782,14 +3710,8 @@ def main() -> int:
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
-    for row in ("train_flagship", "train_conformer_l_bf16"):
-        r = train_report[row]
-        print(f"training row {row}: {r['ms']:.3f} ms a step, MFU "
-              f"{100 * r['mfu']:.2f}%, peak {r['peak_gb']:.2f} GB, split "
-              f"{ {k: round(v, 3) for k, v in r['split_ms'].items()} } ms on "
-              f"{card}")
-    # every process the phases started (nvcc, the bench's subprocesses,
-    # the ranks) has ended: none outlives the script
+    # every process the phases started (nvcc, baseline_compat, the ranks)
+    # has ended: none outlives the script
     card_end = card_line()
     kids = distributed.live_children()
     check(not kids, f"processes started here still run: {kids}")

@@ -38,9 +38,9 @@ FRAME_SHIFT_S = 0.01
 # The bus rate of an NCCL all-reduce of the flagship's bf16 gradient bytes
 # (42,479,710) over 4 cards of one host, 2(n-1)/n * bytes / t, t the
 # slowest rank's mean of 20 calls: measured by `measure_allreduce_bandwidth`
-# in `python -m gasr_tpu_torch.bench --scaling` on 4 x NVIDIA H100 80GB
-# HBM3 at 700.00 W (NVLink, 32 host CPUs), 2026-10-17. `bench --scaling`
-# projects from it where one card is present.
+# on 4 x NVIDIA H100 80GB HBM3 at 700.00 W (NVLink, 32 host CPUs),
+# 2026-10-17: the link rate to give `analytic_dp_projection` (`bw_b_s`)
+# where fewer cards are present.
 NVLINK_ALLREDUCE_B_S = 265.2126e9
 
 

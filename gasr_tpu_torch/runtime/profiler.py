@@ -1,36 +1,30 @@
 """Profiling: the program's own spans, and the operator's trace exporter.
 
-  - `span(name, **attrs)`: a context manager around one layer's work;
-    `records()` returns what the current profiler session (or, after it,
-    the last one) recorded, without consuming it.
+  - `span(name)`: a context manager around one layer's work; `records()`
+    returns what the current profiler session (or, after it, the last
+    one) recorded, without consuming it.
   - They record only while a `torch.profiler` session runs
     (`torch.autograd._profiler_enabled()`). Otherwise a span is one check
     and a shared no-op context: nothing is kept, and no
     `record_function`, CUDA event or synchronisation happens.
-  - A span holds its name; its start and end on the clock of the Chrome
-    trace that the profiler exports, as ns since the trace's
-    `baseTimeNanoseconds` (`Records.base_ns`; the trace's `ts` is that
-    over 1000); its id; its parent's id (the innermost span open in its
-    thread, or None); the id of its request (the root span's: a span
-    opened with no open parent starts a request, and every span of one
-    call shares it); and its attrs. The stamps are the host's
-    (`time.perf_counter_ns`), put on the trace's wall clock through one
-    (`perf_counter_ns`, `time_ns`) anchor a session. A span also opens a
-    `torch.profiler.record_function` of its name, so that the exported
-    timeline shows it; it records no CUDA event and waits for nothing.
+  - A span holds its name and its start and end in ns of the host's
+    `time.perf_counter_ns()`; a reader takes durations from them. A span
+    also opens a `torch.profiler.record_function` of its name, so that
+    the exported timeline shows it; it records no CUDA event and waits
+    for nothing.
+  - Spans of one thread close in the order they opened (a stack a
+    thread), so one span's interval holds those opened inside it.
   - Records live in memory for one session. Once the recorder has seen
     the profiler stopped (a span, collection or reading while it is
     off), the next session's first span, collection or reading replaces
     them.
   - The cyclic collector: a `gc.callbacks` entry, installed when this
-    module is imported, records each collection as a `gc` span (attrs
-    `generation` and `collected`, the objects it freed); with no
+    module is imported, records each collection as a `gc` span; with no
     profiler running it returns at once.
   - `trace(log_dir)`: a `torch.profiler` trace of the CPU and, where a
     card is present, the CUDA activity of a code region, written as a
     Chrome trace into `log_dir`; the program's spans are in it as
-    `record_function` ranges, and `records()` holds them with their
-    parents and attrs.
+    `record_function` ranges.
 
 The recorder is one per process, as the profiler is.
 """
@@ -39,47 +33,38 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import itertools
 import os
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
 _enabled = torch.autograd._profiler_enabled
-
-# libkineto's ChromeTraceBaseTime: the epoch floored to 7,889,238 s
-_TRACE_BASE_S = 7889238
+_now = time.perf_counter_ns
 
 
 class Span:
-    """One recorded span (times in ns since `Records.base_ns`; `end_ns`
-    is None while it is open). As a context manager it stamps itself."""
+    """One recorded span (`end_ns` is None while it is open). As a
+    context manager it stamps itself."""
 
-    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "request",
-                 "attrs", "_rec", "_range")
+    __slots__ = ("name", "start_ns", "end_ns", "_rec", "_range")
 
-    def __init__(self, rec: "_Recorder", name: str, attrs: Dict):
-        self.name, self.attrs, self._rec = name, attrs, rec
+    def __init__(self, rec: "_Recorder", name: str):
+        self.name, self._rec = name, rec
         self.end_ns = None
 
     def __enter__(self):
         rec = self._rec
-        stack = rec.stack()
-        top = stack[-1] if stack else None
-        self.id = next(rec.ids)
-        self.parent = top.id if top is not None else None
-        self.request = top.request if top is not None else self.id
         self._range = torch.profiler.record_function(self.name)
         self._range.__enter__()
-        self.start_ns = rec.now()
-        stack.append(self)
+        self.start_ns = _now()
+        rec.stack().append(self)
         rec.spans.append(self)
         return self
 
     def __exit__(self, *exc):
-        self.end_ns = self._rec.now()
+        self.end_ns = _now()
         self._range.__exit__(*exc)
         self._range = None
         stack = self._rec.stack()
@@ -89,7 +74,6 @@ class Span:
 
 
 class Records(NamedTuple):
-    base_ns: int                 # the trace's baseTimeNanoseconds
     spans: List[Span]            # in the order they opened
 
 
@@ -111,27 +95,15 @@ _OFF = _Off()
 class _Recorder:
     def __init__(self):
         self.live = False
-        self.base_ns = 0
         self.spans: List[Span] = []
-        self.ids = itertools.count()
-        self._anchor = (0, 0)
         self._local = threading.local()
         self._gc: Optional[Span] = None
 
     def begin(self) -> None:
-        """A new session: a fresh anchor, and the last session's records
-        dropped."""
-        perf, wall = time.perf_counter_ns(), time.time_ns()
-        self.base_ns = wall // 10**9 // _TRACE_BASE_S * _TRACE_BASE_S * 10**9
-        self._anchor = (perf, wall - self.base_ns)
+        """A new session: the last session's records dropped."""
         self.spans = []
-        self.ids = itertools.count()
         self._gc = None
         self.live = True
-
-    def now(self) -> int:
-        perf, at = self._anchor
-        return time.perf_counter_ns() - perf + at
 
     def stack(self) -> List[Span]:
         try:
@@ -140,15 +112,14 @@ class _Recorder:
             self._local.stack = []
             return self._local.stack
 
-    def collection(self, phase: str, info: Dict) -> None:
+    def collection(self, phase: str) -> None:
         if phase == "start":
-            s = Span(self, "gc", {"generation": info["generation"]})
+            s = Span(self, "gc")
             s.__enter__()
             self.stack().pop()          # a collection is no span's parent
             self._gc = s
         elif self._gc is not None:
             s, self._gc = self._gc, None
-            s.attrs["collected"] = info["collected"]
             s.__exit__(None, None, None)
 
 
@@ -166,22 +137,22 @@ def _on(enabled=_enabled, rec=_REC) -> bool:
     return True
 
 
-def span(name: str, **attrs):
+def span(name: str):
     """A context manager that records `name` while a profiler runs."""
     if not _on():
         return _OFF
-    return Span(_REC, name, attrs)
+    return Span(_REC, name)
 
 
 def records() -> Records:
     """The spans of the running or the last session."""
     _on()
-    return Records(_REC.base_ns, list(_REC.spans))
+    return Records(list(_REC.spans))
 
 
 def _on_collection(phase, info, on=_on, rec=_REC):
     if on():
-        rec.collection(phase, info)
+        rec.collection(phase)
 
 
 gc.callbacks.append(_on_collection)

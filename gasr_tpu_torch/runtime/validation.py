@@ -1,6 +1,6 @@
 """Input validation with typed, actionable errors, non-finite detection
-at pipeline boundaries and the fault injector of the bench's
-`--fault-inject` drill (the port's copy of
+at pipeline boundaries and a fault injector that poisons a tensor so
+that the detection can be drilled (the port's copy of
 `gasr_tpu/runtime/validation.py`)."""
 
 from __future__ import annotations

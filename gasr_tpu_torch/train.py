@@ -154,8 +154,8 @@ def make_train_step(config: Config, optimizer: Optimizer,
     updated in place and the metrics 0-d tensors (grad_norm of the
     unclipped grads). `mark`, where given, is called with each phase's
     name as the phase ends: "forward" (SpecAugment and the model),
-    "ctc", "backward", "optimizer" (the bench's split records a CUDA
-    event there). Spans: "train.step", and in it "train.forward",
+    "ctc", "backward", "optimizer" (the benchmark's train loop records
+    a CUDA event there). Spans: "train.step", and in it "train.forward",
     "train.ctc", "train.backward" and "train.optimizer", each ending
     where its `mark` fires.
 

@@ -277,8 +277,11 @@ def test_the_stem_and_the_shards_have_their_spans(small):
     with prof:
         lp = model_apply(cfg, params, x)
         bs._vocab_sharded_scan(lp[:3], bs._init_beam(3, 4, "cpu"), BLANK)
-    by_id = {s.id: s for s in records().spans}
-    tree = [(s.name, by_id[s.parent].name if s.parent is not None else None)
-            for s in records().spans if s.name != "gc"]
+    spans = [s for s in records().spans if s.name != "gc"]
+    # a span's parent: the innermost earlier span whose interval holds it
+    tree = [(s.name, next((p.name for p in reversed(spans[:i])
+                           if p.start_ns <= s.start_ns
+                           and s.end_ns <= p.end_ns), None))
+            for i, s in enumerate(spans)]
     assert ("model.stem", "model.forward") in tree
     assert ("decode.vocab_shards", None) in tree

@@ -223,8 +223,8 @@ new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "gasr_tpu" or m.startswith("gasr_tpu."))
 # the audio front end, the native library, evaluation and the LM tables;
-# the meshes, the vocab-sharded decode and the exchange probe; the bench,
-# the reference harness shim, the runtime modules and the utilities;
+# the meshes, the vocab-sharded decode and the exchange probe; the
+# reference harness shim, the runtime modules and the utilities;
 # training, its CTC loss and SpecAugment; the multi-process modules, the
 # sharded checkpoints, the graft entries and the NumPy oracles
 missing = sorted({"gasr_tpu_torch.data", "gasr_tpu_torch.data.dataset",
@@ -233,7 +233,7 @@ missing = sorted({"gasr_tpu_torch.data", "gasr_tpu_torch.data.dataset",
                   "gasr_tpu_torch.parallel", "gasr_tpu_torch.parallel.mesh",
                   "gasr_tpu_torch.parallel.decode_tp",
                   "gasr_tpu_torch.ops.cuda.exchange_probe",
-                  "gasr_tpu_torch.bench", "gasr_tpu_torch.baseline_compat",
+                  "gasr_tpu_torch.baseline_compat",
                   "gasr_tpu_torch.utils", "gasr_tpu_torch.runtime.timer",
                   "gasr_tpu_torch.runtime.flops",
                   "gasr_tpu_torch.runtime.memory",

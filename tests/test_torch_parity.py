@@ -14,6 +14,9 @@ are the port's settled rules (ROADMAP.md, Queue 3, "Settled"):
     each entry pins the port's parameters, and must still be needed;
   - REMOVED: names the port left out for a stated reason; each must
     still be in the JAX package and not in the port.
+The other way round, every module of `gasr_tpu_torch` is the counterpart
+of a `gasr_tpu` module or is on PORT_ONLY with its reason: the package
+mirrors JAX's layout module for module.
 Imports both packages and runs nothing.
 """
 
@@ -24,6 +27,7 @@ from pathlib import Path
 import pytest
 
 import gasr_tpu
+import gasr_tpu_torch
 
 RENAMED = {"key": "generator"}
 ADDED = {"device"}
@@ -76,18 +80,38 @@ REMOVED = {
 }
 
 
-def _modules():
-    root = Path(gasr_tpu.__file__).parent
+# port module (or package, with every module under it) -> reason it has no
+# counterpart in `gasr_tpu`
+PORT_ONLY = {
+    "gasr_tpu_torch.ops.cuda":
+        "the hand-written CUDA kernels and their loader, in place of "
+        "`gasr_tpu/ops/pallas`'s TPU kernels",
+    "gasr_tpu_torch.graft_entry":
+        "the port's entry points; JAX's are the repo root's "
+        "`__graft_entry__.py`, outside the package",
+    "gasr_tpu_torch.parallel.checks":
+        "rank programs of one process a card, which JAX's single "
+        "program over every device does not need",
+    "gasr_tpu_torch.parallel.collectives":
+        "the tensor-parallel forward's collectives as autograd Functions, "
+        "which GSPMD writes for JAX",
+    "gasr_tpu_torch.runtime._tree":
+        "walking nested containers of tensors, which `jax.tree_util` "
+        "does for JAX",
+}
+
+
+def _modules(package):
+    root = Path(package.__file__).parent
     for path in sorted(root.rglob("*.py")):
         parts = list(path.relative_to(root.parent).with_suffix("").parts)
         if parts[-1] == "__init__":
             parts = parts[:-1]
-        name = ".".join(parts)
-        if not name.startswith("gasr_tpu.ops.pallas"):
-            yield name
+        yield ".".join(parts)
 
 
-MODULES = list(_modules())
+MODULES = [name for name in _modules(gasr_tpu)
+           if not name.startswith("gasr_tpu.ops.pallas")]
 
 
 def _public(module):
@@ -141,3 +165,21 @@ def test_departures_are_needed_and_stated():
     for (name, attr), reason in REMOVED.items():
         assert name in MODULES and len(reason) > 20
         assert attr in _public(importlib.import_module(name)), (name, attr)
+
+
+def _port_only(name):
+    return next((k for k in PORT_ONLY
+                 if name == k or name.startswith(k + ".")), None)
+
+
+def test_every_port_module_has_a_counterpart_or_a_stated_reason():
+    jax_names = set(_modules(gasr_tpu))
+    port = list(_modules(gasr_tpu_torch))
+    for name in port:
+        if _port_only(name) is None:
+            assert "gasr_tpu" + name[len("gasr_tpu_torch"):] in jax_names, \
+                f"{name} has no counterpart in gasr_tpu and no stated reason"
+    # each entry is needed: it covers a port module, and has no counterpart
+    for key, reason in PORT_ONLY.items():
+        assert len(reason) > 20 and any(_port_only(n) == key for n in port)
+        assert "gasr_tpu" + key[len("gasr_tpu_torch"):] not in jax_names, key

@@ -358,7 +358,7 @@ def test_remat_equals_no_remat(which):
 
 
 def test_step_marks_its_phases_in_order():
-    # the bench's split times the step itself through `mark`: the phases
+    # the benchmark times the step's phases through `mark`: the phases
     # end in order, once each, and the marked step equals the unmarked one
     jc, tc = _ds_pair()
     jp = jax.device_get(j_init(jc, jax.random.PRNGKey(5)))
