@@ -92,7 +92,13 @@ LayerNorm kernel (phase 17, `add_ln_phase`; alone: `python3 chip_smoke.py
 --add-ln`) at both batch cells' shapes against its plain version, its
 byte bound and the eager chain it replaced, then both cells' whole bf16
 forwards with the kernel (6 and 5 launches a block) and with the plain
-path in turns.
+path in turns; and the block linears' epilogue kernel (phase 18,
+`bias_act_phase`; alone: `python3 chip_smoke.py --bias-act`): the bias
+add, rounding and swish or GLU at each site's shape of both batch cells
+and for every bf16 value through the sigmoid, bit-equal to its plain
+version, timed against its byte bound and the eager chain, then both
+cells' whole bf16 forwards (6 and 7 launches a block, 1 the stem) with
+the kernel and with the plain path in turns, their log-probs equal.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -1170,6 +1176,33 @@ def parakeet_phase(card):
     return {"flash_mhsa_rel_parakeet": flash, "tp_frame_parakeet": frame}
 
 
+def batch_cell_forward_inputs(name, seed, gen):
+    """A batch cell's forward as the benchmark builds it, for the
+    configuration `name` (conformer_l or parakeet_ctc_1.1b): its Config at
+    the cell's batch and frames, its weights drawn from `seed`
+    (`asrbench/weights.py`) and a batch of features from `gen`, all on
+    the card."""
+    import torch
+    from asrbench import weights as bench_weights
+    from gasr_tpu_torch.config import Config
+    dev = torch.device("cuda")
+    spec = json.loads(open(os.path.join(
+        ROOT, "asrbench", "configs", f"{name}.json")).read())
+    traffic = json.loads(open(os.path.join(
+        ROOT, "asrbench", "traffic",
+        {"conformer_l": "batch_12s_b64",
+         "parakeet_ctc_1.1b": "batch_60s_b32"}[name] + ".json")).read())
+    cfg = Config.from_dict(dict(spec["program"], device="cuda",
+                                batch_size=traffic["batch"],
+                                seg_len=traffic["frames"]))
+    params = bench_weights.make(spec["family"], spec["model"],
+                                torch.Generator(device=dev).manual_seed(seed),
+                                dev)
+    xin = torch.rand((cfg.batch_size, cfg.seg_len, cfg.input_size),
+                     generator=gen, device=dev)
+    return cfg, params, xin
+
+
 def add_ln_phase(card):
     """Phase 17, the conformer block's residual add and LayerNorm
     (`csrc/add_ln.cu`) at the two batch cells' shapes: conformer_l_batch's
@@ -1191,8 +1224,6 @@ def add_ln_phase(card):
     frame's largest gap between the two against the cells' limits.
     Returns the kernel table's entry."""
     import torch
-    from asrbench import weights as bench_weights
-    from gasr_tpu_torch.config import Config
     from gasr_tpu_torch.models import conformer as tconf
     from gasr_tpu_torch.models import model_apply
     from gasr_tpu_torch.ops.cuda import add_ln as kadd
@@ -1264,20 +1295,7 @@ def add_ln_phase(card):
     for name, cell, per_block in (("conformer_l", "conformer_l_batch", 6),
                                   ("parakeet_ctc_1.1b",
                                    "parakeet_ctc_batch", 5)):
-        spec = json.loads(open(os.path.join(
-            ROOT, "asrbench", "configs", f"{name}.json")).read())
-        traffic = json.loads(open(os.path.join(
-            ROOT, "asrbench", "traffic",
-            {"conformer_l": "batch_12s_b64",
-             "parakeet_ctc_1.1b": "batch_60s_b32"}[name] + ".json")).read())
-        cfg = Config.from_dict(dict(spec["program"], device="cuda",
-                                    batch_size=traffic["batch"],
-                                    seg_len=traffic["frames"]))
-        params = bench_weights.make(spec["family"], spec["model"],
-                                    torch.Generator(device=dev).manual_seed(
-                                        29), dev)
-        xin = torch.rand((cfg.batch_size, cfg.seg_len, cfg.input_size),
-                         generator=gen, device=dev)
+        cfg, params, xin = batch_cell_forward_inputs(name, 29, gen)
         n_blocks = len(params["blocks"])
 
         def fwd():
@@ -1329,6 +1347,143 @@ def add_ln_phase(card):
     return report
 
 
+def bias_act_phase(card):
+    """Phase 18, the block linears' epilogue (`csrc/bias_act.cu`) at each
+    site's shape of the two batch cells: conformer_l_batch's 19,200 rows
+    (T' 300, B 64; w1 + swish [., 2048], pw1 + GLU [., 1024], w2, pw2 and
+    the stem's sub_proj [., 512]) and parakeet_ctc_batch's 24,000 (T' 750,
+    B 32; [., 4096], [., 2048], [., 1024] and the biased qkv [., 3072]),
+    each a float32 product and bias against `bias_act_plain` on the card
+    (bit-equal); then every bf16 value but the NaNs through the swish and
+    the GLU's sigmoid (bit-equal, NaN where plain gives NaN). Each site's
+    device ms (`queued_device_ms`) beside its byte bound (the product read
+    once, the bf16 output written once, the bias), the eager chain's ms
+    (`bias_act_plain`, CUDA events) and the host ms a launch. Then each
+    cell's whole bf16 forward under no_grad on the benchmark's weights
+    (`asrbench/weights.py`) and shapes: `bias_act` launches (6 a
+    conformer_l block, 7 a parakeet one, 1 the stem), the log-probs equal
+    to the same forward's with the rule forced off, and ms a forward with
+    the kernel and with the plain path in turns. Returns the kernel
+    table's entry."""
+    import torch
+    from gasr_tpu_torch.models import model_apply
+    from gasr_tpu_torch.ops.cuda import bias_act as kba
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    report = {}
+    for name, rows, sites in (
+            ("conformer_l_batch", 300 * 64,
+             (("w1_swish", 2048, "swish"), ("pw1_glu", 1024, "glu"),
+              ("w2_pw2_sub_proj", 512, "none"))),
+            ("parakeet_ctc_batch", 750 * 32,
+             (("w1_swish", 4096, "swish"), ("pw1_glu", 2048, "glu"),
+              ("qkv", 3072, "none"), ("w2_pw2_sub_proj", 1024, "none")))):
+        entry = {}
+        for site, n, act in sites:
+            y = torch.randn((rows, n), generator=gen, device=dev) * 3
+            b = torch.randn((n,), generator=gen, device=dev) * 0.5
+            got = kba.bias_act(y, b, act)
+            want = kba.bias_act_plain(y, b, act, bf)
+            torch.cuda.synchronize()
+            check(same(got, want), f"bias_act {name} {site}: not bit-equal "
+                  f"to bias_act_plain ({int((got != want).sum())} of "
+                  f"{got.numel()} differ)")
+            ms = queued_device_ms(lambda: kba.bias_act(y, b, act), iters=50)
+            chain_ms = cuda_events_ms(
+                lambda: kba.bias_act_plain(y, b, act, bf), iters=10,
+                warmup=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                kba.bias_act(y, b, act)
+            host_ms = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+            n_out = n // 2 if act == "glu" else n
+            nbytes = rows * n * 4 + rows * n_out * 2 + n * 4
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            entry[site] = dict(shape=[rows, n], act=act, ms=ms,
+                               bound_ms=bound_ms, bound_by="bytes",
+                               roofline=bound_ms / ms,
+                               eager_chain_ms=chain_ms, host_ms=host_ms)
+            print(f"bias_act [{rows} x {n}] {act} ({name} {site}) on {card}:"
+                  f" {ms:.4f} ms (host {host_ms:.4f} ms a launch); bound "
+                  f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB, "
+                  f"{100 * bound_ms / ms:.1f}%); the eager chain "
+                  f"{chain_ms:.4f} ms; bit-equal", flush=True)
+            del y, b, got, want
+        report[name] = entry
+
+    # every bf16 value but the NaNs: swish at a zero bias (t = y), and the
+    # GLU with a = 1, which returns the sigmoid itself
+    v = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(
+        torch.int16).view(bf)
+    v = v[~torch.isnan(v)].float()
+    v = torch.cat([v, v.new_zeros(-v.numel() % 8)]).reshape(-1, 8)
+    for act, y in (("swish", v), ("glu", torch.cat([torch.ones_like(v), v],
+                                                   dim=1))):
+        z = torch.zeros(y.shape[1], device=dev)
+        got = kba.bias_act(y, z, act)
+        want = kba.bias_act_plain(y, z, act, bf)
+        nan = torch.isnan(want.float())
+        check(torch.equal(nan, torch.isnan(got.float()))
+              and same(torch.where(nan, 0, got), torch.where(nan, 0, want)),
+              f"bias_act {act}: some bf16 input differs from the plain "
+              f"version")
+    print(f"bias_act: every non-NaN bf16 value ({v.numel()}) through the "
+          f"swish and the GLU's sigmoid bit-equal to bias_act_plain on "
+          f"{card}", flush=True)
+
+    # the two cells' whole forwards
+    for name, per_block in (("conformer_l", 6), ("parakeet_ctc_1.1b", 7)):
+        cfg, params, xin = batch_cell_forward_inputs(name, 31, gen)
+        n_blocks = len(params["blocks"])
+
+        def fwd():
+            with torch.no_grad():
+                return model_apply(cfg, params, xin,
+                                   compute_dtype="bfloat16")
+
+        def plain_fwd():
+            eligible = kba.bias_act_eligible
+            kba.bias_act_eligible = lambda *a: False
+            try:
+                return fwd()
+            finally:
+                kba.bias_act_eligible = eligible
+
+        before = kba.launches
+        lp = fwd()
+        torch.cuda.synchronize()
+        n = kba.launches - before
+        check(n == per_block * n_blocks + 1, f"{name} forward: bias_act "
+              f"launches {n}, expected {per_block} x {n_blocks} + 1")
+        before = kba.launches
+        lp_plain = plain_fwd()
+        check(kba.launches == before, f"{name} plain forward launched "
+              f"bias_act")
+        check(torch.equal(lp, lp_plain), f"{name}: the forward's log-probs "
+              f"with the kernel differ from the plain path's (max "
+              f"{float((lp - lp_plain).abs().max())})")
+        del lp, lp_plain
+        times = [cuda_events_ms(f, iters=3, warmup=1)
+                 for f in (plain_fwd, fwd, fwd, plain_fwd)]
+        print(f"{name} forward [B={cfg.batch_size}, T={cfg.seg_len}, bf16, "
+              f"{n_blocks} blocks] on {card}: bias_act launches {n} "
+              f"({per_block} a block + 1); ms a forward, plain / kernel / "
+              f"kernel / plain: {', '.join(f'{t:.3f}' for t in times)}; "
+              f"log-probs equal", flush=True)
+        report[name + "_forward"] = dict(launches=n,
+                                         ms_plain_kernel_kernel_plain=times)
+        del params, xin
+        torch.cuda.empty_cache()
+    return report
+
+
 def parakeet_main() -> int:
     """`python3 chip_smoke.py --parakeet`: phase 16 alone."""
     import torch
@@ -1359,6 +1514,26 @@ def add_ln_main() -> int:
     print(f"kernel build: {_lib.build_all(['add_ln', 'flash_mhsa']):.1f} s "
           f"(add_ln, flash_mhsa)", flush=True)
     print(json.dumps({"add_ln": add_ln_phase(card)}))
+    print(f"card: {card_line()}")
+    return 0
+
+
+def bias_act_main() -> int:
+    """`python3 chip_smoke.py --bias-act`: phase 18 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    from gasr_tpu_torch.ops.cuda import _lib
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"kernel build: "
+          f"{_lib.build_all(['bias_act', 'add_ln', 'flash_mhsa']):.1f} s "
+          f"(bias_act, add_ln, flash_mhsa)", flush=True)
+    print(json.dumps({"bias_act": bias_act_phase(card)}))
     print(f"card: {card_line()}")
     return 0
 
@@ -2288,7 +2463,7 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_blocks = len(params_c["blocks"])
     want_c = {"flash_mhsa_rel": n_blocks, "fused_stem": 0,
-              "add_ln": 6 * n_blocks,
+              "add_ln": 6 * n_blocks, "bias_act": 6 * n_blocks + 1,
               "fused_prefix_decode": 1, "traceback": 1, "topk": 0,
               "traceback_overlay": 0, "rnn_scan": 0, "lstm_scan": 0}
     for name, n in want_c.items():
@@ -3597,6 +3772,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"add_ln": add_ln_phase(card)}), flush=True)
 
+    # ---- 18. the block linears' epilogue
+    torch.cuda.empty_cache()
+    print(json.dumps({"bias_act": bias_act_phase(card)}), flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -3731,6 +3910,8 @@ if __name__ == "__main__":
         sys.exit(ctc_main())
     if sys.argv[1:] == ["--add-ln"]:
         sys.exit(add_ln_main())
+    if sys.argv[1:] == ["--bias-act"]:
+        sys.exit(bias_act_main())
     if sys.argv[1:] == ["--parakeet"]:
         sys.exit(parakeet_main())
     sys.exit(main())

@@ -35,7 +35,11 @@ float32. The rounding points are the JAX package's; `ops/linear.py` and
 On a bf16 CUDA forward outside autograd, each residual add and the
 LayerNorm after it are one launch of the `add_ln` kernel
 (`ops/cuda/add_ln.py`): 6 a block, 5 where the conv module has its
-BatchNorm. Training, float32 and the CPU run the eager expressions.
+BatchNorm; and each linear's bias add, its rounding to bf16 and the swish
+or GLU after it are one launch of the `bias_act` kernel
+(`ops/cuda/bias_act.py`): 6 a block (w1, w2 of both FFNs; pw1, pw2), 7
+with attention biases (the qkv product), 1 the stem's sub_proj. Training,
+float32 and the CPU run the eager expressions.
 
 attn_impl ("xla" | "pallas" | "auto") picks the attention route
 (`ops/attention.py`); stem_impl="pallas" takes the fused stem kernel
@@ -54,8 +58,10 @@ from gasr_tpu_torch.ops.attention import mhsa_rel, mhsa_rel_init
 from gasr_tpu_torch.ops.conv import conv2d, conv2d_init, conv_mixed
 from gasr_tpu_torch.ops.cuda.add_ln import (add_ln, add_ln_eligible,
                                             add_ln_plain)
+from gasr_tpu_torch.ops.cuda.bias_act import epilogue, sigmoid_plain
 from gasr_tpu_torch.ops.cuda.stem import fused_stem, stem_eligible
-from gasr_tpu_torch.ops.linear import linear, linear_init, normal_init
+from gasr_tpu_torch.ops.linear import (linear, linear_init, matmul,
+                                      normal_init)
 from gasr_tpu_torch.runtime.profiler import span
 
 _PRESETS = {
@@ -122,23 +128,16 @@ def _ffn_init(generator, d: int, mult: int, device) -> dict:
             "w2": linear_init(generator, d * mult, d, device)}
 
 
-def _lin(p: dict, x: torch.Tensor, cd) -> torch.Tensor:
-    """linear() at the block compute dtype, re-emitted at that dtype."""
-    y = linear(p, x, None, cd)
-    return y if cd is None else y.to(cd)
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.sigmoid's expression, 1 / (1 + exp(-x)), each step rounded
-    to x's dtype (torch.sigmoid rounds once from float32, which differs
-    in about a third of bf16 outputs)."""
-    return 1.0 / (1.0 + torch.exp(-x))
+def _lin(p: dict, x: torch.Tensor, cd, act: str = "none") -> torch.Tensor:
+    """x @ w + b at the block compute dtype, re-emitted at that dtype, and
+    the activation after it ("swish", or "glu" of the output's halves):
+    `matmul`'s float32 product, then `bias_act`'s `epilogue`."""
+    return epilogue(matmul(x, p["w"], cd), p["b"], act, cd)
 
 
 def _ffn(p: dict, h: torch.Tensor, cd=None) -> torch.Tensor:
     """The half-step FFN after its LayerNorm: h = LN(x)."""
-    h = _lin(p["w1"], h, cd)
-    h = h * _sigmoid(h)                           # swish
+    h = _lin(p["w1"], h, cd, "swish")
     return _lin(p["w2"], h, cd)
 
 
@@ -177,9 +176,7 @@ def _convmod(p: dict, x: torch.Tensor, kernel: int, cd=None) -> torch.Tensor:
 
 def _conv(p: dict, h: torch.Tensor, kernel: int, cd=None) -> torch.Tensor:
     """The conv module after its first LayerNorm: h = LN(x) [T, B, D]."""
-    h = _lin(p["pw1"], h, cd)                     # [T, B, 2D]
-    a, b = h.chunk(2, dim=-1)
-    h = a * _sigmoid(b)                           # GLU
+    h = _lin(p["pw1"], h, cd, "glu")              # [T, B, 2D] -> [T, B, D]
     hw = h.transpose(0, 1)                        # [B, T, D] (NWC)
     D = hw.shape[-1]
     dw = p["dw"] if cd is None else p["dw"].to(cd)
@@ -195,7 +192,7 @@ def _conv(p: dict, h: torch.Tensor, kernel: int, cd=None) -> torch.Tensor:
     h = hw.transpose(0, 1)
     if "ln2" in p:
         h = _add_ln(p["ln2"], h, keep=False)[1]
-    h = h * _sigmoid(h)                           # swish
+    h = h * sigmoid_plain(h)                      # swish
     return _lin(p["pw2"], h, cd)
 
 

@@ -14,7 +14,8 @@ Time-major [T, B, D] like the rest of the stack. Two routes compute it:
 Projection biases ("bq", "bk", "bv", "bo" [D] in `params`, where the
 model has them; the JAX package's have none) are added to the qkv and
 output products in float32, at the compute dtype's resolution, on both
-routes.
+routes; the qkv product's bias add and rounding are `bias_act`'s
+`epilogue` (one kernel launch on a bf16 CUDA forward outside autograd).
 `impl` keeps the JAX package's names ("xla" | "pallas" | "auto") so
 configs carry across; `use_flash_kernel` is JAX's dispatch rule with "on
 the accelerator" read as "on a CUDA tensor".
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from gasr_tpu_torch.ops.cuda.bias_act import epilogue
 from gasr_tpu_torch.ops.cuda.flash_mhsa import flash_eligible, flash_mhsa_rel
 from gasr_tpu_torch.ops.linear import matmul, normal_init
 
@@ -118,9 +120,10 @@ def mhsa_rel(params: dict, x: torch.Tensor, num_heads: int,
     wqkv = torch.cat([params["wq"], params["wk"], params["wv"]], dim=1)
     qkv = matmul(c(x), wqkv, cd)
     if "bq" in params:
-        qkv = qkv + c(torch.cat([params["bq"], params["bk"],
-                                 params["bv"]])).float()
-    qkv = c(qkv)
+        qkv = epilogue(qkv, torch.cat([params["bq"], params["bk"],
+                                       params["bv"]]), "none", cd)
+    else:
+        qkv = c(qkv)
     q = qkv[:, :, :D].reshape(T, B, num_heads, dh)
     k = qkv[:, :, D:2 * D].reshape(T, B, num_heads, dh)
     v = qkv[:, :, 2 * D:].reshape(T, B, num_heads, dh)

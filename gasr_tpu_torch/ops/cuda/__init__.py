@@ -21,7 +21,8 @@ COUNTERS = {"topk": ("topk", "launches"),
             "toy_exchange": ("exchange_probe", "toy_exchange_launches"),
             # two a loss and its backward (the forward and backward kernels)
             "ctc_loss": ("ctc_loss", "launches"),
-            "add_ln": ("add_ln", "launches")}
+            "add_ln": ("add_ln", "launches"),
+            "bias_act": ("bias_act", "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
