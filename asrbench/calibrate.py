@@ -10,11 +10,15 @@ numbers the control gives in the program's place on the same weights,
 inputs and (training) the state the program began its last step with;
 where among `--fault-seeds`, the numbers of each fault the loop plants
 in the reference in the program's place (training: half of each batch
-left out, the mean over the rest). One JSON line each; the benchmark's
-own runs never run this.
+left out, the mean over the rest; data-parallel training also one
+rank's shard left out, and the exchange left out). One JSON line each;
+the benchmark's own runs never run this. A cell of more than one card
+runs each seed in a process of its own (this command, one seed at a
+time), since NCCL's group is joined once a process.
 """
 
 import json
+import subprocess
 import sys
 
 
@@ -42,6 +46,16 @@ def main(argv=None) -> int:
 
     guard.check("at start")
     cell = load_cell(args.workload)
+    if cell.chips > 1 and len(args.seeds) > 1:
+        def only(seeds, seed):
+            return ",".join(str(s) for s in seeds if s == seed)
+        codes = [subprocess.run(
+            [sys.executable, "-m", "asrbench.calibrate", "--workload",
+             args.workload, "--seeds", str(seed), "--control-seeds",
+             only(args.control_seeds, seed), "--fault-seeds",
+             only(args.fault_seeds, seed), "--seconds", str(args.seconds),
+             "--device", args.device]).returncode for seed in args.seeds]
+        return max(codes)
 
     def emit(**kw):
         print(json.dumps(kw), flush=True)

@@ -1,4 +1,5 @@
-"""The check that nothing loaded is JAX or the JAX package.
+"""The check that nothing loaded is JAX or the JAX package, and that no
+process the run started outlives its result.
 
 Modules are compared by their whole top-level name (the part before the
 first dot), so `gasr_tpu_torch`, the port, passes and `gasr_tpu` does
@@ -7,6 +8,7 @@ not.
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Iterable, List
 
@@ -32,4 +34,29 @@ def check(where: str) -> None:
     if bad:
         print(f"asrbench: {where}: forbidden modules loaded: "
               f"{', '.join(bad)}", file=sys.stderr, flush=True)
+        raise SystemExit(3)
+
+
+def children() -> List[int]:
+    """The processes this one started that still run (Linux's /proc: its
+    children that are not zombies)."""
+    kids = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(") ", 1)[1].split()[:2]
+        except (FileNotFoundError, ProcessLookupError):
+            continue                            # ended while we looked
+        if int(ppid) == os.getpid() and state != "Z":
+            kids.append(int(pid))
+    return kids
+
+
+def check_children(where: str) -> None:
+    """Raise SystemExit(3), naming them on standard error, where a
+    process this one started still runs."""
+    kids = children()
+    if kids:
+        print(f"asrbench: {where}: processes still running: "
+              f"{', '.join(map(str, kids))}", file=sys.stderr, flush=True)
         raise SystemExit(3)

@@ -12,6 +12,13 @@ the device and `record_function` ranges on the host, and runs the
 profiler over its window (at most the mix's "trace_seconds"); its
 per-layer metrics are read from those by the readers in `metrics/`.
 
+A cell's loop may run one process a card (`chips` in `BENCHMARK.json`):
+the result's `device.count` is the number of distinct cards its ranks
+held, each rank reporting its own current card, and `memory_peak_bytes`
+the fullest card's peak; a run whose count is not the cell's `chips` is
+an error, not a result. Everything traced (`busy_s`, `window_s`, the
+breakdown, the per-layer metrics) is rank 0's, this process's.
+
 Python's cyclic collector stays on in the window, as in a deployment;
 set-up's objects are frozen out of its scans first (`gc.freeze`), as a
 server does once it has started.
@@ -22,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
+import os
 import statistics
 import sys
 import time
@@ -148,6 +156,24 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     _set_tf32(cell.config)
     spans = Spans(traced, cuda)
     params, load = make_load(cell, seed, device, spans)
+    try:
+        return _measure(cell, params, load, spans, seconds, traced, cuda,
+                        t_start, log, after)
+    finally:
+        load.close()
+
+
+def card(cuda: bool) -> str:
+    """This process's device: its current card, or on the CPU the process
+    itself."""
+    if cuda:
+        return f"cuda:{torch.cuda.current_device()}"
+    return f"cpu:{os.getpid()}"
+
+
+def _measure(cell: Cell, params, load, spans: Spans, seconds: float,
+             traced: bool, cuda: bool, t_start: float, log,
+             after: Optional[Callable]) -> Dict:
     if cuda:
         torch.cuda.synchronize()
     t_made = time.perf_counter()
@@ -192,7 +218,16 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
                 torch.cuda.synchronize()
             window_s = time.perf_counter() - t0
     gc.unfreeze()
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    # every rank's card and peak: the count is of distinct cards, the peak
+    # the fullest card's
+    ranks = [(card(cuda), torch.cuda.max_memory_allocated() if cuda else 0)]
+    ranks += load.leave()
+    count = len({c for c, _ in ranks})
+    peak = max(p for _, p in ranks)
+    if count != cell.chips:
+        raise RuntimeError(f"asrbench: {cell.name} ran on {count} cards "
+                           f"({', '.join(c for c, _ in ranks)}); the cell "
+                           f"asks for {cell.chips}")
     guard.check("after the window")
     log(f"asrbench: {cell.name}: {n} calls in {window_s:.3f} s "
         f"(set-up {setup_s:.3f} s); host ms a call: "
@@ -242,7 +277,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
             c["value"] = NOT_FINITE
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": int(peak)}
+           "count": count, "memory_peak_bytes": int(peak)}
     dev.update(extra_device)
     result = {"correct": bool(correct), "attempted": int(attempted),
               "failed": int(failed), "metrics": metrics, "device": dev}

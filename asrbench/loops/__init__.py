@@ -18,6 +18,10 @@ A `Load` (see `_base.Loop` for the defaults) has:
   - `end_to_end(calls, window_s, latencies)`: the end-to-end metrics'
     values; `attempted(calls)`; `report(latencies, log)`;
     `after_window(spans)`;
+  - `leave()`, called once the window has closed: the ranks a loop of
+    several processes started leave the group and end, and it returns
+    each one's (card, peak memory bytes); `close()`, which stops any
+    rank left, also where the run failed;
   - `drop_program()`, which frees the program's state and keeps its
     outputs; then `numbers(params)`, the comparison with the reference
     on the benchmark's weights `params` ((numbers, failed answers));

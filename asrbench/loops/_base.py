@@ -23,5 +23,14 @@ class Loop:
     def fault_numbers(self, params) -> Dict[str, Dict]:
         return {}
 
+    def leave(self) -> List[tuple]:
+        """(card, peak memory bytes) of each rank but this process's, once
+        they have left the group and ended: none for a loop of one
+        process."""
+        return []
+
+    def close(self) -> None:
+        pass
+
     def precision(self, which: str = "reference_precision"):
         return self.cell.config[which][self.PRECISION]

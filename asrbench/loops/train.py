@@ -34,40 +34,53 @@ def _copy(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
             d.copy_(s)
 
 
+def make_pool(cell, cfg, gen, device) -> List[Dict[str, torch.Tensor]]:
+    """The mix's "pool" batches of "batch" utterances, drawn from `gen`:
+    inputs zero past each utterance's end, labels, and the lengths the
+    loss takes."""
+    t = cell.traffic
+    B, T, n = t["batch"], t["frames"], t["pool"]
+    fam = reference.family(cell.config["family"])
+    xs = features(gen, n, B, T, cfg.feat_size, device)
+    lens = lengths(t, gen, n, B, device) or [
+        torch.full((B,), T, dtype=torch.int32, device=device)] * n
+    lo, hi = t["tokens_per_s"]
+    rates = spread_set(gen, n * B, lo, hi, device)
+    max_labels = int(T * FRAME_S * hi + 1)
+    pool = []
+    for k, (x, ln) in enumerate(zip(xs, lens)):
+        pad_past(x, ln)
+        secs = ln.double().cpu() * FRAME_S
+        n_lab = (secs * rates[k * B:(k + 1) * B]).round().clamp(min=1)
+        pool.append({
+            "inputs": x,
+            "labels": torch.randint(1, cfg.vocab_size + 1, (B, max_labels),
+                                    generator=gen, device=device,
+                                    dtype=torch.int32),
+            "input_lengths": torch.tensor(
+                [fam.output_frames(int(v)) for v in ln.tolist()],
+                dtype=torch.int32, device=device),
+            "label_lengths": n_lab.to(torch.int32).to(device)})
+    return pool
+
+
 class Load(Loop):
     PRECISION = "train"
     SPANS = ("forward", "ctc", "backward", "optimizer")
     NEAR_END = True
+    # the phases the step's `mark` ends after "forward", and the spans read
+    # between two marks: (span, from, to)
+    PHASES = ("ctc", "backward", "optimizer")
+    MARK_SPANS = (("ctc_train", "forward", "ctc"),
+                  ("backward_train", "ctc", "backward"))
 
     def __init__(self, cell, params, seed: int, device: str, spans):
         from gasr_tpu_torch.train import make_optimizer, make_train_step
         t = cell.traffic
         self.cell = cell
         self.cfg = cfg = program_config(cell, device)
-        self.B, self.T = B, T = t["batch"], t["frames"]
-        n = t["pool"]
-        gen = generator(seed, 2, device)
-        fam = reference.family(cell.config["family"])
-        xs = features(gen, n, B, T, cfg.feat_size, device)
-        lens = lengths(t, gen, n, B, device) or [
-            torch.full((B,), T, dtype=torch.int32, device=device)] * n
-        lo, hi = t["tokens_per_s"]
-        rates = spread_set(gen, n * B, lo, hi, device)
-        max_labels = int(T * FRAME_S * hi + 1)
-        self.pool = []
-        for k, (x, ln) in enumerate(zip(xs, lens)):
-            pad_past(x, ln)
-            secs = ln.double().cpu() * FRAME_S
-            n_lab = (secs * rates[k * B:(k + 1) * B]).round().clamp(min=1)
-            self.pool.append({
-                "inputs": x,
-                "labels": torch.randint(1, cfg.vocab_size + 1,
-                                        (B, max_labels), generator=gen,
-                                        device=device, dtype=torch.int32),
-                "input_lengths": torch.tensor(
-                    [fam.output_frames(int(v)) for v in ln.tolist()],
-                    dtype=torch.int32, device=device),
-                "label_lengths": n_lab.to(torch.int32).to(device)})
+        self.B, self.T = t["batch"], t["frames"]
+        self.pool = make_pool(cell, cfg, generator(seed, 2, device), device)
         opt = cell.config["optimizer"]
         self.optimizer = make_optimizer(opt["learning_rate"],
                                         opt["weight_decay"])
@@ -125,7 +138,7 @@ class Load(Loop):
         batch = self.pool[i % len(self.pool)]
         if not self.spans.on:
             return self.step(self.params, self.opt_state, batch)
-        phases = iter(("ctc", "backward", "optimizer", None))
+        phases = iter(self.PHASES + (None,))
         rng = [self.spans.range("forward")]
         rng[0].__enter__()
         stamps = []
@@ -162,8 +175,7 @@ class Load(Loop):
         out: Dict[str, List[float]] = {}
         for stamps in spans._events.pop("marks", []):
             ev = dict(stamps)
-            for name, a, b in (("ctc_train", "forward", "ctc"),
-                               ("backward_train", "ctc", "backward")):
+            for name, a, b in self.MARK_SPANS:
                 if a in ev and b in ev:
                     out.setdefault(name, []).append(
                         ev[a].elapsed_time(ev[b]))

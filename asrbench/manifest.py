@@ -42,6 +42,7 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     readers: Dict[str, Callable]
+    chips: int                     # the cards the cell's ranks hold
 
 
 def load_manifest(root: Path = ROOT) -> Dict:
@@ -90,4 +91,5 @@ def load_cell(name: str, root: Path = ROOT,
         limits=_json(limits_path) if limits_path.exists() else None,
         end_to_end=e2e, per_layer=per_layer,
         readers={m["name"]: reader(bench / "metrics" / f"{m['name']}.py")
-                 for m in per_layer})
+                 for m in per_layer},
+        chips=w["chips"])

@@ -1,4 +1,4 @@
-"""The benchmark's command: one run of one cell on one card.
+"""The benchmark's command: one run of one cell on the cards it asks for.
 
     python3 -m asrbench.run --workload <cell> --seed <n> --seconds <s>
         --trace <0|1>
@@ -9,7 +9,7 @@ per-layer metrics traced), `device`, `breakdown` (traced) and `checks`
 (each number compared, with its limit), and the same numbers as the last
 lines of standard error. Exits 2, printing no result, without a CUDA
 card (or with fewer than the cell asks for), and 3 where JAX or the JAX
-package is loaded.
+package is loaded, or a process it started still runs.
 """
 
 import time
@@ -59,18 +59,16 @@ def main(argv=None) -> int:
     import torch
 
     from asrbench import guard, harness
-    from asrbench.manifest import load_cell, load_manifest
+    from asrbench.manifest import load_cell
 
     guard.check("at start")
-    manifest = load_manifest(ROOT)
-    chips = {w["name"]: w["chips"] for w in manifest["workloads"]}
-    cell = load_cell(args.workload, ROOT, manifest)
+    cell = load_cell(args.workload, ROOT)
     if not torch.cuda.is_available():
         print("asrbench: no CUDA card; the benchmark runs on the card only",
               file=sys.stderr)
         return 2
-    if torch.cuda.device_count() < chips[cell.name]:
-        print(f"asrbench: {cell.name} needs {chips[cell.name]} cards, "
+    if torch.cuda.device_count() < cell.chips:
+        print(f"asrbench: {cell.name} needs {cell.chips} cards, "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
 
@@ -80,6 +78,7 @@ def main(argv=None) -> int:
     result = harness.run(cell, args.seed, args.seconds, bool(args.trace),
                          "cuda", T_START, log)
     guard.check("before the result")
+    guard.check_children("before the result")
     result["device"]["power_limit"] = _power_limit()
     checks = result.pop("checks")
     result["checks"] = checks                      # the last key

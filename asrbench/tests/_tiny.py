@@ -20,10 +20,12 @@ def tiny_cell(name: str):
         else:
             c.traffic.update(streams=8, frames=30, chunk_frames=10, pool=2)
     else:
+        prog = c.config["program"]
+        if prog.get("blank_id", 0) == prog["vocab_size"]:
+            prog["blank_id"] = CONF["vocab_size"]    # blank last, as cut
         c.config["model"].update(CONF)
-        c.config["program"].update(linear_size=64, rnn_hidden_size=64,
-                                   num_blocks=2, vocab_size=16,
-                                   beam_width=4)
+        prog.update(linear_size=64, rnn_hidden_size=64, num_blocks=2,
+                    vocab_size=16, beam_width=4)
         c.config["reference_block_rows"] = 2
         c.traffic.update(batch=4, frames=48, pool=3)
         if "min_frames" in c.traffic:

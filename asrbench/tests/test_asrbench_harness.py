@@ -41,13 +41,17 @@ def test_manifest_keys_and_files():
         conf = json.loads((ROOT / c["file"]).read_text())
         assert conf["reduced"] == c["reduced"]
     for w in MAN["workloads"]:
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
         assert (ROOT / "asrbench" / "traffic" / f"{w['traffic']}.json"
                 ).exists()
         assert (ROOT / "asrbench" / "limits" / f"{w['name']}.json").exists()
         assert len(w["why"]) <= 200
     for m in MAN["per_layer"]:
         assert (ROOT / "asrbench" / "metrics" / f"{m['name']}.py").exists()
+    # four cards only where what a cell measures exists only across cards:
+    # at most a quarter of the cells, rounded down, and always one
+    fours = [w["name"] for w in MAN["workloads"] if w["chips"] == 4]
+    assert len(fours) <= max(1, len(MAN["workloads"]) // 4), fours
 
 
 def test_names_and_units():
@@ -271,8 +275,18 @@ def test_every_cell_runs_end_to_end_on_the_cpu(cell, traced):
     assert r["correct"], r["checks"]
     for v in r["checks"].values():
         assert math.isfinite(v["value"]) and v["value"] <= v["limit"]
+    assert r["device"]["count"] == c.chips
     if traced:
         assert "breakdown" in r and r["device"]["window_s"] > 0
     else:
         names = {m["name"] for m in c.end_to_end}
         assert set(r["metrics"]) == names
+
+
+@pytest.mark.parametrize("chips", [4, 2])
+def test_a_run_on_other_than_its_cells_cards_is_an_error(chips):
+    c = tiny_cell("ds1_batch")
+    c.chips = chips
+    with pytest.raises(RuntimeError, match=f"ran on 1 cards.*asks for "
+                                           f"{chips}"):
+        harness.run(c, 2 ** 31 + 5, 0.3, False, "cpu", log=lambda m: None)
