@@ -98,7 +98,15 @@ add, rounding and swish or GLU at each site's shape of both batch cells
 and for every bf16 value through the sigmoid, bit-equal to its plain
 version, timed against its byte bound and the eager chain, then both
 cells' whole bf16 forwards (6 and 7 launches a block, 1 the stem) with
-the kernel and with the plain path in turns, their log-probs equal.
+the kernel and with the plain path in turns, their log-probs equal;
+and wav2vec2_batch's (phase 19, `wav2vec2_phase`; alone: `python3
+chip_smoke.py --wav2vec2`): the position-free attention kernel
+`flash_mhsa` at B = 64, H = 16, T' = 999, d_h = 64 against its plain
+version, its bound and scaled_dot_product_attention, the epilogue's GELU
+and plain forms at 63,936 rows and every bf16 value through the GELU,
+bit-equal to the plain version, then the cell's whole bf16 forward with
+its launches counted (24 flash_mhsa, 73 bias_act, 57 add_ln) and timed
+against the same forward with the eager attention.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -1178,7 +1186,8 @@ def parakeet_phase(card):
 
 def batch_cell_forward_inputs(name, seed, gen):
     """A batch cell's forward as the benchmark builds it, for the
-    configuration `name` (conformer_l or parakeet_ctc_1.1b): its Config at
+    configuration `name` (conformer_l, parakeet_ctc_1.1b or
+    wav2vec2_large_lv60): its Config at
     the cell's batch and frames, its weights drawn from `seed`
     (`asrbench/weights.py`) and a batch of features from `gen`, all on
     the card."""
@@ -1191,7 +1200,8 @@ def batch_cell_forward_inputs(name, seed, gen):
     traffic = json.loads(open(os.path.join(
         ROOT, "asrbench", "traffic",
         {"conformer_l": "batch_12s_b64",
-         "parakeet_ctc_1.1b": "batch_60s_b32"}[name] + ".json")).read())
+         "parakeet_ctc_1.1b": "batch_60s_b32",
+         "wav2vec2_large_lv60": "batch_20s_b64"}[name] + ".json")).read())
     cfg = Config.from_dict(dict(spec["program"], device="cuda",
                                 batch_size=traffic["batch"],
                                 seg_len=traffic["frames"]))
@@ -1484,6 +1494,172 @@ def bias_act_phase(card):
     return report
 
 
+def wav2vec2_phase(card):
+    """Phase 19, wav2vec2_batch's kernels at its shapes (B = 64 windows of
+    20 s, T' = 999, d 1024 in 16 heads of d_h 64, FFN 4096: 63,936 rows)
+    and its forward. `flash_mhsa` (q, k, v strided views of the biased qkv
+    product, as `ops/attention.py::mhsa` passes them) against
+    `flash_mhsa_plain` (KERNEL_REL_TOL), one launch a call, its ms beside
+    its bound (`asrbench/counts/wav2vec2.flash_mhsa`), the plain version's
+    and `F.scaled_dot_product_attention`'s on the same bf16 views (the
+    same function but for where the softmax is rounded). `bias_act` at
+    the sites' shapes, GELU at 4096 (W1) and none at 3072 (qkv) and 1024
+    (W2 and the projection), each a float32 product and bias bit-equal to
+    `bias_act_plain`, its device ms beside its byte bound and the eager
+    chain's; then every bf16 value but the NaNs through the GELU,
+    bit-equal. Then the bf16 forward of `wav2vec2_large_lv60` under
+    no_grad on the benchmark's weights and shapes (`asrbench/weights.py`),
+    its launches counted from zero after a warm-up forward: a
+    `flash_mhsa` and three `bias_act` (qkv, W1 with GELU, W2) and two
+    `add_ln` a layer, the projection's `bias_act`, the encoder's seven
+    `add_ln` and the projection's and the first add's, and nothing else;
+    the log-probs finite and normalised, their distance from the forward
+    with the eager attention (attn_impl="xla"; not gated: the kernel
+    rounds p~ to bf16, the eager route the normalised attention), and ms a
+    forward with the kernel and with the eager attention in turns.
+    Returns the kernel table's `flash_mhsa` entry, the phase's report and
+    the forward's launches."""
+    import torch
+    import torch.nn.functional as F
+    from asrbench.counts import wav2vec2 as bench_counts
+    from gasr_tpu_torch.models import model_apply
+    from gasr_tpu_torch.models.wav2vec2 import output_length
+    from gasr_tpu_torch.ops.cuda import bias_act as kba
+    from gasr_tpu_torch.ops.cuda import flash_mhsa as kfl
+    from gasr_tpu_torch.ops.cuda import launch_counts
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    B, H, T, dh = 64, 16, 999, 64
+    D, rows = H * dh, B * T
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    qkv = (torch.randn((T, B, 3 * D), generator=gen, device=dev)
+           * 1.5).to(bf)
+    q, k, v = (qkv[:, :, i * D:(i + 1) * D].reshape(T, B, H, dh)
+               .permute(1, 2, 0, 3) for i in range(3))
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    n0 = kfl.position_free_launches
+    got = kfl.flash_mhsa(q, k, v, lens)
+    torch.cuda.synchronize()
+    check(kfl.position_free_launches == n0 + 1,
+          "flash_mhsa: not one launch a call")
+    want = kfl.flash_mhsa_plain(q, k, v, lens, out_f32=True)
+    err = float((got.float() - want).abs().max())
+    tol = KERNEL_REL_TOL * max(1.0, float(want.abs().max()))
+    check(tuple(got.shape) == (B, H, T, dh) and err <= tol,
+          f"flash_mhsa [{B}, {H}, {T}, {dh}]: {err} > {tol}")
+    sdpa_err = float((F.scaled_dot_product_attention(q, k, v).float()
+                      - want).abs().max())
+    del got, want
+    least, by = bench_counts.flash_mhsa(B, H, T, dh)
+    flash = dict(
+        ms=cuda_events_ms(lambda: kfl.flash_mhsa(q, k, v, lens), iters=20,
+                          warmup=2),
+        plain_ms=cuda_events_ms(lambda: kfl.flash_mhsa_plain(q, k, v, lens),
+                                iters=2),
+        library_ms=cuda_events_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), iters=20,
+            warmup=2),
+        library_call="torch.nn.functional.scaled_dot_product_attention",
+        library_max_abs_err=sdpa_err, max_abs_err=err,
+        bound_ms=least * 1e3, bound_by=by, shape=[B, H, T, dh])
+    print(f"flash_mhsa [{B}, {H}, {T}, {dh}] (flash_mhsa_kernel) on {card}: "
+          f"{flash['ms']:.4f} ms a launch (q, k, v views); bound "
+          f"{flash['bound_ms']:.4f} ms ({by}), "
+          f"{100 * flash['bound_ms'] / flash['ms']:.1f}% of it; plain "
+          f"{flash['plain_ms']:.4f} ms; scaled_dot_product_attention "
+          f"{flash['library_ms']:.4f} ms (max |sdpa - plain| {sdpa_err}); "
+          f"max |kernel - plain| {err} (tolerance {tol})", flush=True)
+    del qkv, q, k, v
+
+    epilogue = {}
+    for site, n, act in (("w1_gelu", 4096, "gelu"), ("qkv", 3072, "none"),
+                         ("w2_proj", 1024, "none")):
+        y = torch.randn((rows, n), generator=gen, device=dev) * 3
+        b = torch.randn((n,), generator=gen, device=dev) * 0.5
+        got = kba.bias_act(y, b, act)
+        want = kba.bias_act_plain(y, b, act, bf)
+        torch.cuda.synchronize()
+        check(same(got, want), f"bias_act {site} [{rows} x {n}] {act}: not "
+              f"bit-equal to bias_act_plain ({int((got != want).sum())} of "
+              f"{got.numel()} differ)")
+        ms = queued_device_ms(lambda: kba.bias_act(y, b, act), iters=50)
+        chain_ms = cuda_events_ms(lambda: kba.bias_act_plain(y, b, act, bf),
+                                  iters=10, warmup=2)
+        nbytes = rows * n * 4 + rows * n * 2 + n * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        epilogue[site] = dict(shape=[rows, n], act=act, ms=ms,
+                              bound_ms=bound_ms, bound_by="bytes",
+                              roofline=bound_ms / ms, eager_chain_ms=chain_ms)
+        print(f"bias_act [{rows} x {n}] {act} (wav2vec2_batch {site}) on "
+              f"{card}: {ms:.4f} ms; bound {bound_ms:.4f} ms (bytes: "
+              f"{nbytes / 1e6:.1f} MB, {100 * bound_ms / ms:.1f}%); the "
+              f"eager chain {chain_ms:.4f} ms; bit-equal", flush=True)
+        del y, b, got, want
+    vals = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(
+        torch.int16).view(bf)
+    vals = vals[~torch.isnan(vals)].float()
+    vals = torch.cat([vals, vals.new_zeros(-vals.numel() % 8)]).reshape(-1, 8)
+    z = torch.zeros(8, device=dev)
+    got = kba.bias_act(vals, z, "gelu")
+    want = kba.bias_act_plain(vals, z, "gelu", bf)
+    nan = torch.isnan(want.float())
+    check(torch.equal(nan, torch.isnan(got.float()))
+          and same(torch.where(nan, 0, got), torch.where(nan, 0, want)),
+          "bias_act gelu: some bf16 input differs from the plain version")
+    print(f"bias_act: every non-NaN bf16 value ({vals.numel()}) through the "
+          f"GELU bit-equal to bias_act_plain on {card}", flush=True)
+    del vals, got, want
+
+    cfg, params, xin = batch_cell_forward_inputs("wav2vec2_large_lv60", 31,
+                                                 gen)
+    n_layers = len(params["layers"])
+
+    def fwd(impl="auto"):
+        with torch.no_grad():
+            return model_apply(cfg, params, xin, compute_dtype="bfloat16",
+                               attn_impl=impl)
+
+    fwd()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    lp = fwd()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    runs = {name: after[name] - before[name] for name in after}
+    expect = {"flash_mhsa": n_layers, "bias_act": 3 * n_layers + 1,
+              "add_ln": 7 + 1 + 1 + 2 * n_layers}
+    check({name: n for name, n in runs.items() if n} == expect,
+          f"wav2vec2_large_lv60 forward: launches {runs}, expected {expect}")
+    T_out = output_length(cfg.input_size * cfg.seg_len)
+    lp_eager = fwd("xla")
+    check(tuple(lp.shape) == (T_out, cfg.batch_size, cfg.output_size)
+          and bool(torch.isfinite(lp).all())
+          and float((lp.exp().sum(-1) - 1).abs().max()) < 1e-4,
+          f"wav2vec2_large_lv60 forward: log-probs {tuple(lp.shape)} not "
+          f"finite and normalised")
+    gap = float((lp - lp_eager).abs().max())
+    del lp, lp_eager
+    times = [cuda_events_ms(lambda: fwd(impl), iters=3, warmup=1)
+             for impl in ("xla", "auto", "auto", "xla")]
+    print(f"wav2vec2_large_lv60 forward [B={cfg.batch_size}, "
+          f"{cfg.seg_len} frames of 160 samples -> T'={T_out}, bf16, "
+          f"{n_layers} layers] on {card}: launches {expect}, nothing else; "
+          f"log-probs finite and normalised, max |kernel - eager attention| "
+          f"{gap} (not gated); ms a forward, eager attention / kernel / "
+          f"kernel / eager attention: "
+          f"{', '.join(f'{t:.3f}' for t in times)}", flush=True)
+    report = dict(bias_act=epilogue,
+                  forward=dict(launches=expect, lp_gap_eager_attention=gap,
+                               ms_eager_kernel_kernel_eager=times))
+    del params, xin
+    torch.cuda.empty_cache()
+    return flash, report, runs
+
+
 def parakeet_main() -> int:
     """`python3 chip_smoke.py --parakeet`: phase 16 alone."""
     import torch
@@ -1534,6 +1710,28 @@ def bias_act_main() -> int:
           f"{_lib.build_all(['bias_act', 'add_ln', 'flash_mhsa']):.1f} s "
           f"(bias_act, add_ln, flash_mhsa)", flush=True)
     print(json.dumps({"bias_act": bias_act_phase(card)}))
+    print(f"card: {card_line()}")
+    return 0
+
+
+def wav2vec2_main() -> int:
+    """`python3 chip_smoke.py --wav2vec2`: phase 19 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    from gasr_tpu_torch.ops.cuda import _lib
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"kernel build: "
+          f"{_lib.build_all(['flash_mhsa', 'bias_act', 'add_ln']):.1f} s "
+          f"(flash_mhsa, bias_act, add_ln)", flush=True)
+    flash, report, runs = wav2vec2_phase(card)
+    print(json.dumps({"flash_mhsa": flash, "wav2vec2": report,
+                      "launches": runs}))
     print(f"card: {card_line()}")
     return 0
 
@@ -3776,6 +3974,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"bias_act": bias_act_phase(card)}), flush=True)
 
+    # ---- 19. wav2vec2_batch's kernels at its shapes and its forward
+    torch.cuda.empty_cache()
+    report["flash_mhsa"], w2v_report, w2v_launches = wav2vec2_phase(card)
+    print(json.dumps({"wav2vec2": w2v_report}), flush=True)
+
     sources = {
         "topk": ("gasr_tpu_torch/csrc/topk.cuh",
                  "gasr_tpu/ops/pallas/topk.py:193"),
@@ -3789,6 +3992,9 @@ def main() -> int:
                      "gasr_tpu/ops/pallas/rnn_scan.py:52"),
         "flash_mhsa_rel": ("gasr_tpu_torch/csrc/flash_mhsa.cu",
                            "gasr_tpu/ops/pallas/flash_mhsa.py:308"),
+        # no Pallas kernel: the JAX package has no position-free attention
+        "flash_mhsa": ("gasr_tpu_torch/csrc/flash_mhsa.cu",
+                       "none (the port's own wav2vec 2.0 family)"),
         "fused_stem": ("gasr_tpu_torch/csrc/stem.cu",
                        "gasr_tpu/ops/pallas/stem.py:285"),
         "lstm_scan": ("gasr_tpu_torch/csrc/lstm_scan.cu",
@@ -3808,7 +4014,8 @@ def main() -> int:
     # decode's "approx" sub-entry).
     # `launches` is each kernel's count on the path that exercises it:
     # transcribe for the first four, the stream for traceback_overlay, the
-    # conformer forward + decode for flash_mhsa_rel, that path with
+    # conformer forward + decode for flash_mhsa_rel, the wav2vec2_large_lv60
+    # forward of phase 19 for flash_mhsa, the conformer path with
     # stem_impl="pallas" for fused_stem, the deepspeech2 transcribe for
     # lstm_scan, the TP batch decodes ("fused" then "fused_frame") for
     # tp_frame and tp_scan, the exchange probe of phase 11c for toy_exchange
@@ -3826,7 +4033,8 @@ def main() -> int:
             "rnn_streamed": rs_launches, "conformer_f128": cw_launches,
             "lstm_streamed": ls_launches,
             "transcribe_scan": scan_launches,
-            "transcribe_streaming": ts_launches, **train_runs}
+            "transcribe_streaming": ts_launches, "wav2vec2": w2v_launches,
+            **train_runs}
     # the LM variant's launches: those of the LM stream, per path beside
     lm_report.update(
         launches=lms_launches["fused_prefix_decode_lm"],
@@ -3834,7 +4042,7 @@ def main() -> int:
                           for path, run in runs.items()})
     report["fused_prefix_decode"]["lm"] = lm_report
     main_path = {"traceback_overlay": "streaming",
-                 "flash_mhsa_rel": "conformer",
+                 "flash_mhsa_rel": "conformer", "flash_mhsa": "wav2vec2",
                  "fused_stem": "conformer_stem_pallas",
                  "lstm_scan": "deepspeech2",
                  "tp_frame": "tp_batch", "tp_scan": "tp_batch",
@@ -3885,7 +4093,8 @@ def main() -> int:
                       "library_ms_rounds", "occupancy", "frame_counted",
                       "streamed", "wide_f", "more_shapes", "training",
                       "forward_ms", "backward_ms", "host_ms",
-                      "plain_forward_ms", "loss_rel_err"):
+                      "plain_forward_ms", "loss_rel_err",
+                      "library_max_abs_err", "shape"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
@@ -3914,4 +4123,6 @@ if __name__ == "__main__":
         sys.exit(bias_act_main())
     if sys.argv[1:] == ["--parakeet"]:
         sys.exit(parakeet_main())
+    if sys.argv[1:] == ["--wav2vec2"]:
+        sys.exit(wav2vec2_main())
     sys.exit(main())

@@ -39,7 +39,7 @@ class Config:
     beam_width: int = 100
 
     # ---- framework extensions ----
-    model: str = "deepspeech"     # deepspeech | bilstm | deepspeech2 | conformer_s | conformer_l
+    model: str = "deepspeech"     # deepspeech | bilstm | deepspeech2 | conformer_s | conformer_l | wav2vec2_large_lv60
     rnn_num_layers: int = 1
     bidirectional: bool = False
     compute_dtype: str = "float32"   # float32 | bfloat16 (params stay f32)

@@ -1,5 +1,5 @@
-// The epilogue of a conformer block linear on the bf16 serving path: the
-// float32 bias add, the rounding to bf16 and the swish or GLU after it, in
+// The epilogue of a block linear on the bf16 serving path: the float32
+// bias add, the rounding to bf16 and the swish, GLU or GELU after it, in
 // one pass over the float32 product that cuBLAS wrote.
 //
 // Replaces no Pallas kernel: the JAX package's linears and activations are
@@ -14,13 +14,17 @@
 //   none:   out = t
 //   swish:  out = bf16(t * s(t))
 //   glu:    out[:, j] = bf16(t[:, j] * s(t[:, j + n/2]))     [rows, n/2]
+//   gelu:   out = bf16((t * 0.5) * (1 + erf(t * sqrt(1/2))))
 //   s(u)  = bf16(1 / bf16(1 + bf16(exp(-u))))
 // s is the plain version's `1.0 / (1.0 + torch.exp(-u))`: neg, exp, the add,
 // then `Tensor.__rdiv__`, which is reciprocal and `* 1.0` (exact). Each step
 // is one IEEE float32 operation rounded to nearest: expf (not __expf), the
 // reciprocal by __frcp_rn (correctly rounded, so the bits of 1.0f / d), and
-// -fmad=false, so the product t * s is not fused into anything. The output
-// is bit-equal to the plain version's.
+// -fmad=false, so the product t * s is not fused into anything. The gelu
+// form is `F.gelu(t)` (approximate="none") as PyTorch's CUDA kernel
+// computes it on a bf16 tensor: in float32, erff, the products and the sum
+// in that order, rounded to bf16 once (wav2vec 2.0's feed-forward). The
+// output is bit-equal to the plain version's.
 //
 // Bound on the card: bytes. An output element costs 4 bytes of y read and 2
 // written, 10 for glu (both halves read); [24000, 4096] swish moves 0.59 GB,
@@ -50,7 +54,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 2;         // rows a thread loads before computing
 
-enum Act { kNone = 0, kSwish = 1, kGlu = 2 };
+enum Act { kNone = 0, kSwish = 1, kGlu = 2, kGelu = 3 };
+
+// float(M_SQRT1_2), PyTorch's kAlpha
+constexpr float kSqrtHalf = 0.70710678118654752440f;
 
 __device__ __forceinline__ float round_bf16(float f) {
   return __bfloat162float(__float2bfloat16_rn(f));
@@ -122,6 +129,10 @@ bias_act_kernel(const float* __restrict__ y, const float* __restrict__ b,
         } else if (kAct == kSwish) {
 #pragma unroll
           for (int q = 0; q < 8; ++q) o[q] = t[q] * sigmoid_bf16(t[q]);
+        } else if (kAct == kGelu) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            o[q] = t[q] * 0.5f * (1.0f + erff(t[q] * kSqrtHalf));
         } else {
           float g[8];
           unpack8(w[u][0], w[u][1], g);
@@ -187,11 +198,11 @@ cudaError_t launch(const float* y, const float* b, __nv_bfloat16* out,
 extern "C" {
 
 // y float32 [rows, n] contiguous, b float32 [n] contiguous, out bf16 [rows,
-// n] (act 0 none, 1 swish) or [rows, n / 2] (act 2 glu) contiguous; n a
+// n] (act 0 none, 1 swish, 3 gelu) or [rows, n / 2] (act 2 glu) contiguous; n a
 // multiple of 8 (16 for glu); y and out 16-byte aligned.
 int bias_act_launch(const void* y, const void* b, void* out, long long rows,
                     int n, int act, int device, void* stream) {
-  if (act < kNone || act > kGlu || n <= 0 ||
+  if (act < kNone || act > kGelu || n <= 0 ||
       n % (act == kGlu ? 16 : 8) != 0 || rows < 0)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
@@ -207,6 +218,8 @@ int bias_act_launch(const void* y, const void* b, void* out, long long rows,
     err = launch<kSwish>(yf, bf, o, rows, n, st);
   else if (act == kGlu)
     err = launch<kGlu>(yf, bf, o, rows, n, st);
+  else if (act == kGelu)
+    err = launch<kGelu>(yf, bf, o, rows, n, st);
   else
     err = launch<kNone>(yf, bf, o, rows, n, st);
   if (prev != device) cudaSetDevice(prev);

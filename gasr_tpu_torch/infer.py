@@ -13,7 +13,9 @@ from the carried beam and one traceback-with-overlay launch.
 `Pipeline.transcribe_audio` is the raw-audio path: the native log-mel
 front end on the host per utterance, padding, then on the device cmvn
 (when configured), context stacking, the forward and the beam search
-with per-utterance lengths, and text.
+with per-utterance lengths, and text. A waveform model (wav2vec 2.0)
+takes each utterance normalised to zero mean and unit variance, in 10 ms
+frames of samples, in place of the log-mel.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from gasr_tpu_torch.decoder import ctc_beam_search, greedy_decode
 from gasr_tpu_torch.decoder.beam_search import (decode_to_lists,
                                                 streaming_init,
                                                 streaming_step)
-from gasr_tpu_torch.models import model_apply, model_init
+from gasr_tpu_torch.models import model_apply, model_init, model_input
 from gasr_tpu_torch.models.deepspeech import deepspeech_apply_streaming
 from gasr_tpu_torch.runtime.profiler import span
 from gasr_tpu_torch.runtime.validation import check_features
@@ -121,7 +123,11 @@ class Pipeline:
         utterance on the host, padded to the longest and moved to the
         device; cmvn over each utterance's frames when `config.cmvn`;
         n_context stacking. Returns (features [B, T, feat_size], lengths
-        [B] int32, the feature frame counts), both on `self.device`."""
+        [B] int32, the feature frame counts), both on `self.device`.
+        For a model that reads the waveform (`models.model_input`),
+        `_waveform_frames` in place of the log-mel."""
+        if model_input(self.config.model) == "waveform":
+            return self._waveform_frames(audio_batch)
         feats = [native.logmel(a, sample_rate=sample_rate,
                                n_mels=self.config.input_size)
                  for a in audio_batch]
@@ -135,6 +141,23 @@ class Pipeline:
         if self.config.cmvn:
             x = cmvn(x, lengths=lens)
         return add_context(x, self.config.n_context), lens
+
+    def _waveform_frames(self, audio_batch: Sequence[np.ndarray]):
+        """A waveform model's front end: each utterance normalised to zero
+        mean and unit variance over its own samples ((a - mean) /
+        sqrt(var + 1e-7), as `Wav2Vec2FeatureExtractor(do_normalize=True)`),
+        zero-padded to the longest rounded up to whole frames of
+        `input_size` samples, as [B, T, input_size] on the device; lengths
+        [B] int32, each utterance's frames (ceil(samples / input_size))."""
+        F = self.config.input_size
+        n = [len(a) for a in audio_batch]
+        lengths = np.array([-(-k // F) for k in n], np.int32)
+        padded = np.zeros((len(n), int(lengths.max()) * F), np.float32)
+        for i, a in enumerate(audio_batch):
+            a = np.asarray(a, np.float64)
+            padded[i, :len(a)] = (a - a.mean()) / np.sqrt(a.var() + 1e-7)
+        x = torch.from_numpy(padded.reshape(len(n), -1, F)).to(self.device)
+        return x, torch.from_numpy(lengths).to(self.device)
 
     def transcribe_audio(self, audio_batch: Sequence[np.ndarray],
                          sample_rate: int = 16000) -> List[str]:

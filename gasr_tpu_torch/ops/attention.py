@@ -1,5 +1,8 @@
-"""Multi-head self-attention with Transformer-XL relative positions, for
-the Conformer models: the port of `gasr_tpu/ops/attention.py`.
+"""Multi-head self-attention: with Transformer-XL relative positions
+(`mhsa_rel`, the Conformer models', the port of
+`gasr_tpu/ops/attention.py`) and without any position term (`mhsa`,
+wav2vec 2.0's, whose position comes from a convolution before the
+layers; the port's own).
 
 Time-major [T, B, D] like the rest of the stack. Two routes compute it:
   - the rel-shift route (the JAX package's "xla" path): position scores
@@ -19,6 +22,11 @@ routes; the qkv product's bias add and rounding are `bias_act`'s
 `impl` keeps the JAX package's names ("xla" | "pallas" | "auto") so
 configs carry across; `use_flash_kernel` is JAX's dispatch rule with "on
 the accelerator" read as "on a CUDA tensor".
+
+`mhsa` computes softmax((q . k) / sqrt(dh)) . v with biased q, k, v and
+output products, on the eager route or, where `use_flash_kernel` holds
+and autograd does not record, through the position-free kernel
+(`ops/cuda/flash_mhsa.py::flash_mhsa`, one launch a call).
 """
 
 from __future__ import annotations
@@ -30,8 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from gasr_tpu_torch.ops.cuda.bias_act import epilogue
-from gasr_tpu_torch.ops.cuda.flash_mhsa import flash_eligible, flash_mhsa_rel
-from gasr_tpu_torch.ops.linear import matmul, normal_init
+from gasr_tpu_torch.ops.cuda.flash_mhsa import (flash_eligible, flash_mhsa,
+                                                flash_mhsa_rel)
+from gasr_tpu_torch.ops.linear import linear_init, matmul, normal_init
 
 
 def _sinusoid_pos(n: int, d: int, device="cpu") -> torch.Tensor:
@@ -159,5 +168,54 @@ def mhsa_rel(params: dict, x: torch.Tensor, num_heads: int,
                              torch.tensor(-1e30, device=x.device))
     attn = c(torch.softmax(scores, dim=-1))
     out = matmul(attn, v.permute(1, 2, 0, 3), cd)               # [B,H,T,dh]
+    out = c(out.permute(2, 0, 1, 3)).reshape(T, B, D)
+    return _out_proj(params, out, cd)
+
+
+def mhsa_init(generator: torch.Generator, d_model: int, device="cpu"
+              ) -> dict:
+    """U(-1/sqrt(d), 1/sqrt(d)) projections wq, wk, wv, wo [D, D] and
+    biases bq, bk, bv, bo [D] (torch.nn.Linear's scale)."""
+    p = {}
+    for n in ("q", "k", "v", "o"):
+        lin = linear_init(generator, d_model, d_model, device)
+        p["w" + n], p["b" + n] = lin["w"], lin["b"]
+    return p
+
+
+def mhsa(params: dict, x: torch.Tensor, num_heads: int,
+         compute_dtype: Optional[torch.dtype] = None, impl: str = "auto"
+         ) -> torch.Tensor:
+    """Position-free attention over all T keys. x: [T, B, D] -> float32
+    [T, B, D].
+
+    compute_dtype (bf16): every product takes operands at that type with
+    float32 sums; the qkv product's bias add and rounding are
+    `bias_act`'s epilogue; the softmax stays float32, its output rounded
+    to bf16 before the product with v (the kernel rounds the unnormalized
+    probabilities instead: `ops/cuda/flash_mhsa.py`)."""
+    T, B, D = x.shape
+    dh = D // num_heads
+    cd = compute_dtype
+    c = (lambda a: a.to(cd)) if cd is not None else (lambda a: a)
+    wqkv = torch.cat([params["wq"], params["wk"], params["wv"]], dim=1)
+    records = torch.is_grad_enabled() and (
+        x.requires_grad or any(params[n].requires_grad for n in
+                               ("wq", "wk", "wv", "bq", "bk", "bv")))
+    use_kernel = not records and use_flash_kernel(
+        impl, T, dh, D, False, cd, x.device.type == "cuda")
+    qkv = epilogue(matmul(c(x), wqkv, cd),
+                   torch.cat([params["bq"], params["bk"], params["bv"]]),
+                   "none", cd)
+    tb = lambda a: a.reshape(T, B, num_heads, dh).permute(1, 2, 0, 3)  # noqa
+    q, k, v = tb(qkv[:, :, :D]), tb(qkv[:, :, D:2 * D]), tb(qkv[:, :, 2 * D:])
+    if use_kernel:
+        lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        out = flash_mhsa(q, k, v, lens, out_f32=cd is None)
+        return _out_proj(params, c(out.permute(2, 0, 1, 3)).reshape(T, B, D),
+                         cd)
+    scores = matmul(q, k.transpose(-1, -2), cd) / math.sqrt(dh)  # [B,H,T,S]
+    attn = c(torch.softmax(scores, dim=-1))
+    out = matmul(attn, v, cd)                                   # [B,H,T,dh]
     out = c(out.permute(2, 0, 1, 3)).reshape(T, B, D)
     return _out_proj(params, out, cd)

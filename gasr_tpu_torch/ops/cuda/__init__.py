@@ -14,6 +14,8 @@ COUNTERS = {"topk": ("topk", "launches"),
             "traceback_overlay": ("fused_decode", "overlay_launches"),
             "rnn_scan": ("rnn_scan", "launches"),
             "flash_mhsa_rel": ("flash_mhsa", "launches"),
+            # the position-free variant (`flash_mhsa`)
+            "flash_mhsa": ("flash_mhsa", "position_free_launches"),
             "fused_stem": ("stem", "launches"),
             "lstm_scan": ("lstm_scan", "launches"),
             "tp_frame": ("fused_decode", "tp_frame_launches"),

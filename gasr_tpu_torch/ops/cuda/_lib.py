@@ -45,6 +45,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures (argtypes) of each library's entry points
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_mhsa": {"flash_mhsa_rel_launch": [_P] * 8 + [_I] * 4 + [_L] * 9
+                   + [_F, _I, _I, _P],
+                   "flash_mhsa_launch": [_P] * 5 + [_I] * 4 + [_L] * 9
                    + [_F, _I, _I, _P]},
     "stem": {
         "stem_conv_launch": [_P, _L, _L, _L] + [_P] * 5 + [_I] * 5 + [_P],

@@ -1,20 +1,23 @@
-"""The epilogue of a conformer block linear: `csrc/bias_act.cu`, one launch
-a linear, on the bf16 inference path.
+"""The epilogue of a block linear: `csrc/bias_act.cu`, one launch a
+linear, on the bf16 inference path.
 
     t   = bf16(y + float(bf16(b)))      (y the float32 product, b [n])
     out = t | t * s(t) (swish) | t[..., :n/2] * s(t[..., n/2:]) (GLU)
+          | F.gelu(t) (GELU, the exact erf form, wav2vec 2.0's)
 
 with s the JAX package's sigmoid, 1 / (1 + exp(-u)), each step rounded to
 bf16 (`sigmoid_plain`). Replaces no Pallas kernel: the JAX package's
 linears and activations are plain jnp (`gasr_tpu/models/conformer.py`).
 `bias_act_plain` is the port's eager version, the model's float32,
-autograd and CPU path (`models/conformer.py::_lin`, the biased qkv product
-of `ops/attention.py::mhsa_rel`).
+autograd and CPU path (`models/conformer.py::_lin`,
+`models/wav2vec2.py::_lin`, the biased qkv products of
+`ops/attention.py`).
 
 `bias_act` launches the kernel for CUDA tensors: y float32 [..., n],
 contiguous and 16-byte aligned, n a multiple of 8 (16 for "glu"); b
 float32 [n], contiguous; it returns bf16 [..., n] ([..., n/2] for "glu"),
-contiguous, bit-equal to `bias_act_plain`'s. It raises on what the kernel
+contiguous, bit-equal to `bias_act_plain`'s (for "gelu": to `F.gelu` of
+the bf16 t as PyTorch's CUDA kernel computes it). It raises on what the kernel
 does not take, and for inputs that require grad while autograd records
 (the kernel has no backward). `bias_act_eligible` is the model's rule for
 taking it, `epilogue` the sites' choice between the two. `launches` counts
@@ -26,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from gasr_tpu_torch.ops.cuda import _lib
 
@@ -33,7 +37,7 @@ from gasr_tpu_torch.ops.cuda import _lib
 launches = 0
 
 # the forms after the bias add and the rounding: csrc/bias_act.cu's `Act`
-ACTS = {"none": 0, "swish": 1, "glu": 2}
+ACTS = {"none": 0, "swish": 1, "glu": 2, "gelu": 3}
 
 _entry = None
 
@@ -48,8 +52,8 @@ def sigmoid_plain(x: torch.Tensor) -> torch.Tensor:
 def bias_act_plain(y: torch.Tensor, b: torch.Tensor, act: str = "none",
                    cd: Optional[torch.dtype] = None) -> torch.Tensor:
     """y + b (b first rounded to cd), rounded to cd, then `act`: the
-    linear's float32 bias add and the model's eager swish or GLU after it.
-    Without cd everything stays float32."""
+    linear's float32 bias add and the model's eager swish, GLU or GELU
+    after it. Without cd everything stays float32."""
     if cd is not None:
         b = b.to(cd)
     y = y + b.float()
@@ -60,6 +64,8 @@ def bias_act_plain(y: torch.Tensor, b: torch.Tensor, act: str = "none",
     if act == "glu":
         a, g = y.chunk(2, dim=-1)
         return a * sigmoid_plain(g)
+    if act == "gelu":
+        return F.gelu(y)
     if act != "none":
         raise ValueError(f"unknown act {act!r}")
     return y

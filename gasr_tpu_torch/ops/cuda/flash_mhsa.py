@@ -30,6 +30,14 @@ Two forms of the same function:
     reads the product at the skewed offset. Its online softmax rounds
     the unnormalized probabilities to bf16 before the product with v.
 
+The same file holds the position-free variant (`flash_mhsa`, kernel
+`flash_mhsa_kernel`): scores (q . k) / sqrt(dh), no band, no u and vb,
+the rest as above; `flash_mhsa_plain` is its eager twin (q, k, v rounded
+to bf16, float32 products and softmax, the normalized attention rounded
+to bf16 before its product with v). It is forward only: no model trains
+through it yet, and `ops/attention.py::mhsa` takes the eager route
+under autograd.
+
 `flash_mhsa_rel` launches the kernel for CUDA tensors and runs
 `flash_mhsa_rel_plain` for CPU tensors. It is differentiable, as the
 JAX package's custom_vjp is: an autograd Function saves the primals (not
@@ -57,6 +65,8 @@ NEG = -1e30
 
 # kernel launches made by flash_mhsa_rel (one per call)
 launches = 0
+# kernel launches made by flash_mhsa, the position-free variant
+position_free_launches = 0
 
 # the largest [Bc, H, T, T] float32 score tile the recompute backward
 # holds at once (the JAX package's value); larger batches run in chunks
@@ -140,32 +150,39 @@ def _copy_width(dh: int, tensors) -> int:
     return next(vec for vec in (8, 4, 2, 1) if g % vec == 0)
 
 
-def _flash_forward(q, k, v, wr, u, vb, lengths,
-                   out_f32: bool) -> torch.Tensor:
-    """The forward of `flash_mhsa_rel`: the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_mhsa_rel_plain(q, k, v, wr, u, vb, lengths, out_f32)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_mhsa_rel: unsupported device {q.device}")
+def _check_qkv(name: str, q, k, v, lengths) -> None:
     if q.ndim != 4:
-        raise ValueError(f"flash_mhsa_rel: q must be [B, H, T, dh], got "
+        raise ValueError(f"{name}: q must be [B, H, T, dh], got "
                          f"{tuple(q.shape)}")
+    if tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape):
+        raise ValueError(f"{name}: q, k, v shapes differ")
+    if tuple(lengths.shape) != (q.shape[0],):
+        raise ValueError(f"{name}: lengths must be [B], got "
+                         f"{tuple(lengths.shape)}")
+
+
+def _launch(name: str, q, k, v, lengths, out_f32: bool,
+            band=None) -> torch.Tensor:
+    """One launch on CUDA tensors: of `flash_mhsa_rel_kernel` when band is
+    (wr, u, vb), of `flash_mhsa_kernel` when it is None. Returns
+    [B, H, T, dh] as a view of a [T, B, H, dh] tensor."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _check_qkv(name, q, k, v, lengths)
     B, H, T, dh = q.shape
     D = H * dh
-    if tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape):
-        raise ValueError("flash_mhsa_rel: q, k, v shapes differ")
-    if tuple(wr.shape) != (D, D) or tuple(u.shape) != (H, dh) or \
-            tuple(vb.shape) != (H, dh) or tuple(lengths.shape) != (B,):
-        raise ValueError("flash_mhsa_rel: wr, u, vb or lengths do not fit "
-                         f"q {tuple(q.shape)}")
+    if band is not None:
+        wr, u, vb = band
+        if tuple(wr.shape) != (D, D) or tuple(u.shape) != (H, dh) or \
+                tuple(vb.shape) != (H, dh):
+            raise ValueError(f"{name}: wr, u or vb do not fit q "
+                             f"{tuple(q.shape)}")
     if not flash_eligible(T, dh, D):
-        raise ValueError(f"flash_mhsa_rel: T={T}, dh={dh}, D={D} is outside "
+        raise ValueError(f"{name}: T={T}, dh={dh}, D={D} is outside "
                          "flash_eligible (2 <= T <= 1024, dh <= 128, D even)")
-    for t in (k, v, wr, u, vb, lengths):
+    for t in (k, v, lengths, *(band or ())):
         if t.device != q.device:
-            raise ValueError("flash_mhsa_rel: all tensors must be on one "
-                             "device")
+            raise ValueError(f"{name}: all tensors must be on one device")
     out = torch.empty((T, B, H, dh), device=q.device,
                       dtype=torch.float32 if out_f32 else torch.bfloat16)
     if B == 0 or H == 0:
@@ -182,24 +199,79 @@ def _flash_forward(q, k, v, wr, u, vb, lengths,
         return a if a.is_contiguous() else a.contiguous()
 
     qb, kb, vbf = operand(q), operand(k), operand(v)
-    # R = bf16(bf16(sinusoid) @ bf16(wr)): [2T-1, D], head h in columns
-    # h*dh.., one tensor-core product (flash_ref's operand roundings)
-    r = torch.matmul(_pos_table(T, D, q.device),
-                     wr if wr.dtype == bf else wr.to(bf))
-    u32, vb32 = f32(u), f32(vb)
     lens = lengths if lengths.dtype == torch.int32 and \
         lengths.is_contiguous() else lengths.to(torch.int32).contiguous()
+    strides = (*qb.stride()[:3], *kb.stride()[:3], *vbf.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _lib.load("flash_mhsa")
-    err = lib.flash_mhsa_rel_launch(
-        qb.data_ptr(), kb.data_ptr(), vbf.data_ptr(), r.data_ptr(),
-        u32.data_ptr(), vb32.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, T, dh, *qb.stride()[:3], *kb.stride()[:3], *vbf.stride()[:3],
-        1.0 / math.sqrt(dh), int(out_f32), _copy_width(dh, (qb, kb, vbf, r)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _lib.check(err, "flash_mhsa_rel")
+    if band is None:
+        err = lib.flash_mhsa_launch(
+            qb.data_ptr(), kb.data_ptr(), vbf.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), B, H, T, dh, *strides, 1.0 / math.sqrt(dh),
+            int(out_f32), _copy_width(dh, (qb, kb, vbf)), stream)
+    else:
+        # R = bf16(bf16(sinusoid) @ bf16(wr)): [2T-1, D], head h in columns
+        # h*dh.., one tensor-core product (flash_ref's operand roundings)
+        r = torch.matmul(_pos_table(T, D, q.device),
+                         wr if wr.dtype == bf else wr.to(bf))
+        u32, vb32 = f32(u), f32(vb)
+        err = lib.flash_mhsa_rel_launch(
+            qb.data_ptr(), kb.data_ptr(), vbf.data_ptr(), r.data_ptr(),
+            u32.data_ptr(), vb32.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            B, H, T, dh, *strides, 1.0 / math.sqrt(dh), int(out_f32),
+            _copy_width(dh, (qb, kb, vbf, r)), stream)
+    _lib.check(err, name)
+    return out.permute(1, 2, 0, 3)
+
+
+def _flash_forward(q, k, v, wr, u, vb, lengths,
+                   out_f32: bool) -> torch.Tensor:
+    """The forward of `flash_mhsa_rel`: the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_mhsa_rel_plain(q, k, v, wr, u, vb, lengths, out_f32)
+    out = _launch("flash_mhsa_rel", q, k, v, lengths, out_f32, (wr, u, vb))
     global launches
     launches += 1
-    return out.permute(1, 2, 0, 3)
+    return out
+
+
+def flash_mhsa_plain(q, k, v, lengths, out_f32: bool = False
+                     ) -> torch.Tensor:
+    """The position-free attention in plain PyTorch: bf16 operands fed to
+    float32 products, scores (q . k) / sqrt(dh), keys at or past
+    lengths[b] masked (a length of 0 averages v over the T keys), the
+    float32 softmax rounded to bf16 before its product with v."""
+    _check_qkv("flash_mhsa_plain", q, k, v, lengths)
+    B, H, T, dh = q.shape
+    bf, f32 = torch.bfloat16, torch.float32
+    mx = lambda a: a.to(bf).float()                     # noqa: E731
+    scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=f32))
+    scores = torch.matmul(mx(q), mx(k).transpose(-1, -2)) * scale
+    valid = (torch.arange(T, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])            # [B, S]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.tensor(NEG, dtype=f32, device=q.device))
+    out = torch.matmul(mx(torch.softmax(scores, dim=-1)), mx(v))
+    return out if out_f32 else out.to(bf)
+
+
+def flash_mhsa(q, k, v, lengths, out_f32: bool = False) -> torch.Tensor:
+    """q, k, v: [B, H, T, dh] (any float dtype, any strides; bf16 inside),
+    lengths: [B] valid key counts. Returns [B, H, T, dh], float32 when
+    out_f32 else bf16: on CUDA tensors one launch of `flash_mhsa_kernel`,
+    whose output is a view of a [T, B, H, dh] tensor (the time-major
+    caller reshapes it without a copy); `flash_mhsa_plain` on CPU
+    tensors. Forward only: it raises for inputs that require grad while
+    autograd records."""
+    if q.device.type == "cpu":
+        return flash_mhsa_plain(q, k, v, lengths, out_f32)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("flash_mhsa is forward only")
+    out = _launch("flash_mhsa", q, k, v, lengths, out_f32)
+    global position_free_launches
+    position_free_launches += 1
+    return out
 
 
 def flash_mhsa_rel_vjp(q, k, v, wr, u, vb, lengths, g,

@@ -86,6 +86,9 @@ PORT_ONLY = {
     "gasr_tpu_torch.ops.cuda":
         "the hand-written CUDA kernels and their loader, in place of "
         "`gasr_tpu/ops/pallas`'s TPU kernels",
+    "gasr_tpu_torch.models.wav2vec2":
+        "wav2vec 2.0 CTC on the raw waveform, a model family of the port's "
+        "own: the JAX package has no such model",
     "gasr_tpu_torch.graft_entry":
         "the port's entry points; JAX's are the repo root's "
         "`__graft_entry__.py`, outside the package",
