@@ -104,9 +104,11 @@ chip_smoke.py --wav2vec2`): the position-free attention kernel
 `flash_mhsa` at B = 64, H = 16, T' = 999, d_h = 64 against its plain
 version, its bound and scaled_dot_product_attention, the epilogue's GELU
 and plain forms at 63,936 rows and every bf16 value through the GELU,
-bit-equal to the plain version, then the cell's whole bf16 forward with
-its launches counted (24 flash_mhsa, 73 bias_act, 57 add_ln) and timed
-against the same forward with the eager attention.
+bit-equal to the plain version, the positional convolution's kernel
+`pos_conv` against a float64 convolution, its bound, its plain version
+and the cuDNN chain it replaced, then the cell's whole bf16 forward with
+its launches counted (24 flash_mhsa, 73 bias_act, 57 add_ln, 1 pos_conv)
+and timed against the same forward with the eager attention.
 Any failed check raises and the script exits non-zero. It imports
 nothing of JAX or of the JAX package.
 
@@ -1507,12 +1509,20 @@ def wav2vec2_phase(card):
     (W2 and the projection), each a float32 product and bias bit-equal to
     `bias_act_plain`, its device ms beside its byte bound and the eager
     chain's; then every bf16 value but the NaNs through the GELU,
-    bit-equal. Then the bf16 forward of `wav2vec2_large_lv60` under
+    bit-equal. `pos_conv` at the positional convolution's shape (K 128,
+    16 groups of 64 channels): its rounded sums ("none", a zero bias)
+    within one bf16 ulp, plus the float32 sum's slack, of a float64
+    convolution of the same bf16 operands for three utterances, the bias
+    and GELU bit-equal to `.add_(b)` and F.gelu on those sums, one launch
+    a call, its ms beside its operations bound, `pos_conv_plain`'s and
+    the cuDNN chain's it replaced (`conv1d_nwc`, `.add_(b)`, the slice,
+    F.gelu). Then the bf16 forward of `wav2vec2_large_lv60` under
     no_grad on the benchmark's weights and shapes (`asrbench/weights.py`),
     its launches counted from zero after a warm-up forward: a
     `flash_mhsa` and three `bias_act` (qkv, W1 with GELU, W2) and two
     `add_ln` a layer, the projection's `bias_act`, the encoder's seven
-    `add_ln` and the projection's and the first add's, and nothing else;
+    `add_ln` and the projection's and the first add's, one `pos_conv`,
+    and nothing else;
     the log-probs finite and normalised, their distance from the forward
     with the eager attention (attn_impl="xla"; not gated: the kernel
     rounds p~ to bf16, the eager route the normalised attention), and ms a
@@ -1522,11 +1532,14 @@ def wav2vec2_phase(card):
     import torch
     import torch.nn.functional as F
     from asrbench.counts import wav2vec2 as bench_counts
+    from asrbench.counts.bounds import least_s
     from gasr_tpu_torch.models import model_apply
     from gasr_tpu_torch.models.wav2vec2 import output_length
     from gasr_tpu_torch.ops.cuda import bias_act as kba
     from gasr_tpu_torch.ops.cuda import flash_mhsa as kfl
+    from gasr_tpu_torch.ops.conv import conv1d_nwc
     from gasr_tpu_torch.ops.cuda import launch_counts
+    from gasr_tpu_torch.ops.cuda import pos_conv as kpc
     dev = torch.device("cuda")
     bf = torch.bfloat16
     B, H, T, dh = 64, 16, 999, 64
@@ -1614,6 +1627,64 @@ def wav2vec2_phase(card):
           f"GELU bit-equal to bias_act_plain on {card}", flush=True)
     del vals, got, want
 
+    K, G = 128, 16
+    h = torch.randn((B, T, D), generator=gen, device=dev).to(bf)
+    w = (torch.randn((K, 64, D), generator=gen, device=dev)
+         / (64 * K) ** 0.5).to(bf)
+    b = (torch.randn((D,), generator=gen, device=dev) * 0.5).to(bf)
+    n0 = kpc.launches
+    pre = kpc.pos_conv(h, w, torch.zeros_like(b), "none")
+    got = kpc.pos_conv(h, w, b)
+    torch.cuda.synchronize()
+    check(kpc.launches == n0 + 2, "pos_conv: not one launch a call")
+    check(same(got, F.gelu(pre.clone().add_(b))),
+          "pos_conv: the bias and GELU differ from .add_(b) and F.gelu on "
+          "the kernel's sums")
+    rows3 = [0, B // 2, B - 1]
+
+    def conv64(x, wt):
+        y = F.conv1d(F.pad(x.double().permute(0, 2, 1), (K // 2, K // 2 - 1)),
+                     wt.double().permute(2, 1, 0), groups=G)
+        return y.permute(0, 2, 1)
+
+    ref = conv64(h[rows3], w)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(
+        ref.abs().clamp_min(2.0 ** -126))) - 7)
+    slack = conv64(h[rows3].abs(), w.abs()) * 2.0 ** -20
+    worst = float(((pre[rows3].double() - ref).abs() / (ulp + slack)).max())
+    check(worst <= 1.0, f"pos_conv [{B}, {T}, {D}] K {K}: a rounded sum "
+          f"{worst} ulps (with slack) from float64")
+    del ref, ulp, slack, pre, got
+
+    def chain():
+        y = conv1d_nwc(h, w, 1, (K // 2, K // 2), G).add_(b)
+        return F.gelu(y[:, :T])
+
+    chain_err = float((chain().float() - kpc.pos_conv(h, w, b).float())
+                      .abs().max())
+    ops = 2.0 * B * T * K * 64 * D
+    least, by = least_s(2 * (2 * B * T * D) + K * 64 * D * 2 + D * 2, ops,
+                        BF16_TENSOR_FLOPS)
+    pc = dict(
+        ms=cuda_events_ms(lambda: kpc.pos_conv(h, w, b), iters=20,
+                          warmup=2),
+        plain_ms=cuda_events_ms(lambda: kpc.pos_conv_plain(h, w, b),
+                                iters=2),
+        library_ms=cuda_events_ms(chain, iters=5, warmup=1),
+        library_call="conv1d_nwc (cuDNN's grouped conv) + .add_(b) + "
+                     "slice + F.gelu",
+        library_max_abs_err=chain_err, max_ulps_float64=worst,
+        bound_ms=least * 1e3, bound_by=by, shape=[B, T, D, K, G])
+    print(f"pos_conv [{B}, {T}, {D}] K {K}, {G} groups (pos_conv_kernel) on "
+          f"{card}: {pc['ms']:.4f} ms a launch "
+          f"({ops / pc['ms'] / 1e9:.1f} TFLOP/s); bound "
+          f"{pc['bound_ms']:.4f} ms ({by}), "
+          f"{100 * pc['bound_ms'] / pc['ms']:.1f}% of it; plain "
+          f"{pc['plain_ms']:.4f} ms; the cuDNN chain {pc['library_ms']:.4f} "
+          f"ms (max |chain - kernel| {chain_err}); rounded sums within "
+          f"{worst:.3f} ulp of float64", flush=True)
+    del h, w, b
+
     cfg, params, xin = batch_cell_forward_inputs("wav2vec2_large_lv60", 31,
                                                  gen)
     n_layers = len(params["layers"])
@@ -1631,7 +1702,7 @@ def wav2vec2_phase(card):
     after = launch_counts()
     runs = {name: after[name] - before[name] for name in after}
     expect = {"flash_mhsa": n_layers, "bias_act": 3 * n_layers + 1,
-              "add_ln": 7 + 1 + 1 + 2 * n_layers}
+              "add_ln": 7 + 1 + 1 + 2 * n_layers, "pos_conv": 1}
     check({name: n for name, n in runs.items() if n} == expect,
           f"wav2vec2_large_lv60 forward: launches {runs}, expected {expect}")
     T_out = output_length(cfg.input_size * cfg.seg_len)
@@ -1652,7 +1723,7 @@ def wav2vec2_phase(card):
           f"{gap} (not gated); ms a forward, eager attention / kernel / "
           f"kernel / eager attention: "
           f"{', '.join(f'{t:.3f}' for t in times)}", flush=True)
-    report = dict(bias_act=epilogue,
+    report = dict(bias_act=epilogue, pos_conv=pc,
                   forward=dict(launches=expect, lp_gap_eager_attention=gap,
                                ms_eager_kernel_kernel_eager=times))
     del params, xin
@@ -1726,9 +1797,9 @@ def wav2vec2_main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"kernel build: "
-          f"{_lib.build_all(['flash_mhsa', 'bias_act', 'add_ln']):.1f} s "
-          f"(flash_mhsa, bias_act, add_ln)", flush=True)
+    names = ['flash_mhsa', 'bias_act', 'add_ln', 'pos_conv']
+    print(f"kernel build: {_lib.build_all(names):.1f} s "
+          f"({', '.join(names)})", flush=True)
     flash, report, runs = wav2vec2_phase(card)
     print(json.dumps({"flash_mhsa": flash, "wav2vec2": report,
                       "launches": runs}))

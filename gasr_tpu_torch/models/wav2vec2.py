@@ -33,7 +33,11 @@ added at bf16 (`ops/conv.py::conv1d_nwc`). On a bf16 CUDA forward
 outside autograd each LayerNorm is an `add_ln` launch (with the residual
 add before it in the layers: 2 a layer), each linear's epilogue a
 `bias_act` launch (qkv, W1 with GELU, W2: 3 a layer, and the projection),
-and the attention a `flash_mhsa` launch (`ops/attention.py::mhsa`).
+the attention a `flash_mhsa` launch (`ops/attention.py::mhsa`), and the
+positional convolution with its bias and GELU one `pos_conv` launch
+(`ops/cuda/pos_conv.py`, at 64 channels a group; the same sums in another
+order than cuDNN's, then the same roundings); the feature encoder's
+convolutions stay on cuDNN.
 
 Params (the benchmark's weights have the same tree): "fe" [7] of {"w"
 [k, C_in, C] (WIO), "b", "ln"}; "fp" {"ln", "w" [512, d], "b"}; "pos"
@@ -53,6 +57,7 @@ from gasr_tpu_torch.config import Config
 from gasr_tpu_torch.models.conformer import _add_ln, _dtype, _ln_init, _lin
 from gasr_tpu_torch.ops.attention import mhsa, mhsa_init
 from gasr_tpu_torch.ops.conv import conv1d_nwc
+from gasr_tpu_torch.ops.cuda.pos_conv import conv_gelu
 from gasr_tpu_torch.ops.linear import linear, linear_init, uniform_init
 from gasr_tpu_torch.runtime.profiler import span
 
@@ -129,12 +134,12 @@ def _ln(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(w: torch.Tensor, b: torch.Tensor, h: torch.Tensor, stride: int,
-          cd, pads=(0, 0), groups: int = 1) -> torch.Tensor:
+          cd) -> torch.Tensor:
     """h [B, L, C] -> conv + bias [B, L', O] at h's dtype (the conv's
     float32 sums rounded once, the bias added at that dtype)."""
     if cd is not None:
         w, b = w.to(cd), b.to(cd)
-    return conv1d_nwc(h, w, stride, pads, groups).add_(b)
+    return conv1d_nwc(h, w, stride).add_(b)
 
 
 def _pos_weight(p: dict) -> torch.Tensor:
@@ -161,10 +166,10 @@ def wav2vec2_apply(config: Config, params: dict, x: torch.Tensor,
             h = F.gelu(_ln(p["ln"], _conv(p["w"], p["b"], h, s, cd)))
     h = _lin(params["fp"], _ln(params["fp"]["ln"], h), cd)     # [B, T', d]
     with span("model.pos_conv"):
-        K, Tp = hp["pos_kernel"], h.shape[1]
-        pc = _conv(_pos_weight(params["pos"]), params["pos"]["b"], h, 1, cd,
-                   (K // 2, K // 2), hp["pos_groups"])
-        pc = F.gelu(pc[:, :Tp])
+        w, b = _pos_weight(params["pos"]), params["pos"]["b"]
+        if cd is not None:
+            w, b = w.to(cd), b.to(cd)
+        pc = conv_gelu(h, w, b, hp["pos_groups"])
     layers = params["layers"]
     norms = [blk["ln1"] for blk in layers] + [params["ln_out"]]
     # time-major from here; each residual add with the LayerNorm after it

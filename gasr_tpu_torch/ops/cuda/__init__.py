@@ -24,7 +24,8 @@ COUNTERS = {"topk": ("topk", "launches"),
             # two a loss and its backward (the forward and backward kernels)
             "ctc_loss": ("ctc_loss", "launches"),
             "add_ln": ("add_ln", "launches"),
-            "bias_act": ("bias_act", "launches")}
+            "bias_act": ("bias_act", "launches"),
+            "pos_conv": ("pos_conv", "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -30,14 +30,14 @@ BUILD = _PKG / "_build"
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # fused_decode, decode_tp and bias_act are held bit-equal to their plain
-# versions, and ctc_loss and add_ln compute their plain versions'
-# expressions in order:
+# versions, ctc_loss and add_ln compute their plain versions' expressions
+# in order, and pos_conv's epilogue is bias_act's:
 # -fmad=false stops nvcc from contracting a product into a following sum
 # across what are separate tensor ops in PyTorch. (topk and exchange_probe
 # do no float arithmetic.)
 _EXTRA_FLAGS = {"fused_decode": ["-fmad=false"], "decode_tp": ["-fmad=false"],
                 "ctc_loss": ["-fmad=false"], "add_ln": ["-fmad=false"],
-                "bias_act": ["-fmad=false"]}
+                "bias_act": ["-fmad=false"], "pos_conv": ["-fmad=false"]}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -93,6 +93,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "add_ln": {"add_ln_launch": [_P, _L, _L, _P, _L, _L, _I, _F] + [_P] * 4
                + [_I] * 4 + [_P]},
     "bias_act": {"bias_act_launch": [_P, _P, _P, _L, _I, _I, _I, _P]},
+    "pos_conv": {"pos_conv_launch": [_P] * 4 + [_I] * 7 + [_P]},
     "lstm_scan": {"lstm_scan_launch": [_P] * 6 + [_I] * 8 + [_P] * 6,
                   "lstm_scan_smem": [_I],
                   "lstm_scan_max_blocks": [_I],
